@@ -1,0 +1,399 @@
+#!/usr/bin/env python3
+"""Smoke run of madsim_tpu_torch, the PyTorch/CUDA port, on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (the script exits non-zero before its
+last line):
+  1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
+  2. build: compile the CUDA kernels from ops/csrc (nvcc, one per source);
+  3. kernels: each kernel bit for bit against its plain PyTorch twin on
+     the card, at the flagship shapes and at edge shapes (odd W, ragged
+     L, all-invalid lanes, n=0), with its median time, the twin's time
+     and the least time the card could take (bound);
+  4. card against CPU: run_batch of 256 flagship seeds on both devices
+     must give equal results; then the overcommit bug (COMMIT_TO_LOG_LEN)
+     on 64 seeds that hold its known failures, through run_batch and a
+     short stream, must fail the same lanes with the same codes, digest
+     trails and fail ring on both;
+  5. flagship stream: the MadRaft-5 hunt at 8192 lanes through
+     make_stream_runner(batch=8192, segment_steps=384), one warm run
+     and one timed run of 2*8192 seeds, with each kernel's launch count
+     from the timed run (it must be > 0); failing seeds found on the
+     card are re-run on the CPU and must fail with the same code;
+  6. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+
+It needs a CUDA card and the repository beside it; with neither it
+exits non-zero and prints no result.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+# H100 SXM peak rates (NVIDIA data sheet, 700 W): HBM bytes/s, and the
+# non-tensor-core 32-bit rate, used for the integer operations here.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+
+FLAGSHIP = dict(
+    horizon_us=5_000_000, queue_capacity=32, rng_stream=3, clog_packed=True,
+    flight_recorder=True, coverage=True, provenance=False,
+)
+FLAGSHIP_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
+LANES, SEGMENT_STEPS = 8192, 384
+CHECK_LANES, CHECK_STEPS = 256, 2000  # phase 4
+# phase 4b: OvercommitRaft fails these seeds with LOG_MATCHING under the
+# flagship config (the first at step 364, the last two by step 533)
+OVERCOMMIT_SEEDS, OVERCOMMIT_STEPS = [232949, 134519, 143336], 640
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    lines = smi.stdout.strip().splitlines() if smi.returncode == 0 else []
+    if not lines:
+        fail(f"nvidia-smi gave no card: {smi.stderr.strip()}")
+    return lines[0]
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def device_time_ms(fn, reps=100):
+    """Per-call device time of `fn`: a sleep kernel holds the stream
+    while the host queues `reps` calls, so the timed region is the calls
+    back to back on the card, not the host's launch rate; the median of
+    5 such runs."""
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / reps)
+    return statistics.median(runs)
+
+
+def wall_time_ms(fn, reps=10):
+    """Per-call time of host-bound code that ends on the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def random_queues(g, lanes, q, p, dev):
+    import torch
+
+    def t(a):
+        return torch.as_tensor(a).to(dev)
+
+    time_ = g.integers(0, 50, (lanes, q)).astype("int32")  # dense: many ties
+    seq = g.permuted(g.integers(0, 2**31 - 1, (lanes, q)), axis=1).astype("int32")
+    valid = g.random((lanes, q)) < 0.5
+    valid[::5] = False  # all-invalid lanes pop slot 0
+    vals = [g.integers(-2**31, 2**31, (lanes, q)).astype("int32") for _ in range(3)]
+    payload = g.integers(-2**31, 2**31, (lanes, q, p)).astype("int32")
+    return [t(time_), t(seq), t(valid), *(t(v) for v in vals), t(payload)]
+
+
+def max_abs_err(a_outs, b_outs):
+    import torch
+
+    err = 0
+    for a, b in zip(a_outs, b_outs):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"output shape/dtype differ: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        if a.numel():
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+    return err
+
+
+def flat_prefix(r):
+    idx, any_v, popped, payload, words, digest = r
+    return [idx, any_v, *popped, payload, words, *digest]
+
+
+def check_step_kernel(kernels, g, dev, state, total_words):
+    """Kernel vs twin on the main path's inputs and on edge cases."""
+    import torch
+
+    cases = []
+    main = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
+            state.eq_src, state.eq_payload, state.rng_key, state.step]
+    cases.append(("flagship", main, total_words, (state.fr["d0"], state.fr["d1"])))
+    for lanes, q, p, w, digest in ((1000, 32, 6, 7, True), (37, 64, 4, 10, False), (5, 40, 3, 1, True)):
+        qs = random_queues(g, lanes, q, p, dev)
+        key = torch.as_tensor(g.integers(-2**31, 2**31, (lanes, 2)).astype("int32")).to(dev)
+        step = torch.as_tensor(g.integers(0, 2**31, lanes).astype("int32")).to(dev)
+        d = tuple(torch.as_tensor(g.integers(-2**31, 2**31, lanes).astype("int32")).to(dev) for _ in range(2))
+        cases.append((f"L{lanes}-Q{q}-P{p}-W{w}", qs + [key, step], w, d if digest else (None, None)))
+    err = 0
+    for name, ins, w, (d0, d1) in cases:
+        got = flat_prefix(kernels.step_megakernel(*ins, w, d0=d0, d1=d1))
+        want = flat_prefix(kernels.step_prefix_plain(*ins, w, d0, d1))
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        if e:
+            fail(f"step_megakernel disagrees with its twin on {name}: max abs err {e}")
+        err = max(err, e)
+    ms = device_time_ms(lambda: kernels.step_megakernel(*main, total_words, d0=state.fr["d0"], d1=state.fr["d1"]))
+    plain_ms = wall_time_ms(lambda: kernels.step_prefix_plain(*main, total_words, state.fr["d0"], state.fr["d1"]))
+    lanes, q = state.eq_time.shape
+    p = state.eq_payload.shape[2]
+    # bytes: the time, seq and valid planes whole; one 32-byte sector for
+    # each gathered field (kind, node, src, the payload row); key, step
+    # and digest in; idx, any, the tuple, payload, words and digest out
+    bytes_in = lanes * (q * (4 + 4 + 1) + 4 * 32 + 8 + 4 + 8)
+    bytes_out = lanes * (4 + 1 + 4 * 4 + 4 * p + 4 * total_words + 8)
+    # operations: per Threefry pair 20 rounds of 3 + 5 injections of 3,
+    # per digest word ~11; the argmin ~3 compares a slot per stage
+    half = (total_words + 1) // 2
+    ops = lanes * (half * (20 * 3 + 5 * 3 + 2) + (4 + p + total_words) * 11 + 9 * q)
+    return err, ms, plain_ms, bytes_in + bytes_out, ops
+
+
+def check_cov_flush(kernels, g, dev, state):
+    import torch
+
+    cov = state.cov
+    cases = [("flagship", cov["map"], cov["buf"], cov["buf_n"])]
+    for lanes, c, w in ((1000, 16, 512), (33, 5, 64)):
+        m = torch.as_tensor(g.integers(-2**31, 2**31, (lanes, w)).astype("int32")).to(dev)
+        buf = torch.as_tensor(g.integers(0, w * 32, (lanes, c)).astype("int32")).to(dev)
+        n = torch.as_tensor(g.integers(0, c + 1, lanes).astype("int32")).to(dev)
+        n[::4] = 0
+        cases.append((f"L{lanes}-C{c}-W{w}", m, buf, n))
+    err = 0
+    for name, m, buf, n in cases:
+        got = kernels.cov_flush_batch(m.clone(), buf, n)
+        want = kernels.cov_flush_plain(m, buf, n)
+        torch.cuda.synchronize()
+        e = max_abs_err([got], [want])
+        if e:
+            fail(f"cov_flush disagrees with its twin on {name}: max abs err {e}")
+        err = max(err, e)
+    scratch = cov["map"].clone()
+    ms = device_time_ms(lambda: kernels.cov_flush_batch(scratch, cov["buf"], cov["buf_n"]))
+    plain_ms = wall_time_ms(lambda: kernels.cov_flush_plain(cov["map"], cov["buf"], cov["buf_n"]))
+    lanes, c = cov["buf"].shape
+    live = int(cov["buf_n"].sum())
+    # bytes: the buffer and counts read once; one 32-byte sector read and
+    # written per distinct live (lane, sector). A sector holds 8 map
+    # words, 256 slots (slot >> 8), so the entries of a lane that fall in
+    # one sector cost one read-modify-write between them
+    slots = cov["buf"].to(torch.int64)
+    live_mask = torch.arange(c, device=dev)[None, :] < cov["buf_n"][:, None]
+    lane_ids = torch.arange(lanes, device=dev)[:, None].expand(-1, c)
+    sectors = torch.unique((lane_ids * (cov["map"].shape[1] // 8) + (slots >> 8))[live_mask]).numel()
+    nbytes = lanes * c * 4 + lanes * 4 + sectors * 64
+    ops = lanes * c * 4 + live * 3
+    return err, ms, plain_ms, nbytes, ops, live, sectors
+
+
+def profile_steps(eng, state, steps):
+    """Wall time of `steps` event steps at the main path's shape, and the
+    card's busy time in them from the kernels torch.profiler records
+    (None when it records none), with the kernels that take it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = eng.step_batch(state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_us = sum(us for us, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {
+        "steps": steps,
+        "ms_per_step_profiled": wall_us / steps / 1e3,
+        "device_busy_ms_per_step": busy_us / steps / 1e3 if by_name else None,
+        "device_idle_share": 1 - busy_us / wall_us if by_name else None,
+        "kernels_per_step": sum(n for _, n in by_name.values()) / steps if by_name else None,
+        "top_kernels": [{"name": k[:90], "count": n, "us": round(us, 1)} for k, (us, n) in top],
+    }
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import RaftMachine
+    from madsim_tpu_torch.models.raft import LOG_MATCHING
+    from madsim_tpu_torch.ops import build, kernels
+
+    # 1. device
+    print(card_line(), flush=True)
+    emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0], "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+
+    # 2. build
+    t0 = time.perf_counter()
+    libs = build.build()
+    build.load()
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs)})
+
+    cfg = EngineConfig(**FLAGSHIP, faults=FaultPlan(**FLAGSHIP_FAULTS))
+    eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), cfg)  # on the card
+    dev = eng.device
+
+    # 3. kernels against their twins, on the main path's inputs (a
+    #    flagship batch 112 steps in, its coverage buffers full as at a
+    #    cadence flush) and on edge shapes
+    g = np.random.default_rng(0)
+    state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
+    for _ in range(eng.config.cov_buffer):
+        state = eng.step_batch(state)
+    total_words = eng._rng_layout.total_words
+    s_err, s_ms, s_plain, s_bytes, s_ops = check_step_kernel(kernels, g, dev, state, total_words)
+    c_err, c_ms, c_plain, c_bytes, c_ops, c_live, c_sectors = check_cov_flush(kernels, g, dev, state)
+
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    s_bound, c_bound = bound(s_bytes, s_ops), bound(c_bytes, c_ops)
+    emit({"phase": "kernels", "step_megakernel": {"ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
+                                                  "bytes": s_bytes, "ops": s_ops},
+          "cov_flush": {"ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0], "bytes": c_bytes,
+                        "ops": c_ops, "live_entries": c_live, "live_sectors": c_sectors}})
+
+    # 4. the card against the CPU: 256 flagship seeds, whole results
+    seeds = np.arange(CHECK_LANES, dtype=np.uint32) + 10_000
+    cpu_eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), cfg, device="cpu")
+    t0 = time.perf_counter()
+    on_card = tree_to_numpy(eng.run_batch(seeds, CHECK_STEPS))
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = tree_to_numpy(cpu_eng.run_batch(seeds, CHECK_STEPS))
+    t_cpu = time.perf_counter() - t0
+
+    def diff(a, b, path=""):
+        if isinstance(a, dict):
+            return [d for k in a for d in diff(a[k], b[k], f"{path}.{k}")]
+        return [] if a.dtype == b.dtype and np.array_equal(a, b) else [path]
+
+    bad = diff(on_card, on_cpu)
+    if bad:
+        fail(f"run_batch on the card differs from the CPU in {bad[:8]}")
+    emit({"phase": "card_vs_cpu", "lanes": CHECK_LANES, "equal": True, "card_s": round(t_card, 3),
+          "cpu_s": round(t_cpu, 3), "max_steps": int(on_card["steps"].max())})
+
+    # 4b. the card against the CPU where lanes fail: the overcommit bug
+    #     (COMMIT_TO_LOG_LEN) on seeds that hold its known failures, through
+    #     run_batch (fail codes, digest trail) and a short stream (fail ring)
+    class OvercommitRaft(RaftMachine):
+        COMMIT_TO_LOG_LEN = True
+
+    over = OvercommitRaft(num_nodes=5, log_capacity=8)
+    over_card, over_cpu = Engine(over, cfg), Engine(over, cfg, device="cpu")
+    seeds = np.array(OVERCOMMIT_SEEDS + list(range(OVERCOMMIT_SEEDS[0] - 61, OVERCOMMIT_SEEDS[0])), np.uint32)
+    on_card = tree_to_numpy(over_card.run_batch(seeds, OVERCOMMIT_STEPS))
+    bad = diff(on_card, tree_to_numpy(over_cpu.run_batch(seeds, OVERCOMMIT_STEPS)))
+    if bad:
+        fail(f"overcommit run_batch on the card differs from the CPU in {bad[:8]}")
+    codes = on_card["fail_code"][: len(OVERCOMMIT_SEEDS)].tolist()
+    if not on_card["failed"][: len(OVERCOMMIT_SEEDS)].all() or set(codes) != {LOG_MATCHING}:
+        fail(f"the known overcommit seeds {OVERCOMMIT_SEEDS} did not all fail LOG_MATCHING: {codes}")
+    kw = dict(batch=32, segment_steps=64, seed_start=OVERCOMMIT_SEEDS[0] - 40, max_steps=384)
+    s_card, s_cpu = over_card.run_stream(64, **kw), over_cpu.run_stream(64, **kw)
+    keys = ("completed", "failing", "infra", "abandoned", "seeds_consumed")
+    bad = [k for k in keys if s_card[k] != s_cpu[k]]
+    bad += [k for k in ("coverage", "flight_recorder") if s_card["stats"][k] != s_cpu["stats"][k]]
+    if bad or (OVERCOMMIT_SEEDS[0], LOG_MATCHING) not in s_card["failing"]:
+        fail(f"overcommit stream: card and CPU differ in {bad}, or seed {OVERCOMMIT_SEEDS[0]} was missed: "
+             f"{s_card['failing']}")
+    emit({"phase": "card_vs_cpu_failing", "lanes": len(seeds), "equal": True,
+          "n_failed": int(on_card["failed"].sum()), "stream_failing": s_card["failing"]})
+
+    # 5. the flagship stream, through the entry points a user calls
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
+    run(1)  # warm: one segment
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run(2 * LANES, seed_start=LANES)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"the flagship stream never launched {name}")
+    segments = res["stats"]["device_segments"]
+    emit({"phase": "stream", "completed": res["completed"], "failing": res["failing"][:8],
+          "n_failing": len(res["failing"]), "infra": res["infra"][:8], "n_abandoned": len(res["abandoned"]),
+          "seeds_consumed": res["seeds_consumed"], "seconds": round(elapsed, 3),
+          "seeds_per_s": round(res["completed"] / elapsed, 2), "segments": segments,
+          "ms_per_step": round(elapsed * 1e3 / (segments * SEGMENT_STEPS), 3),
+          "slots_hit": res["stats"]["coverage"]["slots_hit"], "launches": launches,
+          "flight_recorder": res["stats"]["flight_recorder"]})
+    if res["completed"] < 2 * LANES:
+        fail(f"the stream completed {res['completed']} < {2 * LANES} seeds")
+    found = (res["failing"] + res["infra"])[:4]
+    if found:
+        replay = cpu_eng.run_batch(np.array([s for s, _ in found], dtype=np.uint32), 10_000)
+        codes = [int(c) if f else 0 for f, c in zip(replay.failed.tolist(), replay.fail_code.tolist())]
+        if codes != [c for _, c in found]:
+            fail(f"failing seeds {found} replayed on the CPU with codes {codes}")
+    emit({"phase": "replay_on_cpu", "seeds": [s for s, _ in found], "same_codes": True})
+
+    # where a flagship step's time goes: a short profiler window
+    emit({"phase": "profile", **profile_steps(eng, state, steps=8)})
+
+    # 6. the kernels line
+    emit({"kernels": [
+        {"name": "step_megakernel", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/step_megakernel.cu",
+         "replaces": "madsim_tpu/ops/pallas_pop.py:310", "launches": launches["step_megakernel"],
+         "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
+         "bound_by": s_bound[1], "library_ms": None},
+        {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
+         "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
+         "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
+         "bound_by": c_bound[1], "library_ms": None},
+    ]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
