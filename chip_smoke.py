@@ -6,11 +6,13 @@
 Phases, each fatal on failure (the script exits non-zero before its
 last line):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: compile the CUDA kernels from ops/csrc (nvcc, one per source);
+  2. build: compile the CUDA kernels from ops/csrc (nvcc, one per source,
+     all started together);
   3. kernels: each kernel bit for bit against its plain PyTorch twin on
-     the card, at the flagship shapes and at edge shapes (odd W, ragged
-     L, all-invalid lanes, n=0), with its median time, the twin's time
-     and the least time the card could take (bound);
+     the card, at its main path's shapes and at edge shapes (odd W,
+     ragged L, L = 1, Q = 40 / 96 / 256, all-invalid lanes, n=0), with
+     its median time, the twin's time and the least time the card could
+     take (bound);
   4. card against CPU: run_batch of 256 flagship seeds on both devices
      must give equal results; then the overcommit bug (COMMIT_TO_LOG_LEN)
      on 64 seeds that hold its known failures, through run_batch and a
@@ -21,13 +23,27 @@ last line):
      and one timed run of 2*8192 seeds, with each kernel's launch count
      from the timed run (it must be > 0); failing seeds found on the
      card are re-run on the CPU and must fail with the same code;
-  6. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+  6. the default split-chain stream (rng_stream=2), whose step prefix is
+     the pop + gather kernel: run_batch of 256 flagship seeds with the
+     recorder and coverage off and of 64 with both on (card_vs_cpu_v2),
+     64 multi-Paxos seeds under dir, group and storm faults
+     (card_vs_cpu_multipaxos), all equal to the CPU; the single-lane
+     replay of seed 66531 (replay_66531: OvercommitRaft fails
+     LOG_MATCHING, RaftMachine passes, trace and state equal to the
+     CPU's), which pops with the pop kernel; the five multi-Paxos entries
+     of corpus.json (corpus: code 150 and the recorded digest trail);
+     and the 8192-lane flagship stream under rng_stream=2 (stream_v2);
+  7. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+
+Each path's launch counts are set to 0 just before it runs and read
+just after; a kernel of the path that never launched fails the run.
 
 It needs a CUDA card and the repository beside it; with neither it
 exits non-zero and prints no result.
 """
 
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -48,6 +64,13 @@ CHECK_LANES, CHECK_STEPS = 256, 2000  # phase 4
 # phase 4b: OvercommitRaft fails these seeds with LOG_MATCHING under the
 # flagship config (the first at step 364, the last two by step 533)
 OVERCOMMIT_SEEDS, OVERCOMMIT_STEPS = [232949, 134519, 143336], 640
+# phase 6: the split-chain stream
+V2_CHECK_LANES, V2_RECORDER_LANES, MULTIPAXOS_LANES = 256, 64, 64
+MULTIPAXOS = dict(horizon_us=8_000_000, queue_capacity=96)
+MULTIPAXOS_FAULTS = dict(n_faults=3, allow_dir_clog=True, allow_group=True, allow_storm=True,
+                         t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=800_000)
+REPLAY_SEED = 66531  # the overcommit regression of tests/test_engine.py
+REPLAY_CONFIG = dict(horizon_us=5_000_000, queue_capacity=32)
 
 
 def card_line():
@@ -176,6 +199,49 @@ def check_step_kernel(kernels, g, dev, state, total_words):
     return err, ms, plain_ms, bytes_in + bytes_out, ops
 
 
+def check_pop_kernels(kernels, g, dev, state):
+    """The pop + gather and pop kernels against their twins on the main
+    path's inputs (a split-chain flagship batch) and on edge shapes:
+    8191 lanes of Q = 96 with empty lanes, one lane, Q = 40 and Q = 256."""
+    import torch
+
+    main = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
+            state.eq_src, state.eq_payload]
+    cases = [("flagship-v2", main)]
+    for lanes, q, p in ((8191, 96, 6), (1, 32, 6), (13, 40, 4), (64, 256, 6)):
+        qs = random_queues(g, lanes, q, p, dev)
+        qs[0][::3, : q // 4] = 2**31 - 1  # INT32_MAX is a legal time
+        cases.append((f"L{lanes}-Q{q}-P{p}", qs))
+    gather_err = pop_err = 0
+    for name, ins in cases:
+        got = kernels.pop_gather_batch(*ins)
+        want = kernels.pop_gather_plain(*ins)
+        got_pop, want_pop = kernels.pop_earliest_batch(*ins[:3]), kernels.pop_earliest_plain(*ins[:3])
+        torch.cuda.synchronize()
+        e = max_abs_err([got[0], got[1], *got[2], got[3]], [want[0], want[1], *want[2], want[3]])
+        e_pop = max_abs_err(got_pop, want_pop)
+        if e or e_pop:
+            fail(f"pop kernels disagree with their twins on {name}: max abs err {e} / {e_pop}")
+        gather_err, pop_err = max(gather_err, e), max(pop_err, e_pop)
+    lanes, q = state.eq_time.shape
+    p = state.eq_payload.shape[2]
+    out = {}
+    for name, fn, plain, nbytes in (
+        # bytes: time, seq and valid planes whole (9 B a slot); one 32-byte
+        # sector for each gathered field (kind, node, src, the payload
+        # row); idx, any, the four fields and the payload row out
+        ("pop_gather", lambda: kernels.pop_gather_batch(*main), lambda: kernels.pop_gather_plain(*main),
+         lanes * (9 * q + 4 * 32 + 4 + 1 + 16 + 4 * p)),
+        ("pop_earliest", lambda: kernels.pop_earliest_batch(*main[:3]),
+         lambda: kernels.pop_earliest_plain(*main[:3]), lanes * (9 * q + 4 + 1)),
+    ):
+        out[name] = {"err": gather_err if name == "pop_gather" else pop_err, "ms": device_time_ms(fn),
+                     "plain_ms": wall_time_ms(plain), "bytes": nbytes,
+                     # three compares a slot, one per argmin stage
+                     "ops": lanes * 3 * q}
+    return out
+
+
 def check_cov_flush(kernels, g, dev, state):
     import torch
 
@@ -246,6 +312,142 @@ def profile_steps(eng, state, steps):
     }
 
 
+def tree_diff(a, b, path=""):
+    """Paths where two numpy trees (nested dicts) differ."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [f"{path}: keys differ"]
+        return [d for k in a for d in tree_diff(a[k], b[k], f"{path}.{k}")]
+    return [] if a.dtype == b.dtype and np.array_equal(a, b) else [path]
+
+
+def card_vs_cpu(make_engine, seeds, max_steps, what):
+    """run_batch of `seeds` on the card and on the CPU; fails unless the
+    results are equal leaf for leaf. Returns (card result, card s, CPU s)."""
+    from madsim_tpu_torch.interop import tree_to_numpy
+
+    t0 = time.perf_counter()
+    on_card = tree_to_numpy(make_engine(None).run_batch(seeds, max_steps))
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = tree_to_numpy(make_engine("cpu").run_batch(seeds, max_steps))
+    t_cpu = time.perf_counter() - t0
+    bad = tree_diff(on_card, on_cpu)
+    if bad:
+        fail(f"{what}: run_batch on the card differs from the CPU in {bad[:8]}")
+    return on_card, t_card, t_cpu
+
+
+def split_chain_phases(torch, np, kernels):
+    """Phase 6: the default split-chain stream on the card. Returns the
+    timed v2 stream's launch counts, the replay's, and the v2 flagship
+    state the pop kernels are checked on."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.engine import audit, corpus
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import MultiPaxosMachine, RaftMachine, build_machine
+    from madsim_tpu_torch.models.multipaxos import AGREEMENT_MULTI
+    from madsim_tpu_torch.models.raft import LOG_MATCHING
+
+    raft = RaftMachine(num_nodes=5, log_capacity=8)
+    faults = FaultPlan(**FLAGSHIP_FAULTS)
+
+    def v2(recorder, device=None):
+        cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": 2, "flight_recorder": recorder, "coverage": recorder},
+                           faults=faults)
+        return Engine(raft, cfg, device=device)
+
+    # card_vs_cpu_v2: the recorder and coverage off, then both on
+    seeds = np.arange(V2_CHECK_LANES, dtype=np.uint32) + 20_000
+    off, t_card, t_cpu = card_vs_cpu(lambda d: v2(False, d), seeds, CHECK_STEPS, "v2, recorder off")
+    on, t_card_on, t_cpu_on = card_vs_cpu(lambda d: v2(True, d), seeds[:V2_RECORDER_LANES], CHECK_STEPS,
+                                          "v2, recorder on")
+    emit({"phase": "card_vs_cpu_v2", "lanes": V2_CHECK_LANES, "equal": True, "card_s": round(t_card, 3),
+          "cpu_s": round(t_cpu, 3), "max_steps": int(off["steps"].max()), "n_failed": int(off["failed"].sum()),
+          "recorder_on": {"lanes": V2_RECORDER_LANES, "equal": True, "card_s": round(t_card_on, 3),
+                          "cpu_s": round(t_cpu_on, 3)}})
+
+    # card_vs_cpu_multipaxos: dir, group and storm faults, delay off
+    mp_cfg = EngineConfig(**MULTIPAXOS, faults=FaultPlan(**MULTIPAXOS_FAULTS))
+    mp, t_card, t_cpu = card_vs_cpu(lambda d: Engine(MultiPaxosMachine(5), mp_cfg, device=d),
+                                    np.arange(MULTIPAXOS_LANES, dtype=np.uint32), CHECK_STEPS, "multipaxos")
+    emit({"phase": "card_vs_cpu_multipaxos", "lanes": MULTIPAXOS_LANES, "equal": True,
+          "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3), "max_steps": int(mp["steps"].max()),
+          "n_done": int(mp["done"].sum()), "n_failed": int(mp["failed"].sum())})
+
+    # replay_66531: the single-lane replay on the card, against the CPU's
+    rp_cfg = EngineConfig(**REPLAY_CONFIG, faults=faults)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    replays = {name: replay(Engine(build_machine(name), rp_cfg), REPLAY_SEED, max_steps=CHECK_STEPS)
+               for name in ("demo-overcommit-raft", "raft")}
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    replay_launches = dict(kernels.launches)
+    if replay_launches["pop_earliest"] <= 0:
+        fail("the card's replay never launched pop_earliest")
+    bad, over, honest = [], replays["demo-overcommit-raft"], replays["raft"]
+    if not (over.failed and over.fail_code == LOG_MATCHING) or honest.failed:
+        fail(f"seed {REPLAY_SEED}: overcommit gave {over.failed, over.fail_code}, raft {honest.failed}")
+    for name, on_card in replays.items():
+        on_cpu = replay(Engine(build_machine(name), rp_cfg, device="cpu"), REPLAY_SEED, max_steps=CHECK_STEPS)
+        if on_card.trace != on_cpu.trace:
+            bad.append(f"{name}: trace")
+        bad += [f"{name}: {d}" for d in tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))]
+    if bad:
+        fail(f"replay of seed {REPLAY_SEED}: the card differs from the CPU in {bad[:8]}")
+    emit({"phase": "replay_66531", "overcommit": [over.fail_code, len(over.trace)],
+          "raft": [honest.fail_code, len(honest.trace)], "card_s": round(t_card, 3),
+          "launches": replay_launches, "equal": True})
+
+    # corpus: the five multi-Paxos entries, with their digest trails
+    found = []
+    for entry in corpus.load(str(pathlib.Path(__file__).resolve().parent / "corpus.json")):
+        if entry.machine != "demo-nopromise-multipaxos":
+            continue
+        out = corpus.check(entry, build_machine)
+        trail = audit.audit_entry(entry, build_machine).trail
+        digests, final = trail.to_lists()
+        if not (out.ok and out.fail_code == AGREEMENT_MULTI) or digests != entry.digests \
+                or final != entry.digest_final:
+            fail(f"corpus entry seed {entry.seed}: {out.verdict}; trail {digests} {final} vs "
+                 f"{entry.digests} {entry.digest_final}")
+        found.append([entry.seed, out.fail_code, final[0]])
+    if len(found) != 5:
+        fail(f"corpus.json holds {len(found)} multi-Paxos entries, not 5")
+    emit({"phase": "corpus", "entries": found, "digest_trails_equal": True})
+
+    # stream_v2: the flagship hunt on the split-chain stream
+    eng = v2(True)
+    state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
+    run(1)  # warm: one segment
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run(2 * LANES, seed_start=LANES)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name in ("pop_gather", "cov_flush"):
+        if launches[name] <= 0:
+            fail(f"the v2 stream never launched {name}")
+    if launches["step_megakernel"]:
+        fail("the v2 stream launched the v3 step megakernel")
+    segments = res["stats"]["device_segments"]
+    emit({"phase": "stream_v2", "completed": res["completed"], "n_failing": len(res["failing"]),
+          "failing": res["failing"][:8], "n_infra": len(res["infra"]), "n_abandoned": len(res["abandoned"]),
+          "seconds": round(elapsed, 3), "seeds_per_s": round(res["completed"] / elapsed, 2),
+          "segments": segments, "ms_per_step": round(elapsed * 1e3 / (segments * SEGMENT_STEPS), 3),
+          "slots_hit": res["stats"]["coverage"]["slots_hit"], "launches": launches})
+    if res["completed"] < 2 * LANES:
+        fail(f"the v2 stream completed {res['completed']} < {2 * LANES} seeds")
+    return launches, replay_launches, state, eng
+
+
 def main():
     import torch
 
@@ -255,7 +457,6 @@ def main():
     import numpy as np
 
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
-    from madsim_tpu_torch.interop import tree_to_numpy
     from madsim_tpu_torch.models import RaftMachine
     from madsim_tpu_torch.models.raft import LOG_MATCHING
     from madsim_tpu_torch.ops import build, kernels
@@ -300,21 +501,8 @@ def main():
     # 4. the card against the CPU: 256 flagship seeds, whole results
     seeds = np.arange(CHECK_LANES, dtype=np.uint32) + 10_000
     cpu_eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), cfg, device="cpu")
-    t0 = time.perf_counter()
-    on_card = tree_to_numpy(eng.run_batch(seeds, CHECK_STEPS))
-    t_card = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    on_cpu = tree_to_numpy(cpu_eng.run_batch(seeds, CHECK_STEPS))
-    t_cpu = time.perf_counter() - t0
-
-    def diff(a, b, path=""):
-        if isinstance(a, dict):
-            return [d for k in a for d in diff(a[k], b[k], f"{path}.{k}")]
-        return [] if a.dtype == b.dtype and np.array_equal(a, b) else [path]
-
-    bad = diff(on_card, on_cpu)
-    if bad:
-        fail(f"run_batch on the card differs from the CPU in {bad[:8]}")
+    on_card, t_card, t_cpu = card_vs_cpu(lambda d: eng if d is None else cpu_eng, seeds, CHECK_STEPS,
+                                         "flagship")
     emit({"phase": "card_vs_cpu", "lanes": CHECK_LANES, "equal": True, "card_s": round(t_card, 3),
           "cpu_s": round(t_cpu, 3), "max_steps": int(on_card["steps"].max())})
 
@@ -327,10 +515,8 @@ def main():
     over = OvercommitRaft(num_nodes=5, log_capacity=8)
     over_card, over_cpu = Engine(over, cfg), Engine(over, cfg, device="cpu")
     seeds = np.array(OVERCOMMIT_SEEDS + list(range(OVERCOMMIT_SEEDS[0] - 61, OVERCOMMIT_SEEDS[0])), np.uint32)
-    on_card = tree_to_numpy(over_card.run_batch(seeds, OVERCOMMIT_STEPS))
-    bad = diff(on_card, tree_to_numpy(over_cpu.run_batch(seeds, OVERCOMMIT_STEPS)))
-    if bad:
-        fail(f"overcommit run_batch on the card differs from the CPU in {bad[:8]}")
+    on_card, _, _ = card_vs_cpu(lambda d: over_card if d is None else over_cpu, seeds, OVERCOMMIT_STEPS,
+                                "overcommit")
     codes = on_card["fail_code"][: len(OVERCOMMIT_SEEDS)].tolist()
     if not on_card["failed"][: len(OVERCOMMIT_SEEDS)].all() or set(codes) != {LOG_MATCHING}:
         fail(f"the known overcommit seeds {OVERCOMMIT_SEEDS} did not all fail LOG_MATCHING: {codes}")
@@ -355,8 +541,8 @@ def main():
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.launches)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("step_megakernel", "cov_flush"):
+        if launches[name] <= 0:
             fail(f"the flagship stream never launched {name}")
     segments = res["stats"]["device_segments"]
     emit({"phase": "stream", "completed": res["completed"], "failing": res["failing"][:8],
@@ -379,6 +565,15 @@ def main():
     # where a flagship step's time goes: a short profiler window
     emit({"phase": "profile", **profile_steps(eng, state, steps=8)})
 
+    # 6. the split-chain stream, and the pop kernels on its inputs
+    v2_launches, replay_launches, v2_state, v2_eng = split_chain_phases(torch, np, kernels)
+    pops = check_pop_kernels(kernels, g, dev, v2_state)
+    for name, k in pops.items():
+        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
+    emit({"phase": "pop_kernels", **{name: {key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bytes", "ops")}
+                                     for name, k in pops.items()}})
+    emit({"phase": "profile_v2", **profile_steps(v2_eng, v2_state, steps=8)})
+
     # 6. the kernels line
     emit({"kernels": [
         {"name": "step_megakernel", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/step_megakernel.cu",
@@ -389,6 +584,13 @@ def main():
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
          "bound_by": c_bound[1], "library_ms": None},
+        *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
+           "replaces": replaces, "launches": n, "max_abs_err": pops[name]["err"], "ms": pops[name]["ms"],
+           "plain_ms": pops[name]["plain_ms"], "bound_ms": pops[name]["bound_ms"],
+           "bound_by": pops[name]["bound_by"], "library_ms": None}
+          for name, replaces, n in (
+              ("pop_gather", "madsim_tpu/ops/pallas_pop.py:172", v2_launches["pop_gather"]),
+              ("pop_earliest", "madsim_tpu/ops/pallas_pop.py:143", replay_launches["pop_earliest"]))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,17 +1,20 @@
 """The engine: the discrete-event loop as batched PyTorch code.
 
-The port of `madsim_tpu/engine/core.py` for the flagship hunt's gates.
-Thousands of independent seed lanes advance in lockstep; every state
-tensor carries the lane dimension first. Each event step runs the step
-megakernel (pop + gather + v3 RNG block + digest, `ops/kernels.py`) and
+The port of `madsim_tpu/engine/core.py`. Thousands of independent seed
+lanes advance in lockstep; every state tensor carries the lane dimension
+first. Each event step runs a step-prefix kernel (`ops/kernels.py`) and
 then the lane step below, in which the timer, message and fault
 branches are computed for every lane and selected by event kind, and
 every write is a masked select, so a frozen lane writes back its old
-value and does not advance `step`.
+value and does not advance `step`. The prefix kernel is the step
+megakernel (pop + gather + v3 RNG block + digest) on the counter-based
+stream, and otherwise the pop + gather kernel, with the step's words
+drawn (and the digest folded) in PyTorch: always so on the default
+split-chain stream (`rng_stream=2`), whose key chain no kernel computes.
 
 Design rules shared with the reference (the determinism contract):
   * integer virtual time (int32 microseconds), no float latency math;
-  * counter-based Threefry RNG, one immutable key per lane;
+  * Threefry RNG under the partitionable lowering (`ops/step_rng.py`);
   * fixed-shape everything; overflow = lane failure (code OVERFLOW).
 
 Configurations outside this slice raise NotImplementedError naming the
@@ -40,8 +43,10 @@ from ..ops.coverage import (
     cov_slot,
     empty_cov_map,
 )
-from ..ops.kernels import cov_flush_batch, step_megakernel
-from ..ops.step_rng import RNG_STREAM_COUNTER, RNG_STREAM_LEGACY, RNG_STREAM_VERSIONS, layout_for
+from ..ops.kernels import cov_flush_batch, pop_gather_batch, step_megakernel
+from ..ops.step_rng import (
+    RNG_STREAM_COUNTER, RNG_STREAM_LEGACY, RNG_STREAM_VERSIONS, layout_for, restart_key, step_words,
+)
 from ..ops.threefry import bits32, prng_key, split
 from ..utils import take, tree_where
 from .machine import Machine
@@ -151,8 +156,10 @@ def _clog_row_bools(row, n):
 @dataclasses.dataclass(frozen=True)
 class FaultPlan:
     """Per-lane randomized fault schedule (drawn from the lane seed); the
-    reference's fields and defaults. This slice runs the partition
-    (pair clog) and kill/restart kinds under the v1 derivation."""
+    reference's fields and defaults. The port runs the partition (pair
+    clog), kill/restart, directional clog, group partition and loss
+    storm kinds, under the v1 derivation (pair and kill only) or the v2
+    one (any other kind enabled)."""
 
     n_faults: int = 0
     allow_partition: bool = True
@@ -230,7 +237,8 @@ class EngineConfig:
 @dataclasses.dataclass
 class LaneState:
     """Every leaf has the lane dimension first. uint32 words (rng_key,
-    the digests, provenance words) are int32 bit patterns."""
+    the digests, provenance words) are int32 bit patterns. `fr` and
+    `cov` are {} when their gate is off, as in the reference."""
 
     now_us: torch.Tensor
     next_seq: torch.Tensor
@@ -259,8 +267,8 @@ class LaneState:
     fail_prov: torch.Tensor  # [L, 0]
     nodes: Any
     ring: Any  # {} (trace ring off)
-    fr: Any  # flight recorder: digest, checkpoint ring, metrics
-    cov: Any  # coverage: {"map", "buf", "buf_n"}
+    fr: Any  # flight recorder: digest, checkpoint ring, metrics ({} when off)
+    cov: Any  # coverage: {"map", "buf", "buf_n"} ({} when off)
 
 
 @dataclasses.dataclass
@@ -296,15 +304,16 @@ class StreamCarry:
     ab_seeds: torch.Tensor  # [C]
     ab_count: torch.Tensor
     counters: torch.Tensor  # [7]: completed, fail_count, ab_count, next_seed, over, segments, cov_slots_hit
-    fr_metrics: torch.Tensor  # [FR_METRICS_LEN]
-    cov_map: torch.Tensor  # int32[W]: global OR of lane maps
+    fr_metrics: torch.Tensor  # [FR_METRICS_LEN] ([0] with the recorder off)
+    cov_map: torch.Tensor  # int32[W]: global OR of lane maps ([0] with coverage off)
 
 
 def _unported(gate: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{gate} is not ported to madsim_tpu_torch yet (this slice runs the "
-        f"flagship hunt's gates: rng_stream=3, packed clogs, pair and kill "
-        f"faults, flight recorder and buffered coverage on)"
+        f"{gate} is not ported to madsim_tpu_torch yet (the port runs both "
+        f"RNG streams, packed clogs, the pair, kill, dir, group and storm "
+        f"fault kinds, packet loss, and the flight recorder and buffered "
+        f"coverage on or off)"
     )
 
 
@@ -338,27 +347,41 @@ class Engine:
             )
         if fp.n_faults > 0 and not fp.enabled_kinds():
             raise ValueError("FaultPlan has n_faults > 0 but every kind disabled")
+        if fp.allow_group and not 2 <= n <= 60:
+            raise ValueError("group partitions need 2 <= NUM_NODES <= 60 (two 30-bit mask words)")
+        if not 0 <= fp.storm_loss_u16 <= 65535:
+            raise ValueError("storm_loss_u16 must be in [0, 65535]")
         if n > CLOG_MAX_NODES:
             raise ValueError(f"clog_packed needs NUM_NODES <= {CLOG_MAX_NODES}")
-        if config.fr_digest_every < 1 or config.fr_digest_ring < 1:
+        if config.flight_recorder and (config.fr_digest_every < 1 or config.fr_digest_ring < 1):
             raise ValueError("flight_recorder needs fr_digest_every >= 1 and fr_digest_ring >= 1")
         if config.cov_band_bits_min not in (0, 3, 4):
             raise ValueError(f"cov_band_bits_min={config.cov_band_bits_min!r}: 0, 3 or 4")
         self.cov_band_bits = max(config.cov_band_bits_min, 3)
-        if not self.cov_band_bits + 4 <= config.cov_slots_log2 <= 20:
+        if config.coverage and not self.cov_band_bits + 4 <= config.cov_slots_log2 <= 20:
             raise ValueError(f"coverage needs {self.cov_band_bits + 4} <= cov_slots_log2 <= 20")
         if config.cov_buffer < 1 or config.cov_buffer > 1024:
             raise ValueError(f"cov_buffer={config.cov_buffer!r}: a depth in [1, 1024]")
+        # the step-prefix kernel: the megakernel computes the v3 word
+        # block, so it serves the counter-based stream only; None means
+        # "whenever it can", as the reference's auto setting on its chip
+        mk = config.pallas_megakernel
+        if mk and config.rng_stream != RNG_STREAM_COUNTER:
+            raise ValueError(
+                "pallas_megakernel requires rng_stream=3 (the kernel computes the "
+                "counter-based word block; v2's per-step key split-chain is not a counter)"
+            )
+        self.use_megakernel = config.rng_stream == RNG_STREAM_COUNTER and mk is not False
         self._rng_layout = layout_for(
             config.rng_stream,
             config.handler_rand_words,
             machine.MAX_MSGS,
-            loss_possible=False,
+            loss_possible=config.packet_loss_rate > 0 or fp.allow_storm,
             spike_possible=False,
             delay_enabled=False,
             restart_possible=fp.allow_kill,
         )
-        # one slot per step (no dup band in this slice), so flushing
+        # one slot per step (no dup band in the port yet), so flushing
         # every cov_buffer iterations can never overflow the buffer
         self._cov_flush_every = config.cov_buffer
         # the event kind of each of a step's pushes: messages, timers,
@@ -368,6 +391,8 @@ class Engine:
             [EV_MSG] * machine.MAX_MSGS + [EV_TIMER] * (machine.MAX_TIMERS + 1),
             dtype=torch.int32, device=self.device,
         )
+        # the v2 fault derivation's kind table, made once for the same reason
+        self._fault_kinds = torch.tensor(fp.enabled_kinds(), dtype=torch.int32, device=self.device)
 
     @staticmethod
     def _check_slice(cfg: EngineConfig) -> None:
@@ -375,21 +400,15 @@ class Engine:
         if cfg.rng_stream not in RNG_STREAM_VERSIONS:
             raise ValueError(f"rng_stream={cfg.rng_stream!r} unknown; supported: {RNG_STREAM_VERSIONS}")
         gates = [
-            ("rng_stream=2", cfg.rng_stream != RNG_STREAM_COUNTER),
             ("clog_packed=False", not cfg.clog_packed),
             ("strict_restart", fp.strict_restart),
             ("trace_ring>0", cfg.trace_ring > 0),
             ("provenance", cfg.provenance),
-            ("packet_loss_rate>0", cfg.packet_loss_rate > 0),
-            ("coverage=False", not cfg.coverage),
-            ("flight_recorder=False", not cfg.flight_recorder),
             ("cov_buffer=0", cfg.cov_buffer == 0),
-            ("pallas_megakernel=False (the port always runs its step kernel)",
-             cfg.pallas_megakernel is False),
             ("compile_cache_dir (a JAX compile cache)", cfg.compile_cache_dir is not None),
         ]
-        for name in ("allow_dir_clog", "allow_group", "allow_storm", "allow_delay",
-                     "allow_pause", "allow_skew", "allow_dup", "allow_torn", "allow_heal_asym"):
+        for name in ("allow_delay", "allow_pause", "allow_skew", "allow_dup", "allow_torn",
+                     "allow_heal_asym"):
             gates.append((f"FaultPlan.{name}", getattr(fp, name)))
         for gate, hit in gates:
             if hit:
@@ -407,7 +426,7 @@ class Engine:
     @torch.inference_mode()
     def init_batch(self, seeds) -> LaneState:
         """One fresh lane per uint32 seed: the reference's `init_lane`
-        (v1 fault derivation), batched."""
+        (v1 or v2 fault derivation), batched."""
         m, cfg, dev = self.machine, self.config, self.device
         seeds = self._seed_values(seeds)
         lanes = seeds.shape[0]
@@ -430,27 +449,52 @@ class Engine:
 
         fp = cfg.faults
         for f in range(fp.n_faults):
-            # v1 derivation (partition/kill), byte-stable with the reference
-            ks = split(k_faults, 6)
+            if not fp.uses_v2_kinds:
+                # v1 derivation (partition/kill), byte-stable with the reference
+                ks = split(k_faults, 6)
+            else:
+                # v2 derivation: uniform over the enabled kinds, every
+                # argument drawn whatever the kind (a fixed draw count)
+                ks = split(k_faults, 7)
             k_faults = ks[:, 0]
-            draw = [bits32(ks[:, j]) for j in range(1, 6)]
+            draw = [bits32(ks[:, j]) for j in range(1, ks.shape[1])]
             t = (fp.t_min_us + draw[0] % (fp.t_max_us - fp.t_min_us)).to(torch.int32)
             dur = (fp.dur_min_us + draw[1] % (fp.dur_max_us - fp.dur_min_us)).to(torch.int32)
             a = (draw[2] % n).to(torch.int32)
             b = (a + 1 + (draw[3] % (n - 1)).to(torch.int32)) % n
-            if fp.allow_partition and fp.allow_kill:
-                is_part = draw[4] % 2 == 0
+            if not fp.uses_v2_kinds:
+                if fp.allow_partition and fp.allow_kill:
+                    is_part = draw[4] % 2 == 0
+                else:
+                    is_part = torch.full((lanes,), fp.allow_partition, dtype=torch.bool, device=dev)
+                op_apply = torch.where(is_part, F_CLOG_PAIR, F_KILL).to(torch.int32)
+                op_undo = torch.where(is_part, F_UNCLOG_PAIR, F_RESTART).to(torch.int32)
+                arg1, arg2 = a, b
             else:
-                is_part = torch.full((lanes,), fp.allow_partition, dtype=torch.bool, device=dev)
-            op_apply = torch.where(is_part, F_CLOG_PAIR, F_KILL).to(torch.int32)
-            op_undo = torch.where(is_part, F_UNCLOG_PAIR, F_RESTART).to(torch.int32)
+                kind = self._fault_kinds[draw[4] % self._fault_kinds.numel()]
+                # group masks: arg1 carries node bits [0, 30), arg2 bits
+                # [30, 60); the high word takes its own split, only for
+                # machines of more than 30 nodes
+                lo_bits = min(n, CLOG_WORD_BITS)
+                mask_lo = 1 + (draw[5] % (2**lo_bits - 2)).to(torch.int32)
+                if n > CLOG_WORD_BITS:
+                    ks = split(k_faults, 2)
+                    k_faults = ks[:, 0]
+                    mask_hi = (bits32(ks[:, 1]) % 2 ** (n - CLOG_WORD_BITS)).to(torch.int32)
+                else:
+                    mask_hi = torch.zeros_like(mask_lo)
+                op_apply = 2 * kind
+                op_undo = op_apply + 1
+                arg1 = torch.where(kind == K_GROUP, mask_lo,
+                                   torch.where(kind == K_STORM, fp.storm_loss_u16, a)).to(torch.int32)
+                arg2 = torch.where(kind == K_GROUP, mask_hi, b).to(torch.int32)
             for slot_off, (tt, op) in enumerate(((t, op_apply), (t + dur, op_undo))):
                 msk = (slots == n + 2 * f + slot_off).expand(lanes, q)
                 eq_time = torch.where(msk, tt[:, None], eq_time)
                 eq_seq = torch.where(msk, next_seq + slot_off, eq_seq)
                 eq_kind = torch.where(msk, EV_FAULT, eq_kind)
                 eq_node = torch.where(msk, a[:, None], eq_node)
-                pay = torch.stack([op, a, b] + [torch.zeros_like(a)] * (p - 3), dim=1)
+                pay = torch.stack([op, arg1, arg2] + [torch.zeros_like(a)] * (p - 3), dim=1)
                 eq_payload = torch.where(msk[:, :, None], pay[:, None, :], eq_payload)
                 eq_valid = eq_valid | msk
             next_seq += 2
@@ -493,7 +537,10 @@ class Engine:
 
     def _empty_fr(self, eq_valid):
         """Digest at its IV, empty checkpoint ring (step -1), zeroed
-        metrics; `eq_n` starts at the initial queue occupancy."""
+        metrics; `eq_n` starts at the initial queue occupancy. {} with
+        the recorder off."""
+        if not self.config.flight_recorder:
+            return {}
         lanes, dev, r = eq_valid.shape[0], self.device, self.config.fr_digest_ring
         i32 = {"dtype": torch.int32, "device": dev}
         zero = torch.zeros(lanes, **i32)
@@ -517,8 +564,11 @@ class Engine:
         }
 
     def _empty_cov(self, lanes: int):
-        """Zeroed hit map plus the per-lane slot buffer and its count."""
+        """Zeroed hit map plus the per-lane slot buffer and its count; {}
+        with coverage off."""
         cfg = self.config
+        if not cfg.coverage:
+            return {}
         return {
             "map": empty_cov_map(lanes, cfg.cov_slots_log2, self.device),
             "buf": torch.zeros((lanes, cfg.cov_buffer), dtype=torch.int32, device=self.device),
@@ -527,14 +577,17 @@ class Engine:
 
     # -- one event per lane --------------------------------------------------
 
-    def _lane_step_popped(self, s: LaneState, idx, any_valid, popped, payload, words, digest,
-                          active, running=None) -> LaneState:
-        """The step after the kernel prefix, for every lane at once.
-        `popped` is (time, kind, node, src)[L], `payload` [L, P], `words`
-        the v3 block [L, W] and `digest` (nd0, nd1) from the step kernel.
-        `active` [L] folds the per-lane freeze into every write mask;
-        `running` (a scalar bool tensor) gates the coverage buffer write
-        the way the reference's early-exit loop does."""
+    def _lane_step_popped(self, s: LaneState, idx, any_valid, popped, payload, words, k_restart,
+                          new_key, digest, active, running=None) -> LaneState:
+        """The step after the step-prefix kernel, for every lane at once.
+        `popped` is (time, kind, node, src)[L] and `payload` [L, P] from
+        the kernel; `words` [L, W], `k_restart` [L, 2] and `new_key`
+        [L, 2] are the step's draw (int64 uint32 values); `digest` is
+        the folded (nd0, nd1) [L] as int32 bit patterns, or None with
+        the recorder off. `active` [L] folds the per-lane freeze into
+        every write mask; `running` (a scalar bool tensor) gates the
+        coverage buffer write the way the reference's early-exit loop
+        does."""
         m, cfg, layout = self.machine, self.config, self._rng_layout
         lanes, q = s.eq_valid.shape
         n = m.NUM_NODES
@@ -549,18 +602,16 @@ class Engine:
         node_alive = ~take(s.killed, ev_node)
         slots = torch.arange(q, device=dev)
         eq_valid = s.eq_valid & ~((slots == idx.to(torch.int64)[:, None]) & live[:, None])
-
-        w64 = u32.from_i32(words)
-        rand_u32 = w64[:, : layout.handler_words]
-        if layout.restart_off is not None:
-            k_restart = w64[:, layout.restart_off : layout.restart_off + 2]
-        else:
-            k_restart = torch.zeros_like(w64[:, :2])
+        rand_u32 = words[:, : layout.handler_words]
+        rng_key = s.rng_key
+        if layout.version == RNG_STREAM_LEGACY:
+            # v2's key evolves every step: a frozen lane keeps its own
+            rng_key = torch.where(active[:, None], u32.to_i32(new_key), s.rng_key)
 
         # the three branches, for every lane; selected by event kind
         t_nodes, t_out = m.on_timer(s.nodes, ev_node, op, new_now, rand_u32)
         m_nodes, m_out = m.on_message(s.nodes, ev_node, ev_src, payload, new_now, rand_u32)
-        f_nodes, f_clogged, f_killed, f_boot = self._fault_branch(s, payload, k_restart)
+        f_nodes, f_clogged, f_killed, f_storm, f_boot = self._fault_branch(s, payload, k_restart)
         branch = ev_kind.clamp(0, 2)
         is_fault = branch == EV_FAULT
         nodes = tree_where(branch == EV_TIMER, t_nodes, tree_where(is_fault, f_nodes, m_nodes))
@@ -569,17 +620,27 @@ class Engine:
         # killed nodes process nothing; fault events always apply
         effective = process & (node_alive | (ev_kind == EV_FAULT))
         nodes = tree_where(effective, nodes, s.nodes)
-        clogged = torch.where((is_fault & effective)[:, None, None], f_clogged, s.clogged)
-        killed = torch.where((is_fault & effective)[:, None], f_killed, s.killed)
+        fault_applies = is_fault & effective
+        clogged = torch.where(fault_applies[:, None, None], f_clogged, s.clogged)
+        killed = torch.where(fault_applies[:, None], f_killed, s.killed)
+        storm_loss = torch.where(fault_applies, f_storm, s.storm_loss)
         boot_node = torch.where(is_fault, f_boot, -1)
         msg_valid = outbox.msg_valid & effective[:, None]
         timer_valid = outbox.timer_valid & effective[:, None]
 
-        # -- push messages (latency / clog), timers, the restart boot -------
+        # -- push messages (latency / loss / clog), timers, the restart boot
         lat_span = max(1, cfg.latency_max_us - cfg.latency_min_us)
-        lat_bits = w64[:, layout.lat_off : layout.lat_off + m.MAX_MSGS]
+        lat_bits = words[:, layout.lat_off : layout.lat_off + m.MAX_MSGS]
         # the handling node's outbound clog row (pre-fault state)
         blocked = take(_clog_row_bools(take(s.clogged, ev_node), n), outbox.msg_dst)
+        if layout.loss_active:
+            # static loss rate plus the active storm's (rate 65535 ~ drop
+            # all), the sum saturating at the top of the uint32 range
+            drop_bits = words[:, layout.drop_off : layout.drop_off + m.MAX_MSGS]
+            storm_threshold = u32.mul(storm_loss.to(torch.int64), 65537)
+            summed = (int(cfg.packet_loss_rate * 0xFFFFFFFF) + storm_threshold) & u32.MASK
+            loss_threshold = torch.where(summed < storm_threshold, u32.MASK, summed)
+            blocked = blocked | (drop_bits < loss_threshold[:, None])
         latency = cfg.latency_min_us + (lat_bits % lat_span).to(torch.int32)
         node_col = ev_node[:, None]
         timer_pay = torch.zeros((lanes, m.MAX_TIMERS, payload.shape[1]), dtype=torch.int32, device=dev)
@@ -603,55 +664,56 @@ class Engine:
         msg_count = s.msg_count + pushed[:, : m.MAX_MSGS].sum(dim=1, dtype=torch.int32)
         failed = s.failed | overflow
         fail_code = torch.where(overflow, OVERFLOW, s.fail_code)
+        new_step = s.step + active.to(torch.int32)
 
         # -- flight recorder ------------------------------------------------
         fr = s.fr
-        stepped = active.to(torch.int32)
-        new_step = s.step + stepped
-        nd0, nd1 = digest
-        d0 = torch.where(live, nd0, fr["d0"])
-        d1 = torch.where(live, nd1, fr["d1"])
-        every, rr = cfg.fr_digest_every, cfg.fr_digest_ring
-        want_ck = active & (new_step % every == 0)
-        ring_at = (torch.div(new_step, every, rounding_mode="floor") - 1) % rr
-        ck_slot = (ring_at[:, None] == torch.arange(rr, device=dev)) & want_ck[:, None]
-        is_inj = process & (ev_kind == EV_FAULT) & (op % 2 == 0)
-        kind_idx = torch.div(op, 2, rounding_mode="floor")
-        inj = fr["inj"] + (
-            (torch.arange(len(FAULT_KIND_NAMES), device=dev) == kind_idx[:, None]) & is_inj[:, None]
-        ).to(torch.int32)
-        eq_n = fr["eq_n"] - live.to(torch.int32) + (next_seq - s.next_seq)
-        n_clog = u32.popcount(clogged).sum(dim=(1, 2), dtype=torch.int32)
-        n_killed = killed.sum(dim=1, dtype=torch.int32)
-        fr = {
-            "d0": d0,
-            "d1": d1,
-            "eq_n": eq_n,
-            "ck_step": torch.where(ck_slot, new_step[:, None], fr["ck_step"]),
-            "ck_d0": torch.where(ck_slot, d0[:, None], fr["ck_d0"]),
-            "ck_d1": torch.where(ck_slot, d1[:, None], fr["ck_d1"]),
-            "inj": inj,
-            "dup": fr["dup"],
-            "amnesia": fr["amnesia"],
-            "q_hwm": torch.maximum(fr["q_hwm"], eq_n),
-            "clog_hwm": torch.maximum(fr["clog_hwm"], n_clog),
-            "kill_hwm": torch.maximum(fr["kill_hwm"], n_killed),
-        }
+        if cfg.flight_recorder:
+            nd0, nd1 = digest
+            d0 = torch.where(live, nd0, fr["d0"])
+            d1 = torch.where(live, nd1, fr["d1"])
+            every, rr = cfg.fr_digest_every, cfg.fr_digest_ring
+            want_ck = active & (new_step % every == 0)
+            ring_at = (torch.div(new_step, every, rounding_mode="floor") - 1) % rr
+            ck_slot = (ring_at[:, None] == torch.arange(rr, device=dev)) & want_ck[:, None]
+            is_inj = process & (ev_kind == EV_FAULT) & (op % 2 == 0)
+            kind_idx = torch.div(op, 2, rounding_mode="floor")
+            inj = fr["inj"] + (
+                (torch.arange(len(FAULT_KIND_NAMES), device=dev) == kind_idx[:, None]) & is_inj[:, None]
+            ).to(torch.int32)
+            eq_n = fr["eq_n"] - live.to(torch.int32) + (next_seq - s.next_seq)
+            n_clog = u32.popcount(clogged).sum(dim=(1, 2), dtype=torch.int32)
+            fr = {
+                "d0": d0,
+                "d1": d1,
+                "eq_n": eq_n,
+                "ck_step": torch.where(ck_slot, new_step[:, None], fr["ck_step"]),
+                "ck_d0": torch.where(ck_slot, d0[:, None], fr["ck_d0"]),
+                "ck_d1": torch.where(ck_slot, d1[:, None], fr["ck_d1"]),
+                "inj": inj,
+                "dup": fr["dup"],
+                "amnesia": fr["amnesia"],
+                "q_hwm": torch.maximum(fr["q_hwm"], eq_n),
+                "clog_hwm": torch.maximum(fr["clog_hwm"], n_clog),
+                "kill_hwm": torch.maximum(fr["kill_hwm"], killed.sum(dim=1, dtype=torch.int32)),
+            }
 
         # -- scenario coverage (buffered) -----------------------------------
-        abs_word = m.coverage_projection(nodes, new_now)
-        ctx = (
-            n_killed.clamp(0, 7)
-            | ((clogged != 0).flatten(1).any(dim=1).to(torch.int32) << 3)
-            | ((s.storm_loss > 0).to(torch.int32) << 4)
-            | ((s.delay_spike > 0).to(torch.int32) << 5)
-        )
-        op_word = torch.where(ev_kind == EV_TIMER, 0, op)
-        band = cov_band(ev_kind, op_word, self.cov_band_bits)
-        slot = cov_slot(abs_word, ev_kind, ev_node, op_word, ctx, cfg.cov_slots_log2,
-                        band_bits=self.cov_band_bits, band=band)
-        buf, buf_n = cov_push(s.cov["buf"], s.cov["buf_n"], slot, live, write=running)
-        cov = dict(s.cov, buf=buf, buf_n=buf_n)
+        cov = s.cov
+        if cfg.coverage:
+            abs_word = m.coverage_projection(nodes, new_now)
+            ctx = (
+                killed.sum(dim=1, dtype=torch.int32).clamp(0, 7)
+                | ((clogged != 0).flatten(1).any(dim=1).to(torch.int32) << 3)
+                | ((storm_loss > 0).to(torch.int32) << 4)
+                | ((s.delay_spike > 0).to(torch.int32) << 5)
+            )
+            op_word = torch.where(ev_kind == EV_TIMER, 0, op)
+            band = cov_band(ev_kind, op_word, self.cov_band_bits)
+            slot = cov_slot(abs_word, ev_kind, ev_node, op_word, ctx, cfg.cov_slots_log2,
+                            band_bits=self.cov_band_bits, band=band)
+            buf, buf_n = cov_push(cov["buf"], cov["buf_n"], slot, live, write=running)
+            cov = dict(cov, buf=buf, buf_n=buf_n)
 
         # -- invariants / termination ---------------------------------------
         ok, code = m.invariant(nodes, new_now)
@@ -664,13 +726,13 @@ class Engine:
             now_us=torch.where(active, new_now, s.now_us),
             next_seq=next_seq,
             step=new_step,
-            rng_key=s.rng_key,
+            rng_key=rng_key,
             done=done,
             failed=failed,
             fail_code=fail_code,
             horizon_hit=s.horizon_hit | horizon_hit,
             msg_count=msg_count,
-            storm_loss=s.storm_loss,
+            storm_loss=storm_loss,
             delay_spike=s.delay_spike,
             eq_time=eq["time"],
             eq_seq=eq["seq"],
@@ -693,52 +755,91 @@ class Engine:
         )
 
     def _fault_branch(self, s: LaneState, payload, k_restart):
-        """Pair clog/unclog on the packed rows, kill and restart, for
-        every lane (the caller selects fault lanes). Returns (nodes,
-        clogged, killed, boot_node)."""
+        """The fault ops on the packed clog rows (pair, directional and
+        group clogs and their undos), kill and restart, and the loss
+        storm, for every lane (the caller selects fault lanes). Returns
+        (nodes, clogged, killed, storm_loss, boot_node)."""
         n = self.machine.NUM_NODES
         op, a, b = payload[:, 0], payload[:, 1], payload[:, 2]
+        col = lambda x: x[:, None]  # noqa: E731
         idxs = torch.arange(n, device=op.device)
-        pair_val = (op == F_CLOG_PAIR)[:, None]
-        touch_pair = ((op == F_CLOG_PAIR) | (op == F_UNCLOG_PAIR))[:, None]
         w0, w1 = s.clogged[:, :, 0], s.clogged[:, :, 1]
 
-        def apply_bit(w0, w1, row_mask, bit_lo, bit_hi):
-            msk = touch_pair & row_mask
-            nw0 = torch.where(pair_val, w0 | bit_lo[:, None], w0 & ~bit_lo[:, None])
-            nw1 = torch.where(pair_val, w1 | bit_hi[:, None], w1 & ~bit_hi[:, None])
+        def apply_bit(w0, w1, row_mask, bit_lo, bit_hi, val, touch):
+            msk = col(touch) & row_mask
+            nw0 = torch.where(col(val), w0 | col(bit_lo), w0 & ~col(bit_lo))
+            nw1 = torch.where(col(val), w1 | col(bit_hi), w1 & ~col(bit_hi))
             return torch.where(msk, nw0, w0), torch.where(msk, nw1, w1)
 
         a_lo, a_hi = _clog_bit_words(a)
         b_lo, b_hi = _clog_bit_words(b)
-        w0, w1 = apply_bit(w0, w1, idxs == a[:, None], b_lo, b_hi)
-        w0, w1 = apply_bit(w0, w1, idxs == b[:, None], a_lo, a_hi)
+        a_row, b_row = idxs == col(a), idxs == col(b)
+        # pair partition: both directions
+        pair_val = op == F_CLOG_PAIR
+        touch_pair = pair_val | (op == F_UNCLOG_PAIR)
+        w0, w1 = apply_bit(w0, w1, a_row, b_lo, b_hi, pair_val, touch_pair)
+        w0, w1 = apply_bit(w0, w1, b_row, a_lo, a_hi, pair_val, touch_pair)
+        # directional clog: a -> b only
+        dir_val = op == F_CLOG_DIR
+        w0, w1 = apply_bit(w0, w1, a_row, b_lo, b_hi, dir_val, dir_val | (op == F_UNCLOG_DIR))
+        # group partition: `a` holds member bits [0, 30), `b` bits [30, 60);
+        # a member's cross links are the group's complement, an outsider's
+        # the group (a node's own bit lands on neither side)
+        in_g = torch.where(
+            idxs < CLOG_WORD_BITS,
+            col(a) >> idxs.clamp(0, CLOG_WORD_BITS - 1),
+            col(b) >> (idxs - CLOG_WORD_BITS).clamp(0, CLOG_WORD_BITS - 1),
+        ) & 1 == 1
+        full_lo = (1 << min(n, CLOG_WORD_BITS)) - 1
+        full_hi = (1 << max(n - CLOG_WORD_BITS, 0)) - 1
+        cross_lo = torch.where(in_g, ~col(a) & full_lo, col(a) & full_lo)
+        cross_hi = torch.where(in_g, ~col(b) & full_hi, col(b) & full_hi)
+        g_on = col(op == F_CLOG_GROUP)
+        touch_group = col((op == F_CLOG_GROUP) | (op == F_UNCLOG_GROUP))
+        w0 = torch.where(touch_group, torch.where(g_on, w0 | cross_lo, w0 & ~cross_lo), w0)
+        w1 = torch.where(touch_group, torch.where(g_on, w1 | cross_hi, w1 & ~cross_hi), w1)
         clogged = torch.stack([w0, w1], dim=2)
-        a_mask = idxs == a[:, None]
         kill_op, restart_op = op == F_KILL, op == F_RESTART
         killed = torch.where(
-            kill_op[:, None], s.killed | a_mask,
-            torch.where(restart_op[:, None], s.killed & ~a_mask, s.killed),
+            col(kill_op), s.killed | a_row,
+            torch.where(col(restart_op), s.killed & ~a_row, s.killed),
         )
+        # loss storm: `a` is the storm's loss rate in 1/65536
+        storm = torch.where(op == F_LOSS_STORM, a, torch.where(op == F_LOSS_END, 0, s.storm_loss))
         nodes = self.machine.restart_node_if(s.nodes, a, restart_op, k_restart)
         boot_node = torch.where(restart_op, a, -1)
-        return nodes, clogged, killed, boot_node
+        return nodes, clogged, killed, storm.to(torch.int32), boot_node
 
     # -- batch runners -------------------------------------------------------
 
     @torch.inference_mode()
     def step_batch(self, state: LaneState, running=None) -> LaneState:
-        """One event step for every lane: the step kernel, then the lane
-        step. Frozen lanes (done or failed) write back their state."""
+        """One event step for every lane: the step-prefix kernel, then
+        the lane step. Frozen lanes (done or failed) write back their
+        state. The megakernel computes pop, gather, the v3 words and the
+        digest in one pass; otherwise the pop + gather kernel runs and
+        the words are drawn, and the digest folded, here."""
         active = ~(state.done | state.failed)
-        idx, any_valid, popped, payload, words, digest = step_megakernel(
-            state.eq_time, state.eq_seq, state.eq_valid,
-            state.eq_kind, state.eq_node, state.eq_src, state.eq_payload,
-            state.rng_key, state.step, self._rng_layout.total_words,
-            d0=state.fr["d0"], d1=state.fr["d1"],
-        )
-        return self._lane_step_popped(state, idx, any_valid, popped, payload, words, digest,
-                                      active, running)
+        fr_on, layout = self.config.flight_recorder, self._rng_layout
+        queue = (state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
+                 state.eq_src, state.eq_payload)
+        if self.use_megakernel:
+            idx, any_valid, popped, payload, words, digest = step_megakernel(
+                *queue, state.rng_key, state.step, layout.total_words,
+                d0=state.fr["d0"] if fr_on else None, d1=state.fr["d1"] if fr_on else None,
+            )
+            words = u32.from_i32(words)
+            k_restart = restart_key(words, layout)
+            new_key = None  # the v3 lane key is immutable
+        else:
+            idx, any_valid, popped, payload = pop_gather_batch(*queue)
+            new_key, words, k_restart = step_words(state.rng_key, state.step, layout)
+            digest = ()
+            if fr_on:
+                folded = list(popped) + list(payload.unbind(1)) + list(words.unbind(1))
+                digest = tuple(u32.to_i32(d) for d in digest_fold(state.fr["d0"], state.fr["d1"], folded))
+        return self._lane_step_popped(state, idx, any_valid, popped, payload, words, k_restart,
+                                      new_key, digest or None, active, running)
 
     def _cov_flush_batch(self, state: LaneState) -> LaneState:
         """Fold every lane's buffered slots into its map and reset the
@@ -756,12 +857,17 @@ class Engine:
         here the loop runs its full length, which changes nothing: a
         frozen lane writes back every field and does not advance `step`,
         and `running` stops the one write a frozen lane still makes (its
-        coverage-buffer tail). The buffer folds into the map every
-        `cov_buffer` iterations and, unconditionally, at exit.
+        coverage-buffer tail). With coverage on, the buffer folds into
+        the map every `cov_buffer` iterations and, unconditionally, at
+        exit.
 
         The flush updates the coverage map in place, so the segment first
         takes its own copy: the caller's `state` is left as it was, and
         running twice from one kept state gives equal results."""
+        if not self.config.coverage:
+            for _ in range(segment_steps):
+                state = self.step_batch(state)
+            return state
         state = dataclasses.replace(state, cov=dict(state.cov, map=state.cov["map"].clone()))
         for it in range(1, segment_steps + 1):
             running = (~(state.done | state.failed)).any()
@@ -778,7 +884,8 @@ class Engine:
         fall on the flush cadence, so the result equals one
         `run_segment(state, max_steps)`."""
         state = self.init_batch(seeds)
-        chunk = self._cov_flush_every * max(1, 128 // self._cov_flush_every)
+        every = self._cov_flush_every if self.config.coverage else 1
+        chunk = every * max(1, 128 // every)
         done_steps = 0
         while done_steps < max_steps:
             k = min(chunk, max_steps - done_steps)
@@ -820,8 +927,10 @@ class Engine:
             ab_seeds=torch.zeros(cap, **i64),
             ab_count=zero,
             counters=torch.zeros(7, **i64),
-            fr_metrics=torch.zeros(FR_METRICS_LEN, **i64),
-            cov_map=empty_cov_map(1, cfg.cov_slots_log2, dev)[0],
+            # gate off: a zero-length leaf, as in the reference
+            fr_metrics=torch.zeros(FR_METRICS_LEN if cfg.flight_recorder else 0, **i64),
+            cov_map=(empty_cov_map(1, cfg.cov_slots_log2, dev)[0] if cfg.coverage
+                     else torch.zeros(0, dtype=torch.int32, device=dev)),
         )
         return _with_counters(c, cap)
 
@@ -850,17 +959,24 @@ class Engine:
         ab_seeds, ab_count = _append_ring(c.ab_seeds, c.ab_count, ab_mask, seeds, cap)
 
         # flight-recorder totals of the lanes finishing this segment
-        frs, nk, ne = state.fr, len(FAULT_KIND_NAMES), len(FR_EXTRA_NAMES)
-        done_i = done.to(torch.int64)
-        inj_tot = c.fr_metrics[:nk] + (frs["inj"].to(torch.int64) * done_i[:, None]).sum(dim=0)
-        extra_tot = torch.stack([
-            c.fr_metrics[nk + i] + (frs[k].to(torch.int64) * done_i).sum()
-            for i, k in enumerate(FR_EXTRA_NAMES)
-        ])
-        hwm = torch.stack([
-            torch.maximum(c.fr_metrics[nk + ne + i], torch.where(done, frs[k], 0).amax().to(torch.int64))
-            for i, k in enumerate(("q_hwm", "clog_hwm", "kill_hwm"))
-        ])
+        fr_metrics = c.fr_metrics
+        if self.config.flight_recorder:
+            frs, nk, ne = state.fr, len(FAULT_KIND_NAMES), len(FR_EXTRA_NAMES)
+            done_i = done.to(torch.int64)
+            inj_tot = fr_metrics[:nk] + (frs["inj"].to(torch.int64) * done_i[:, None]).sum(dim=0)
+            extra_tot = torch.stack([
+                fr_metrics[nk + i] + (frs[k].to(torch.int64) * done_i).sum()
+                for i, k in enumerate(FR_EXTRA_NAMES)
+            ])
+            hwm = torch.stack([
+                torch.maximum(fr_metrics[nk + ne + i], torch.where(done, frs[k], 0).amax().to(torch.int64))
+                for i, k in enumerate(("q_hwm", "clog_hwm", "kill_hwm"))
+            ])
+            fr_metrics = torch.cat([inj_tot, extra_tot, hwm])
+        # every lane's map, done or not: maps only gain bits
+        cov_map = c.cov_map
+        if self.config.coverage:
+            cov_map = cov_map | cov_fold_words(state.cov["map"])
         new = StreamCarry(
             state=state,
             seeds=seeds,
@@ -874,9 +990,8 @@ class Engine:
             ab_seeds=ab_seeds,
             ab_count=ab_count,
             counters=c.counters,
-            fr_metrics=torch.cat([inj_tot, extra_tot, hwm]),
-            # every lane's map, done or not: maps only gain bits
-            cov_map=c.cov_map | cov_fold_words(state.cov["map"]),
+            fr_metrics=fr_metrics,
+            cov_map=cov_map,
         )
         return _with_counters(new, cap)
 
@@ -901,8 +1016,9 @@ class Engine:
         Returns the reference's dict: {"completed", "failing": [(seed,
         code)...], "infra": [(seed, code)...] (OVERFLOW lanes),
         "abandoned": [seed...], "seeds_consumed", "stats": {host_syncs,
-        drains, dispatches, device_segments, ..., "flight_recorder",
-        "coverage"}, "coverage_map"}."""
+        drains, dispatches, device_segments, ..., "flight_recorder" (with
+        the recorder on), "coverage" (with coverage on)}, "coverage_map"
+        (with coverage on)}."""
         from ..runtime.coverage import coverage_dict, unpack_map
         from ..runtime.metrics import fr_metrics_dict
 
@@ -949,9 +1065,7 @@ class Engine:
                 carry = drain(carry)
         counters = poll(carry)
         carry = drain(carry)
-        fr_vec = carry.fr_metrics.cpu().numpy()
-        cov_map = unpack_map(carry.cov_map.cpu().numpy(), self.config.cov_slots_log2)
-        return {
+        out = {
             "completed": int(counters[0]),
             "failing": failing,
             "infra": infra,
@@ -963,14 +1077,18 @@ class Engine:
                 "dispatch_depth": 1,
                 "segments_per_dispatch": 1,
                 "pipelined": False,
-                "flight_recorder": fr_metrics_dict(fr_vec),
-                "coverage": {
-                    **coverage_dict(cov_map, self.config.cov_slots_log2, band_bits=self.cov_band_bits),
-                    "curve": cov_curve,
-                },
             },
-            "coverage_map": cov_map,
         }
+        if self.config.flight_recorder:
+            out["stats"]["flight_recorder"] = fr_metrics_dict(carry.fr_metrics.cpu().numpy())
+        if self.config.coverage:
+            cov_map = unpack_map(carry.cov_map.cpu().numpy(), self.config.cov_slots_log2)
+            out["stats"]["coverage"] = {
+                **coverage_dict(cov_map, self.config.cov_slots_log2, band_bits=self.cov_band_bits),
+                "curve": cov_curve,
+            }
+            out["coverage_map"] = cov_map
+        return out
 
     def make_stream_runner(self, batch: int = 1024, segment_steps: int = 256,
                            max_steps: int = 10_000, **stream_kwargs):

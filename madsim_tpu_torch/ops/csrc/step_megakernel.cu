@@ -22,14 +22,13 @@
 //
 // What the design does about it: one warp per lane, so the 32 slots of a
 // lane are one coalesced 128-byte load per plane, and the three-stage
-// argmin is a register-only butterfly (__shfl_xor_sync). The gather
+// argmin is a register-only butterfly (__shfl_xor_sync), the same
+// function the pop kernels run (madsim::warp_lex_argmin, common.cuh). The gather
 // reads only the popped slot's kind, node, src and payload, never the
 // other planes whole (the TPU kernel's one-hot sums read them all).
 // Threefry pairs run one per thread in registers; the word block goes
 // to global memory once and to a per-warp shared-memory row that thread
 // 0 folds into the digest after __syncwarp.
-
-#include <climits>
 
 #include "common.cuh"
 
@@ -84,31 +83,10 @@ step_megakernel_kernel(
   if (lane >= lanes) return;  // uniform over the warp
   const int64_t row = static_cast<int64_t>(lane) * q;
 
-  // 1. argmin: min time over valid slots, then min seq over the time
-  //    ties, then the first slot index holding both.
-  int tmin = INT_MAX;
-  bool any = false;
-  for (int j = t; j < q; j += 32) {
-    if (eq_valid[row + j]) {
-      any = true;
-      tmin = min(tmin, eq_time[row + j]);
-    }
-  }
-  tmin = madsim::warp_min(tmin);
-  any = __any_sync(madsim::FULL_MASK, any);
-  int smin = INT_MAX;
-  for (int j = t; j < q; j += 32) {
-    if (eq_valid[row + j] && eq_time[row + j] == tmin) smin = min(smin, eq_seq[row + j]);
-  }
-  smin = madsim::warp_min(smin);
-  int best = q;
-  for (int j = t; j < q; j += 32) {
-    if (eq_valid[row + j] && eq_time[row + j] == tmin && eq_seq[row + j] == smin) {
-      best = min(best, j);
-    }
-  }
-  best = madsim::warp_min(best);
-  if (best == q) best = 0;
+  // 1. argmin: the (time, seq, index) minimum over the valid slots,
+  //    shared with the pop kernels (common.cuh)
+  bool any;
+  const int best = madsim::warp_lex_argmin(eq_time + row, eq_seq + row, eq_valid + row, q, any);
 
   // 2. gather the popped slot only
   const int64_t at = row + best;

@@ -1,19 +1,26 @@
 """Per-step RNG word derivation: the versioned stream contract.
 
-The port's copy of `madsim_tpu/ops/step_rng.py` for the counter-based
-stream (`rng_stream=3`): the lane key is immutable and the step index
-is the counter,
+The port's copy of `madsim_tpu/ops/step_rng.py`. Two stream versions:
 
-    words(lane_key, step) = threefry2x32(lane_key, step*W + iota(W))
+  * v2 (legacy split-chain, the engine's default): the lane key evolves
+    by a 3-way split every step and the block is drawn from the step key,
 
-with jax's packing of an odd-length counter vector (pad one zero, split
-in halves, concatenate the two outputs, trim). The block layout
-(`StepRngLayout`) is shared by both stream versions:
+        key, k_step, k_restart = split(rng_key, 3)
+        words = bits(k_step, (W2,))      # W2 = H + (4 if delay else 2)*M
+
+  * v3 (counter-based): the lane key is immutable and the step index is
+    the counter,
+
+        words(lane_key, step) = threefry2x32(lane_key, step*W + iota(W))
+
+    with jax's packing of an odd-length counter vector (pad one zero,
+    split in halves, concatenate the two outputs, trim).
+
+The block layout (`StepRngLayout`) is shared by both versions:
 
     [ handler H | latency M | drop M? | spike M? | spike_mag M? | restart 2? | dup 2M? | torn 1? ]
 
-`step_words_v2`, the legacy split-chain stream, arrives with the slice
-that ports `rng_stream=2`.
+v2 always materializes the drop words, even where loss is inert.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .threefry import threefry2x32
+from .threefry import bits, split, threefry2x32
 from .u32 import MASK
 
 RNG_STREAM_LEGACY = 2
@@ -147,8 +154,29 @@ def step_words_v3(rng_key: torch.Tensor, step: torch.Tensor, layout: StepRngLayo
     lane key, and the restart key, when materialized, is the block's
     restart slice (zeros when restart is statically unreachable)."""
     words = counter_words(rng_key, step, layout.total_words)
-    if layout.restart_off is not None:
-        k_restart = words[:, layout.restart_off : layout.restart_off + 2]
-    else:
-        k_restart = torch.zeros_like(words[:, :2])
-    return rng_key, words, k_restart
+    return rng_key, words, restart_key(words, layout)
+
+
+def restart_key(words: torch.Tensor, layout: StepRngLayout) -> torch.Tensor:
+    """The v3 restart key: the block's restart slice [L, 2], or zeros when
+    restart is statically unreachable (the key is then never used)."""
+    if layout.restart_off is None:
+        return torch.zeros_like(words[:, :2])
+    return words[:, layout.restart_off : layout.restart_off + 2]
+
+
+def step_words_v2(rng_key: torch.Tensor, layout: StepRngLayout) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Legacy split-chain step draw, batched over lanes: key [L, 2]
+    (int64 uint32 values, or int32 bit patterns) -> (new_key [L, 2],
+    words [L, total_words], k_restart [L, 2]), int64 uint32 values. The
+    restart key is its own split, never a consumed key."""
+    keys = split(rng_key.to(torch.int64) & MASK, 3)
+    return keys[:, 0], bits(keys[:, 1], layout.total_words), keys[:, 2]
+
+
+def step_words(rng_key: torch.Tensor, step: torch.Tensor, layout: StepRngLayout):
+    """The step draw of the layout's stream version: (new_key, words,
+    k_restart)."""
+    if layout.version == RNG_STREAM_COUNTER:
+        return step_words_v3(rng_key, step, layout)
+    return step_words_v2(rng_key, layout)

@@ -8,6 +8,7 @@ everything is batched over leading dimensions.
   * `prng_key(seed)`: a uint32 seed gives the key `[0, seed]`.
   * `split(key, n)`: row i is `threefry2x32(key, (0, i))`.
   * `bits32(key)`: `y0 ^ y1` of `threefry2x32(key, (0, 0))`.
+  * `bits(key, n)`: word i is `y0 ^ y1` of `threefry2x32(key, (0, i))`.
 """
 
 from __future__ import annotations
@@ -54,4 +55,11 @@ def bits32(key: torch.Tensor) -> torch.Tensor:
     """`jax.random.bits(key, (), uint32)`: [..., 2] -> [...]."""
     zero = torch.zeros_like(key[..., 0])
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], zero, zero)
+    return y0 ^ y1
+
+
+def bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.bits(key, (n,), uint32)`: [..., 2] -> [..., n]."""
+    i = torch.arange(n, device=key.device, dtype=torch.int64)
+    y0, y1 = threefry2x32(key[..., :1], key[..., 1:], torch.zeros_like(i), i)
     return y0 ^ y1

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain twins on the card, and a
-short engine run on the card against the CPU. These need an NVIDIA card
-with nvcc (they build the kernels); without one they skip. On the card:
+"""The port's CUDA kernels against their plain twins on the card, and
+short engine runs on the card against the CPU (both streams, and the
+single-lane replay). These need an NVIDIA card with nvcc (they build the
+kernels); without one they skip. On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -65,6 +66,73 @@ def test_cov_flush_matches_twin(dev, lanes, c, w):
     got = kernels.cov_flush_batch(cov_map.clone(), buf, n)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lanes,q,p", [(8192, 32, 6), (8191, 96, 6), (1, 32, 6), (13, 40, 4)])
+def test_pop_kernels_match_twins(dev, lanes, q, p):
+    from madsim_tpu_torch.ops import kernels
+
+    g = np.random.default_rng(q + p)
+
+    def t(a):
+        return torch.as_tensor(a).to(dev)
+
+    time_ = g.integers(0, 30, (lanes, q)).astype(np.int32)
+    time_[g.random((lanes, q)) < 0.1] = 2**31 - 1  # INT32_MAX is a legal time
+    seq = g.integers(0, 2**31 - 1, (lanes, q)).astype(np.int32)
+    valid = g.random((lanes, q)) < 0.5
+    valid[::3] = False  # empty lanes
+    ins = [t(time_), t(seq), t(valid), *(t(g.integers(-2**31, 2**31, (lanes, q)).astype(np.int32))
+                                         for _ in range(3)),
+           t(g.integers(-2**31, 2**31, (lanes, q, p)).astype(np.int32))]
+    before = dict(kernels.launches)
+    got = kernels.pop_gather_batch(*ins)
+    want = kernels.pop_gather_plain(*ins)
+    got_pop, want_pop = kernels.pop_earliest_batch(*ins[:3]), kernels.pop_earliest_plain(*ins[:3])
+    torch.cuda.synchronize()
+    assert kernels.launches["pop_gather"] == before["pop_gather"] + 1
+    assert kernels.launches["pop_earliest"] == before["pop_earliest"] + 1
+    for a, b in zip([got[0], got[1], *got[2], got[3], *got_pop], [want[0], want[1], *want[2], want[3], *want_pop]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_run_batch_on_the_card_matches_the_cpu_under_the_default_stream(dev):
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import RaftMachine
+
+    for recorder in (False, True):
+        cfg = EngineConfig(horizon_us=5_000_000, queue_capacity=32, flight_recorder=recorder, coverage=recorder,
+                           faults=FaultPlan(n_faults=2, t_max_us=3_000_000, allow_storm=True,
+                                            dur_min_us=200_000, dur_max_us=800_000))
+        seeds = np.arange(64, dtype=np.uint32)
+        on_card = tree_to_numpy(Engine(RaftMachine(5, 8), cfg).run_batch(seeds, 256))
+        on_cpu = tree_to_numpy(Engine(RaftMachine(5, 8), cfg, device="cpu").run_batch(seeds, 256))
+        assert _same(on_card, on_cpu)
+
+
+def test_replay_on_the_card_matches_the_cpu(dev):
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import build_machine
+    from madsim_tpu_torch.ops import kernels
+
+    cfg = EngineConfig(horizon_us=5_000_000, queue_capacity=32,
+                       faults=FaultPlan(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000))
+    machine = build_machine("demo-overcommit-raft")
+    before = kernels.launches["pop_earliest"]
+    on_card = replay(Engine(machine, cfg), 66531, max_steps=2000)
+    assert kernels.launches["pop_earliest"] > before
+    on_cpu = replay(Engine(machine, cfg, device="cpu"), 66531, max_steps=2000)
+    assert on_card.failed and on_card.fail_code == 102 and on_card.trace == on_cpu.trace
+    assert _same(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def test_run_batch_on_the_card_matches_the_cpu(dev):

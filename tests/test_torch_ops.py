@@ -130,7 +130,7 @@ def test_step_prefix_plain_matches_pallas_megakernel(q, p, w, digest):
     assert len(g_dig) == len(dig)
     for want, have in zip(dig, g_dig):
         assert np.array_equal(have.numpy().view(np.uint32), np.asarray(want))
-    assert kernels.launches == {"step_megakernel": 0, "cov_flush": 0}  # CPU: the twin ran
+    assert set(kernels.launches.values()) == {0}  # CPU: the twin ran
 
 
 @pytest.mark.parametrize("c", [4, 16])

@@ -1,6 +1,7 @@
 """The port's RNG substrate against jax.random and the pinned streams:
-`prng_key` / `split` / `bits32`, raw Threefry-2x32, the block layout
-and the v3 step words. Every comparison is exact."""
+`prng_key` / `split` / `bits32` / `bits`, raw Threefry-2x32, the block
+layout, the v2 and v3 step words, and the v1 and v2 fault schedules.
+Every comparison is exact."""
 
 import dataclasses
 import itertools
@@ -16,7 +17,7 @@ import torch_port_util  # noqa: F401  (pins the partitionable lowering)
 from madsim_tpu.ops import step_rng as jax_rng
 from madsim_tpu_torch.ops import step_rng, threefry
 
-from test_golden_streams import V1_FAULTS, V1_SCHED, V3_WORDS
+from test_golden_streams import V1_FAULTS, V1_SCHED, V2_FAULTS, V2_K_RESTART, V2_SCHED, V2_WORDS, V3_WORDS
 
 SEEDS = np.array([0, 1, 7, 123, 66531, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1], dtype=np.uint32)
 
@@ -35,6 +36,9 @@ def test_prng_key_split_bits_match_jax():
         assert np.array_equal(threefry.split(port_keys, n).numpy(), np.asarray(want)), n
     bits = jax.vmap(lambda k: jax.random.bits(k, (), jnp.uint32))(keys)
     assert np.array_equal(threefry.bits32(port_keys).numpy(), np.asarray(bits))
+    for n in (1, 12, 13, 20):
+        want = jax.vmap(lambda k: jax.random.bits(k, (n,), jnp.uint32))(keys)
+        assert np.array_equal(threefry.bits(port_keys, n).numpy(), np.asarray(want)), n
 
 
 def test_threefry2x32_matches_jax_primitive():
@@ -122,3 +126,83 @@ def test_v3_words_and_v1_schedule_match_pinned_literals():
         assert s.eq_node[lane, rows].tolist() == expect["node"]
         assert s.eq_payload[lane, rows].tolist() == expect["pay"]
         assert bool(s.eq_valid[lane, rows].all())
+
+
+@pytest.mark.parametrize("h,m,loss,delay", [(4, 4, False, False), (4, 4, True, False), (3, 1, True, True),
+                                            (4, 7, False, True), (2, 32, True, False)])
+def test_step_words_v2_matches_jax(h, m, loss, delay):
+    """A chain of v2 draws from random keys: the evolved key, the word
+    block and the restart key, step after step."""
+    kw = dict(loss_possible=loss, spike_possible=delay, delay_enabled=delay, restart_possible=True)
+    layout, jax_layout = step_rng.layout_for(2, h, m, **kw), jax_rng.layout_for(2, h, m, **kw)
+    g = np.random.default_rng(h * 100 + m)
+    keys = g.integers(0, 2**32, (16, 2), dtype=np.uint32)
+    keys[0] = [0, 0]
+    draw = jax.vmap(lambda k: jax_rng.step_words(k, jnp.int32(0), jax_layout))
+    want_key, got_key = jnp.asarray(keys), _t(keys)
+    for _ in range(3):
+        want_key, want_words, want_restart = draw(want_key)
+        got_key, got_words, got_restart = step_rng.step_words(got_key, torch.zeros(16, dtype=torch.int32), layout)
+        assert got_words.shape == (16, layout.total_words)
+        for want, got in ((want_key, got_key), (want_words, got_words), (want_restart, got_restart)):
+            assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_v2_words_and_schedules_match_pinned_literals():
+    """The v2 word stream and restart keys of the (4, 4) layout, and the
+    v2 fault schedule of RaftMachine(5) (dir, group and storm enabled),
+    as tests/test_golden_streams.py pins them."""
+    layout = step_rng.layout_for(
+        2, 4, 4, loss_possible=False, spike_possible=False, delay_enabled=False, restart_possible=True,
+    )
+    assert layout.total_words == 12
+    for seed, expect in V2_WORDS.items():
+        key = threefry.split(threefry.prng_key(_t([seed])), 3)[:, 0]
+        for step in range(2):
+            key, words, k_restart = step_rng.step_words(key, torch.tensor([step]), layout)
+            assert words[0].tolist() == expect[step], (seed, step)
+            assert k_restart[0].tolist() == V2_K_RESTART[seed][step], (seed, step)
+
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+
+    for rng_stream in (2, 3):
+        faults = FaultPlan(**{f.name: getattr(V2_FAULTS, f.name) for f in dataclasses.fields(FaultPlan)})
+        eng = Engine(RaftMachine(num_nodes=5, log_capacity=8),
+                     EngineConfig(horizon_us=5_000_000, queue_capacity=32, faults=faults, rng_stream=rng_stream),
+                     device="cpu")
+        s = eng.init_batch(np.array(list(V2_SCHED), dtype=np.uint32))
+        for lane, expect in enumerate(V2_SCHED.values()):
+            rows = slice(5, 9)
+            assert s.eq_time[lane, rows].tolist() == expect["time"]
+            assert s.eq_seq[lane, rows].tolist() == expect["seq"]
+            assert s.eq_node[lane, rows].tolist() == expect["node"]
+            assert s.eq_payload[lane, rows].tolist() == expect["pay"]
+            assert bool(s.eq_valid[lane, rows].all())
+
+
+@pytest.mark.parametrize("nodes", [5, 33], ids=["low-mask-word", "high-mask-word"])
+def test_v2_fault_derivation_matches_jax(nodes):
+    """init_batch under the v2 derivation against the JAX engine's: more
+    than 30 nodes take an extra split for the group mask's high word."""
+    from madsim_tpu.engine import Engine as JaxEngine, EngineConfig as JaxConfig, FaultPlan as JaxFaultPlan
+    from madsim_tpu.models.multipaxos import MultiPaxosMachine as JaxMultiPaxos
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import MultiPaxosMachine
+
+    from torch_port_util import jax_to_numpy, tree_diff
+
+    faults = dict(n_faults=3, allow_dir_clog=True, allow_group=True, allow_storm=True, allow_kill=False,
+                  t_max_us=3_000_000)
+    cfg = dict(horizon_us=8_000_000, queue_capacity=96)
+    jax_eng = JaxEngine(JaxMultiPaxos(nodes), JaxConfig(faults=JaxFaultPlan(**faults), **cfg))
+    port = Engine(MultiPaxosMachine(nodes), EngineConfig(faults=FaultPlan(**faults), **cfg), device="cpu")
+    seeds = np.arange(24, dtype=np.uint32) * 7919
+    want = jax_to_numpy(jax.jit(jax_eng.init_batch)(jnp.asarray(seeds)))
+    got = tree_to_numpy(port.init_batch(seeds))
+    assert not tree_diff(want, got)
+    ops = want["eq_payload"][:, nodes : nodes + 6, 0]
+    assert {6, 7} <= set(ops.ravel().tolist())  # group faults drawn
+    if nodes > 30:
+        assert (want["eq_payload"][:, nodes : nodes + 6, 2][ops == 6] != 0).any()  # high mask bits
