@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of madsim_tpu_torch, the PyTorch/CUDA port, on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR ...]
 
 Phases, each fatal on failure (the script exits non-zero before its
 last line):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: compile the CUDA kernels from ops/csrc (nvcc, one per source,
-     all started together);
+     all started together), with ptxas's registers, shared memory and
+     spills for each kernel; a spill in a lane-group kernel fails;
   3. kernels: each kernel bit for bit against its plain PyTorch twin on
-     the card, at its main path's shapes and at edge shapes (odd W,
-     ragged L, L = 1, Q = 40 / 96 / 256, all-invalid lanes, n=0), with
-     its median time, the twin's time and the least time the card could
-     take (bound);
+     the card, at its main path's shapes and at edge shapes (odd W and
+     W = 1 / 11 / 17 / 256, ragged L and L = 1 / 3 / 31 / 8191, Q = 1 / 3 /
+     33 / 40 / 96 / 256, P = 0 / 1 / 7 / 13, rows off 16-byte alignment,
+     all-invalid lanes, n=0), with its median time, the twin's time, the
+     least time the card could take (bound) and, for the lane-group
+     kernels, the time of an empty kernel of the same grid and block
+     (floor);
   4. card against CPU: run_batch of 256 flagship seeds on both devices
      must give equal results; then the overcommit bug (COMMIT_TO_LOG_LEN)
      on 64 seeds that hold its known failures, through run_batch and a
@@ -35,6 +39,13 @@ last line):
      and the 8192-lane flagship stream under rng_stream=2 (stream_v2);
   7. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
 
+With `--against DIR` (another csrc tree with the same C interface, e.g.
+an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
+git-ignored build/; repeatable), a `head_to_head` line times the step
+megakernel (at the flagship's W and at W past 2 * GROUP) and pop +
+gather of each design at the flagship inputs in turns (A, B, ..., B, A),
+each design held bit for bit against the twins first.
+
 Each path's launch counts are set to 0 just before it runs and read
 just after; a kernel of the path that never launched fails the run.
 
@@ -42,12 +53,14 @@ It needs a CUDA card and the repository beside it; with neither it
 exits non-zero and prints no result.
 """
 
+import argparse
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 # H100 SXM peak rates (NVIDIA data sheet, 700 W): HBM bytes/s, and the
 # non-tensor-core 32-bit rate, used for the integer operations here.
@@ -69,6 +82,7 @@ V2_CHECK_LANES, V2_RECORDER_LANES, MULTIPAXOS_LANES = 256, 64, 64
 MULTIPAXOS = dict(horizon_us=8_000_000, queue_capacity=96)
 MULTIPAXOS_FAULTS = dict(n_faults=3, allow_dir_clog=True, allow_group=True, allow_storm=True,
                          t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=800_000)
+WIDE_WORDS = (17, 64)  # the head to head's megakernel word blocks past 2 * GROUP
 REPLAY_SEED = 66531  # the overcommit regression of tests/test_engine.py
 REPLAY_CONFIG = dict(horizon_us=5_000_000, queue_capacity=32)
 
@@ -128,7 +142,18 @@ def wall_time_ms(fn, reps=10):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def random_queues(g, lanes, q, p, dev):
+def misaligned_copy(x):
+    """A contiguous copy of `x` one element into its storage, so that its
+    rows miss 16-byte alignment."""
+    import torch
+
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return flat[1:].view(x.shape).copy_(x)
+
+
+def random_queues(g, lanes, q, p, dev, misaligned=False):
+    """Random queue planes; with `misaligned`, the time, seq and valid
+    planes are `misaligned_copy`s."""
     import torch
 
     def t(a):
@@ -140,7 +165,26 @@ def random_queues(g, lanes, q, p, dev):
     valid[::5] = False  # all-invalid lanes pop slot 0
     vals = [g.integers(-2**31, 2**31, (lanes, q)).astype("int32") for _ in range(3)]
     payload = g.integers(-2**31, 2**31, (lanes, q, p)).astype("int32")
-    return [t(time_), t(seq), t(valid), *(t(v) for v in vals), t(payload)]
+    planes = [t(time_), t(seq), t(valid)]
+    if misaligned:
+        planes = [misaligned_copy(x) for x in planes]
+    return [*planes, *(t(v) for v in vals), t(payload)]
+
+
+# The lane-group kernels' edge shapes (lanes, q, p, w, rows misaligned):
+# lanes not a multiple of a block's 32, Q off the int4 path (1, 3, 33),
+# P = 0 / 1 / 7 / 13 (13: fields past the gather's register rounds), W =
+# 1 / 11 / 17 / 256 (past 16 the digest re-reads the words), and rows off
+# 16-byte alignment, which take the scalar path.
+EDGE_SHAPES = [(1, 1, 0, 1, False), (3, 3, 1, 11, False), (31, 33, 7, 256, False), (8191, 32, 6, 10, False),
+               (8191, 33, 7, 11, False), (3, 32, 6, 10, True), (31, 40, 13, 17, True), (1, 96, 0, 256, True)]
+
+
+def floor_ms(kernels, lanes, dev):
+    """Device time of an empty kernel with the lane-group kernels' grid
+    and block at `lanes` lanes."""
+    grid, block = kernels.lane_group_geometry(lanes)
+    return device_time_ms(lambda: kernels.launch_floor(grid, block, dev))
 
 
 def max_abs_err(a_outs, b_outs):
@@ -168,12 +212,16 @@ def check_step_kernel(kernels, g, dev, state, total_words):
     main = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
             state.eq_src, state.eq_payload, state.rng_key, state.step]
     cases.append(("flagship", main, total_words, (state.fr["d0"], state.fr["d1"])))
-    for lanes, q, p, w, digest in ((1000, 32, 6, 7, True), (37, 64, 4, 10, False), (5, 40, 3, 1, True)):
-        qs = random_queues(g, lanes, q, p, dev)
+    shapes = [(1000, 32, 6, 7, True, False), (37, 64, 4, 10, False, False), (5, 40, 3, 1, True, False)]
+    shapes += [(lanes, q, p, w, True, mis) for lanes, q, p, w, mis in EDGE_SHAPES]
+    shapes += [(lanes, q, p, w, False, mis) for lanes, q, p, w, mis in EDGE_SHAPES[2::3]]
+    for lanes, q, p, w, digest, mis in shapes:
+        qs = random_queues(g, lanes, q, p, dev, mis)
         key = torch.as_tensor(g.integers(-2**31, 2**31, (lanes, 2)).astype("int32")).to(dev)
         step = torch.as_tensor(g.integers(0, 2**31, lanes).astype("int32")).to(dev)
         d = tuple(torch.as_tensor(g.integers(-2**31, 2**31, lanes).astype("int32")).to(dev) for _ in range(2))
-        cases.append((f"L{lanes}-Q{q}-P{p}-W{w}", qs + [key, step], w, d if digest else (None, None)))
+        cases.append((f"L{lanes}-Q{q}-P{p}-W{w}{'-digest' if digest else ''}{'-misaligned' if mis else ''}",
+                      qs + [key, step], w, d if digest else (None, None)))
     err = 0
     for name, ins, w, (d0, d1) in cases:
         got = flat_prefix(kernels.step_megakernel(*ins, w, d0=d0, d1=d1))
@@ -186,6 +234,7 @@ def check_step_kernel(kernels, g, dev, state, total_words):
     ms = device_time_ms(lambda: kernels.step_megakernel(*main, total_words, d0=state.fr["d0"], d1=state.fr["d1"]))
     plain_ms = wall_time_ms(lambda: kernels.step_prefix_plain(*main, total_words, state.fr["d0"], state.fr["d1"]))
     lanes, q = state.eq_time.shape
+    floor = floor_ms(kernels, lanes, dev)
     p = state.eq_payload.shape[2]
     # bytes: the time, seq and valid planes whole; one 32-byte sector for
     # each gathered field (kind, node, src, the payload row); key, step
@@ -196,22 +245,25 @@ def check_step_kernel(kernels, g, dev, state, total_words):
     # per digest word ~11; the argmin ~3 compares a slot per stage
     half = (total_words + 1) // 2
     ops = lanes * (half * (20 * 3 + 5 * 3 + 2) + (4 + p + total_words) * 11 + 9 * q)
-    return err, ms, plain_ms, bytes_in + bytes_out, ops
+    return err, ms, plain_ms, bytes_in + bytes_out, ops, floor
 
 
 def check_pop_kernels(kernels, g, dev, state):
     """The pop + gather and pop kernels against their twins on the main
     path's inputs (a split-chain flagship batch) and on edge shapes:
-    8191 lanes of Q = 96 with empty lanes, one lane, Q = 40 and Q = 256."""
+    8191 lanes of Q = 96 with empty lanes, one lane, Q = 40 and Q = 256,
+    and the lane-group edge shapes."""
     import torch
 
     main = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
             state.eq_src, state.eq_payload]
     cases = [("flagship-v2", main)]
-    for lanes, q, p in ((8191, 96, 6), (1, 32, 6), (13, 40, 4), (64, 256, 6)):
-        qs = random_queues(g, lanes, q, p, dev)
-        qs[0][::3, : q // 4] = 2**31 - 1  # INT32_MAX is a legal time
-        cases.append((f"L{lanes}-Q{q}-P{p}", qs))
+    shapes = [(8191, 96, 6, False), (1, 32, 6, False), (13, 40, 4, False), (64, 256, 6, False)]
+    shapes += [(lanes, q, p, mis) for lanes, q, p, _, mis in EDGE_SHAPES]
+    for lanes, q, p, mis in shapes:
+        qs = random_queues(g, lanes, q, p, dev, mis)
+        qs[0][::3, : max(q // 4, 1)] = 2**31 - 1  # INT32_MAX is a legal time
+        cases.append((f"L{lanes}-Q{q}-P{p}{'-misaligned' if mis else ''}", qs))
     gather_err = pop_err = 0
     for name, ins in cases:
         got = kernels.pop_gather_batch(*ins)
@@ -239,6 +291,7 @@ def check_pop_kernels(kernels, g, dev, state):
                      "plain_ms": wall_time_ms(plain), "bytes": nbytes,
                      # three compares a slot, one per argmin stage
                      "ops": lanes * 3 * q}
+    out["pop_gather"]["floor_ms"] = floor_ms(kernels, lanes, dev)
     return out
 
 
@@ -448,9 +501,51 @@ def split_chain_phases(torch, np, kernels):
     return launches, replay_launches, state, eng
 
 
-def main():
+def time_in_turns(kernels, designs, fn):
+    """Device time of `fn` under each design's libraries, in turns: the
+    designs in order, then in reverse (A, B, B, A). {name: [ms, ms]}."""
+    out = {name: [] for name, _ in designs}
+    for name, libs in designs + designs[::-1]:
+        with mock.patch.object(kernels, "load", lambda: libs):
+            out[name].append(device_time_ms(fn))
+    return out
+
+
+def check_designs(kernels, designs, fn, plain, what):
+    """Each design's outputs of `fn` bit for bit against the twin's."""
     import torch
 
+    want = plain()
+    for name, libs in designs:
+        with mock.patch.object(kernels, "load", lambda: libs):
+            got = fn()
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        if e:
+            fail(f"head to head: {what} of design {name} disagrees with its twin: max abs err {e}")
+
+
+def ptxas_line(build, libs):
+    """ptxas's account of each kernel; fails if a lane-group kernel spills
+    or reports nothing."""
+    report = build.ptxas_report(libs)
+    for key in ("step_megakernel_kernel", "pop_gather_kernel"):
+        mine = {name: r for name, r in report.items() if key in name}
+        if not mine:
+            fail(f"ptxas reported nothing for {key}")
+        for name, r in mine.items():
+            if r["spill_stores"] or r["spill_loads"]:
+                fail(f"{name} spills: {r}")
+    return report
+
+
+def main(argv=None):
+    import torch
+
+    args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    args.add_argument("--against", action="append", default=[],
+                      help="another csrc tree to time the lane-group kernels against (repeatable)")
+    args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
         return 2
@@ -469,9 +564,13 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    libs = build.build()
+    libs = build.build(verbose=True)
     build.load()
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs)})
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs),
+          "ptxas": ptxas_line(build, libs)})
+    designs = [(f"against {d}", build.load(pathlib.Path(d).resolve())) for d in args.against]
+    if designs:
+        designs.append(("this checkout", build.load()))
 
     cfg = EngineConfig(**FLAGSHIP, faults=FaultPlan(**FLAGSHIP_FAULTS))
     eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), cfg)  # on the card
@@ -485,7 +584,25 @@ def main():
     for _ in range(eng.config.cov_buffer):
         state = eng.step_batch(state)
     total_words = eng._rng_layout.total_words
-    s_err, s_ms, s_plain, s_bytes, s_ops = check_step_kernel(kernels, g, dev, state, total_words)
+    s_err, s_ms, s_plain, s_bytes, s_ops, s_floor = check_step_kernel(kernels, g, dev, state, total_words)
+    head_to_head = {}
+    if designs:
+        main_ins = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
+                    state.eq_src, state.eq_payload, state.rng_key, state.step]
+        d0, d1 = state.fr["d0"], state.fr["d1"]
+        check_designs(kernels, designs, lambda: flat_prefix(kernels.step_megakernel(*main_ins, total_words, d0, d1)),
+                      lambda: flat_prefix(kernels.step_prefix_plain(*main_ins, total_words, d0, d1)),
+                      "step_megakernel")
+        head_to_head["step_megakernel"] = time_in_turns(
+            kernels, designs, lambda: kernels.step_megakernel(*main_ins, total_words, d0, d1))
+        # past W = 2 * GROUP a lane-group thread holds more than one pair and
+        # the digest re-reads the words: the flagship's queues at wider blocks
+        for w in WIDE_WORDS:
+            check_designs(kernels, designs, lambda: flat_prefix(kernels.step_megakernel(*main_ins, w, d0, d1)),
+                          lambda: flat_prefix(kernels.step_prefix_plain(*main_ins, w, d0, d1)),
+                          f"step_megakernel W={w}")
+            head_to_head[f"step_megakernel_w{w}"] = time_in_turns(
+                kernels, designs, lambda: kernels.step_megakernel(*main_ins, w, d0, d1))
     c_err, c_ms, c_plain, c_bytes, c_ops, c_live, c_sectors = check_cov_flush(kernels, g, dev, state)
 
     def bound(nbytes, ops):
@@ -494,7 +611,7 @@ def main():
 
     s_bound, c_bound = bound(s_bytes, s_ops), bound(c_bytes, c_ops)
     emit({"phase": "kernels", "step_megakernel": {"ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
-                                                  "bytes": s_bytes, "ops": s_ops},
+                                                  "floor_ms": s_floor, "bytes": s_bytes, "ops": s_ops},
           "cov_flush": {"ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0], "bytes": c_bytes,
                         "ops": c_ops, "live_entries": c_live, "live_sectors": c_sectors}})
 
@@ -570,8 +687,28 @@ def main():
     pops = check_pop_kernels(kernels, g, dev, v2_state)
     for name, k in pops.items():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
-    emit({"phase": "pop_kernels", **{name: {key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bytes", "ops")}
+    emit({"phase": "pop_kernels", **{name: {key: k[key] for key in ("ms", "plain_ms", "bound_ms", "floor_ms",
+                                                                    "bytes", "ops") if key in k}
                                      for name, k in pops.items()}})
+    if designs:
+        pop_ins = [v2_state.eq_time, v2_state.eq_seq, v2_state.eq_valid, v2_state.eq_kind, v2_state.eq_node,
+                   v2_state.eq_src, v2_state.eq_payload]
+
+        def flat_pop(r):
+            return [r[0], r[1], *r[2], r[3]]
+
+        check_designs(kernels, designs, lambda: flat_pop(kernels.pop_gather_batch(*pop_ins)),
+                      lambda: flat_pop(kernels.pop_gather_plain(*pop_ins)), "pop_gather")
+        head_to_head["pop_gather"] = time_in_turns(kernels, designs, lambda: kernels.pop_gather_batch(*pop_ins))
+        lanes = v2_state.eq_time.shape[0]
+        # the floors: this checkout's grid and block, and one warp per lane
+        # (8 warps a block), the design of the earlier kernels
+        head_to_head["floor_ms"] = {
+            "lane groups": floor_ms(kernels, lanes, dev),
+            "one warp per lane": device_time_ms(lambda: kernels.launch_floor((lanes + 7) // 8, 256, dev)),
+        }
+        emit({"phase": "head_to_head", "order": [n for n, _ in designs + designs[::-1]], "lanes": lanes,
+              **head_to_head})
     emit({"phase": "profile_v2", **profile_steps(v2_eng, v2_state, steps=8)})
 
     # 6. the kernels line

@@ -11,16 +11,24 @@
 // An all-invalid lane gives idx 0, any 0 and gathers slot 0, as the TPU
 // kernels do. Neither kernel draws random words or folds a digest.
 //
-// What bounds them on an H100: bytes. The time, seq and valid planes are
-// read whole (9 bytes a slot); each gathered field (kind, node, src, the
-// payload row) costs one 32-byte sector; the outputs are a few words a
-// lane. Compute is three compares a slot.
+// What bounds them on an H100. By the data, bytes: the time, seq and
+// valid planes are read whole (9 bytes a slot), each gathered field costs
+// one 32-byte sector, the outputs are a few words a lane; compute is
+// three compares a slot. In practice, latency: at 8192 lanes the whole
+// input is ~4 MB, L2-resident, so a launch is two dependent trips to
+// memory (the planes, then the popped slot) plus the instructions issued
+// in between, on top of the fixed cost of one launch of one wave.
 //
-// What the design does about it: one warp per lane, the argmin shared
-// with the step megakernel (`madsim::warp_lex_argmin`: coalesced loads of
-// 32 slots a pass and register-only butterflies), and a gather of the
-// popped slot only, where the TPU kernel's one-hot sums read every plane
-// whole.
+// What `pop_gather` does about it: lane groups (common.cuh). Eight
+// threads own a lane, so a warp serves four and a 256-thread block 32.
+// Each plane is read once, as 16-byte loads where Q % 4 == 0 and the rows
+// are aligned (a scalar path takes Q = 33 or a sliced plane), and the
+// argmin is one local pass in registers and one three-step xor butterfly
+// over (time, seq, index) triples. The gather is one load per field from
+// the thread that owns the field, its address known before the argmin,
+// all issued together, and each thread writes what it loaded.
+//
+// `pop_earliest` runs one warp per lane (`madsim::warp_lex_argmin`).
 
 #include "common.cuh"
 
@@ -28,7 +36,8 @@ namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
 
-__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+template <bool VEC>
+__global__ void __launch_bounds__(madsim::GROUP_BLOCK)
 pop_gather_kernel(const int32_t* __restrict__ eq_time, const int32_t* __restrict__ eq_seq,
                   const uint8_t* __restrict__ eq_valid, const int32_t* __restrict__ eq_kind,
                   const int32_t* __restrict__ eq_node, const int32_t* __restrict__ eq_src,
@@ -37,23 +46,31 @@ pop_gather_kernel(const int32_t* __restrict__ eq_time, const int32_t* __restrict
                   int32_t* __restrict__ time_out, int32_t* __restrict__ kind_out,
                   int32_t* __restrict__ node_out, int32_t* __restrict__ src_out,
                   int32_t* __restrict__ payload_out) {
-  const int t = threadIdx.x & 31;
-  const int lane = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (lane >= lanes) return;  // uniform over the warp
-  const int64_t row = static_cast<int64_t>(lane) * q;
+  using namespace madsim;
+  const LaneGroup grp = lane_group(lanes);
+  const EventPlanes in{eq_time, eq_kind, eq_node, eq_src, eq_payload, p};
+  const EventOut out{time_out, kind_out, node_out, src_out, payload_out};
+  FieldRef ref[GATHER_ROUNDS];
+#pragma unroll
+  for (int r = 0; r < GATHER_ROUNDS; ++r) ref[r] = field_ref(in, out, r * GROUP + grp.g);
+
+  const int64_t row = grp.lane * q;
   bool any;
-  const int best = madsim::warp_lex_argmin(eq_time + row, eq_seq + row, eq_valid + row, q, any);
+  const int best = group_lex_argmin<VEC>(eq_time + row, eq_seq + row, eq_valid + row, q, grp.g, any);
+  if (!grp.live) return;  // no collective follows
   const int64_t at = row + best;
-  if (t == 0) {
-    idx_out[lane] = best;
-    any_out[lane] = any ? 1 : 0;
-    time_out[lane] = eq_time[at];
-    kind_out[lane] = eq_kind[at];
-    node_out[lane] = eq_node[at];
-    src_out[lane] = eq_src[at];
+  int32_t v[GATHER_ROUNDS];
+#pragma unroll
+  for (int r = 0; r < GATHER_ROUNDS; ++r) v[r] = field_load(ref[r], at);
+  if (grp.g == 0) {
+    idx_out[grp.lane] = best;
+    any_out[grp.lane] = any ? 1 : 0;
   }
-  for (int c = t; c < p; c += 32) {
-    payload_out[static_cast<int64_t>(lane) * p + c] = eq_payload[at * p + c];
+#pragma unroll
+  for (int r = 0; r < GATHER_ROUNDS; ++r) field_store(ref[r], grp.lane, v[r]);
+  for (int f = GATHER_ROUNDS * GROUP + grp.g; f < 4 + p; f += GROUP) {  // payloads wider than that
+    const FieldRef tail = field_ref(in, out, f);
+    field_store(tail, grp.lane, field_load(tail, at));
   }
 }
 
@@ -72,7 +89,7 @@ pop_earliest_kernel(const int32_t* __restrict__ eq_time, const int32_t* __restri
   }
 }
 
-dim3 grid_for(int lanes) { return dim3((lanes + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK); }
+dim3 warp_grid(int lanes) { return dim3((lanes + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK); }
 
 }  // namespace
 
@@ -84,7 +101,9 @@ extern "C" int pop_gather_launch(const void* eq_time, const void* eq_seq, const 
                                  void* src_out, void* payload_out, void* stream) {
   if (q < 1 || p < 0 || lanes < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (lanes == 0) return 0;
-  pop_gather_kernel<<<grid_for(lanes), 32 * WARPS_PER_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = madsim::rows_vectorizable(eq_time, eq_seq, eq_valid, q) ? pop_gather_kernel<true>
+                                                                        : pop_gather_kernel<false>;
+  kernel<<<madsim::group_grid(lanes), madsim::GROUP_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(eq_time), static_cast<const int32_t*>(eq_seq),
       static_cast<const uint8_t*>(eq_valid), static_cast<const int32_t*>(eq_kind),
       static_cast<const int32_t*>(eq_node), static_cast<const int32_t*>(eq_src),
@@ -99,7 +118,7 @@ extern "C" int pop_earliest_launch(const void* eq_time, const void* eq_seq, cons
                                    int lanes, int q, void* idx_out, void* any_out, void* stream) {
   if (q < 1 || lanes < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (lanes == 0) return 0;
-  pop_earliest_kernel<<<grid_for(lanes), 32 * WARPS_PER_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  pop_earliest_kernel<<<warp_grid(lanes), 32 * WARPS_PER_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(eq_time), static_cast<const int32_t*>(eq_seq),
       static_cast<const uint8_t*>(eq_valid), lanes, q, static_cast<int32_t*>(idx_out),
       static_cast<uint8_t*>(any_out));

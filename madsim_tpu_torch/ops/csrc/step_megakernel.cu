@@ -13,29 +13,38 @@
 //      kind, node, src, the payload columns, then the W words
 //      (madsim_tpu/engine/core.py `digest_fold`).
 //
-// What bounds it on an H100: bytes. The time, seq and valid planes are
-// read whole (9 bytes a slot, 288 bytes a lane at Q = 32); each gathered
-// field costs one 32-byte sector; the outputs are ~100 bytes a lane. At
-// 8192 lanes that is ~4-5 MB a step, a microsecond or two at 3.35 TB/s.
-// The Threefry rounds and the digest are a few hundred integer
-// operations a lane, far below the ALUs' rate.
+// What bounds it on an H100. By the data, bytes: the time, seq and valid
+// planes are read whole (9 bytes a slot, 288 bytes a lane at Q = 32),
+// each gathered field costs one 32-byte sector, the outputs are ~100
+// bytes a lane: ~4.3 MB a step at 8192 lanes, 1.3 us at 3.35 TB/s. In
+// practice, latency and issue: the input is L2-resident, so a launch is
+// two dependent trips to memory (the planes, then the popped slot), a
+// serial digest chain of 4 + P + W words and the Threefry rounds, on top
+// of the fixed cost of one launch of one wave.
 //
-// What the design does about it: one warp per lane, so the 32 slots of a
-// lane are one coalesced 128-byte load per plane, and the three-stage
-// argmin is a register-only butterfly (__shfl_xor_sync), the same
-// function the pop kernels run (madsim::warp_lex_argmin, common.cuh). The gather
-// reads only the popped slot's kind, node, src and payload, never the
-// other planes whole (the TPU kernel's one-hot sums read them all).
-// Threefry pairs run one per thread in registers; the word block goes
-// to global memory once and to a per-warp shared-memory row that thread
-// 0 folds into the digest after __syncwarp.
+// What the design does about it: lane groups (common.cuh). Eight threads
+// own a lane, so a warp serves four lanes and every warp instruction
+// does four lanes' work.
+//   * One load pass: each plane is read once (16-byte loads where Q % 4
+//     == 0 and the rows are aligned, else a scalar path), the argmin is a
+//     local pass in registers and one three-step xor butterfly over
+//     (time, seq, index) triples.
+//   * The gather: thread g loads fields g, g + 8, ..., their addresses
+//     known before the argmin, all issued together as soon as the index
+//     is.
+//   * Threefry off the critical path: the key, step and digest are
+//     loaded first, and the word block (W/2 pairs shared by the group)
+//     runs while the plane loads are in flight, ahead of the argmin.
+//   * The digest in registers: every thread of the group folds the same
+//     chain, taking the fields and words from their owners by unrolled
+//     full-warp shuffles, so four folds run at once in a warp and no
+//     shared memory is used. Past W = 2 * GROUP a thread holds more than
+//     one pair, and the fold re-reads the lane's words from global memory
+//     after __syncwarp instead.
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int WARPS_PER_BLOCK = 8;
-constexpr int MAX_WORDS = 256;
 
 __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
                                              uint32_t& x0, uint32_t& x1) {
@@ -63,7 +72,21 @@ __device__ __forceinline__ void digest_word(uint32_t& d0, uint32_t& d1, uint32_t
   d1 = d1 ^ (d1 >> 15) ^ d0;
 }
 
-__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+// The digest over one round of gathered fields or words: the first
+// `count` of the GROUP values x of the group's threads, in rank order.
+// The shuffles go out together, unrolled; the fold is the serial part.
+__device__ __forceinline__ void fold_round(uint32_t& d0, uint32_t& d1, uint32_t x, int count) {
+  uint32_t w[madsim::GROUP];
+#pragma unroll
+  for (int j = 0; j < madsim::GROUP; ++j) w[j] = __shfl_sync(madsim::FULL_MASK, x, j, madsim::GROUP);
+#pragma unroll
+  for (int j = 0; j < madsim::GROUP; ++j) {
+    if (j < count) digest_word(d0, d1, w[j]);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(madsim::GROUP_BLOCK)
 step_megakernel_kernel(
     const int32_t* __restrict__ eq_time, const int32_t* __restrict__ eq_seq,
     const uint8_t* __restrict__ eq_valid, const int32_t* __restrict__ eq_kind,
@@ -76,62 +99,87 @@ step_megakernel_kernel(
     int32_t* __restrict__ node_out, int32_t* __restrict__ src_out,
     int32_t* __restrict__ payload_out, uint32_t* __restrict__ words_out,
     uint32_t* __restrict__ d0_out, uint32_t* __restrict__ d1_out) {
-  __shared__ uint32_t s_words[WARPS_PER_BLOCK][MAX_WORDS];
-  const int warp = threadIdx.x >> 5;
-  const int t = threadIdx.x & 31;
-  const int lane = blockIdx.x * WARPS_PER_BLOCK + warp;
-  if (lane >= lanes) return;  // uniform over the warp
-  const int64_t row = static_cast<int64_t>(lane) * q;
+  using namespace madsim;
+  const LaneGroup grp = lane_group(lanes);
+  const int64_t lane = grp.lane;
+  const bool digest = d0_in != nullptr;
+  const EventPlanes in{eq_time, eq_kind, eq_node, eq_src, eq_payload, p};
+  const EventOut out{time_out, kind_out, node_out, src_out, payload_out};
+  FieldRef ref[GATHER_ROUNDS];
+#pragma unroll
+  for (int r = 0; r < GATHER_ROUNDS; ++r) ref[r] = field_ref(in, out, r * GROUP + grp.g);
 
-  // 1. argmin: the (time, seq, index) minimum over the valid slots,
-  //    shared with the pop kernels (common.cuh)
-  bool any;
-  const int best = madsim::warp_lex_argmin(eq_time + row, eq_seq + row, eq_valid + row, q, any);
+  // the lane's key, step and digest, loaded first
+  const uint32_t k0 = __ldg(rng_key + 2 * lane);
+  const uint32_t k1 = __ldg(rng_key + 2 * lane + 1);
+  const uint32_t base = static_cast<uint32_t>(__ldg(step + lane)) * static_cast<uint32_t>(w);
+  uint32_t d0 = digest ? __ldg(d0_in + lane) : 0u;
+  uint32_t d1 = digest ? __ldg(d1_in + lane) : 0u;
 
-  // 2. gather the popped slot only
-  const int64_t at = row + best;
-  if (t == 0) {
-    idx_out[lane] = best;
-    any_out[lane] = any ? 1 : 0;
-    time_out[lane] = eq_time[at];
-    kind_out[lane] = eq_kind[at];
-    node_out[lane] = eq_node[at];
-    src_out[lane] = eq_src[at];
-  }
-  for (int c = t; c < p; c += 32) {
-    payload_out[static_cast<int64_t>(lane) * p + c] = eq_payload[at * p + c];
-  }
-
-  // 3. the v3 word block: thread i computes the pair (i, i + half)
-  const uint32_t k0 = rng_key[2 * static_cast<int64_t>(lane)];
-  const uint32_t k1 = rng_key[2 * static_cast<int64_t>(lane) + 1];
-  const uint32_t base = static_cast<uint32_t>(step[lane]) * static_cast<uint32_t>(w);
+  // the v3 word block, while the plane loads are in flight: thread g
+  // computes the pairs (i, i + half), i = g, g + GROUP, ...; x0/x1 keep
+  // its first
+  uint32_t* words = words_out + lane * w;
   const int half = (w + 1) / 2;
-  uint32_t* words = words_out + static_cast<int64_t>(lane) * w;
-  for (int i = t; i < half; i += 32) {
+  uint32_t x0 = 0, x1 = 0;
+  for (int i = grp.g; i < half; i += GROUP) {
     const int i1 = i + half;
-    uint32_t x0 = base + static_cast<uint32_t>(i);
-    uint32_t x1 = i1 < w ? base + static_cast<uint32_t>(i1) : 0u;
-    threefry2x32(k0, k1, x0, x1);
-    words[i] = x0;
-    s_words[warp][i] = x0;
-    if (i1 < w) {
-      words[i1] = x1;
-      s_words[warp][i1] = x1;
+    uint32_t y0 = base + static_cast<uint32_t>(i);
+    uint32_t y1 = i1 < w ? base + static_cast<uint32_t>(i1) : 0u;
+    threefry2x32(k0, k1, y0, y1);
+    if (grp.live) {
+      words[i] = y0;
+      if (i1 < w) words[i1] = y1;
+    }
+    if (i == grp.g) {
+      x0 = y0;
+      x1 = y1;
     }
   }
-  __syncwarp();
 
-  // 4. the digest fold, in the reference's word order
-  if (d0_in != nullptr && t == 0) {
-    uint32_t d0 = d0_in[lane];
-    uint32_t d1 = d1_in[lane];
-    digest_word(d0, d1, static_cast<uint32_t>(eq_time[at]));
-    digest_word(d0, d1, static_cast<uint32_t>(eq_kind[at]));
-    digest_word(d0, d1, static_cast<uint32_t>(eq_node[at]));
-    digest_word(d0, d1, static_cast<uint32_t>(eq_src[at]));
-    for (int c = 0; c < p; ++c) digest_word(d0, d1, static_cast<uint32_t>(eq_payload[at * p + c]));
-    for (int i = 0; i < w; ++i) digest_word(d0, d1, s_words[warp][i]);
+  // the argmin (common.cuh)
+  const int64_t row = lane * q;
+  bool any;
+  const int best = group_lex_argmin<VEC>(eq_time + row, eq_seq + row, eq_valid + row, q, grp.g, any);
+
+  // the gather's loads go out
+  const int64_t at = row + best;
+  int32_t v[GATHER_ROUNDS];
+#pragma unroll
+  for (int r = 0; r < GATHER_ROUNDS; ++r) v[r] = field_load(ref[r], at);
+
+  if (grp.live) {
+    if (grp.g == 0) {
+      idx_out[lane] = best;
+      any_out[lane] = any ? 1 : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < GATHER_ROUNDS; ++r) field_store(ref[r], lane, v[r]);
+  }
+
+  // the digest, in the reference's order: the fields, then the words
+  const int nf = 4 + p;
+  if (digest) {
+#pragma unroll
+    for (int r = 0; r < GATHER_ROUNDS; ++r) fold_round(d0, d1, static_cast<uint32_t>(v[r]), nf - r * GROUP);
+  }
+  for (int r = GATHER_ROUNDS; r * GROUP < nf; ++r) {  // payloads wider than the registers hold
+    const FieldRef tail = field_ref(in, out, r * GROUP + grp.g);
+    const int32_t x = field_load(tail, at);
+    if (grp.live) field_store(tail, lane, x);
+    if (digest) fold_round(d0, d1, static_cast<uint32_t>(x), nf - r * GROUP);
+  }
+  if (!digest) return;
+  if (half <= GROUP) {
+    fold_round(d0, d1, x0, half);
+    fold_round(d0, d1, x1, w - half);
+  } else {
+    // a group past the last lane reads words it did not write; it stores
+    // nothing, so what it reads does not matter
+    __syncwarp();
+    for (int i = 0; i < w; ++i) digest_word(d0, d1, words[i]);
+  }
+  if (grp.live && grp.g == 0) {
     d0_out[lane] = d0;
     d1_out[lane] = d1;
   }
@@ -148,11 +196,11 @@ extern "C" int step_megakernel_launch(
     void* idx_out, void* any_out, void* time_out, void* kind_out, void* node_out,
     void* src_out, void* payload_out, void* words_out, void* d0_out, void* d1_out,
     void* stream) {
-  if (w < 1 || w > MAX_WORDS || q < 1 || p < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (w < 1 || q < 1 || p < 0 || lanes < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (lanes == 0) return 0;
-  const dim3 block(32 * WARPS_PER_BLOCK);
-  const dim3 grid((lanes + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
-  step_megakernel_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = madsim::rows_vectorizable(eq_time, eq_seq, eq_valid, q) ? step_megakernel_kernel<true>
+                                                                        : step_megakernel_kernel<false>;
+  kernel<<<madsim::group_grid(lanes), madsim::GROUP_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(eq_time), static_cast<const int32_t*>(eq_seq),
       static_cast<const uint8_t*>(eq_valid), static_cast<const int32_t*>(eq_kind),
       static_cast<const int32_t*>(eq_node), static_cast<const int32_t*>(eq_src),

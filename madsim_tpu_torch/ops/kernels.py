@@ -16,6 +16,10 @@ Each wrapper takes the twin only for tensors on the CPU. For CUDA
 tensors it checks device, dtype, shape and contiguity, allocates the
 outputs, launches the kernel on PyTorch's current stream and adds one
 to `launches[name]`; anything else raises. Nothing falls back.
+
+`launch_floor` launches an empty kernel with the lane-group kernels'
+grid and block (`csrc/launch_floor.cu`): it serves chip_smoke.py's
+measurements and counts no launch.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ _ARGTYPES = {
     "cov_flush_launch": [_P] * 3 + [_I] * 3 + [_P],
     "pop_gather_launch": [_P] * 7 + [_I] * 3 + [_P] * 8,
     "pop_earliest_launch": [_P] * 3 + [_I] * 2 + [_P] * 3,
+    "launch_floor_launch": [_I] * 2 + [_P],
 }
 
 
@@ -145,10 +150,10 @@ def pop_earliest_batch(eq_time, eq_seq, eq_valid):
 
 
 def pop_gather_batch(eq_time, eq_seq, eq_valid, eq_kind, eq_node, eq_src, eq_payload):
-    """Pop + gather the popped event of every lane, one warp per lane on
-    the card; the twin for CPU tensors. Inputs: the [L, Q] int32 planes,
-    the bool valid plane and payload [L, Q, P] int32; outputs as
-    `pop_gather_plain`."""
+    """Pop + gather the popped event of every lane, a group of threads
+    per lane on the card; the twin for CPU tensors. Inputs: the [L, Q]
+    int32 planes, the bool valid plane and payload [L, Q, P] int32;
+    outputs as `pop_gather_plain`."""
     device = eq_time.device
     if not _on_card("pop_gather", device):
         return pop_gather_plain(eq_time, eq_seq, eq_valid, eq_kind, eq_node, eq_src, eq_payload)
@@ -200,11 +205,11 @@ def step_megakernel(
     eq_time, eq_seq, eq_valid, eq_kind, eq_node, eq_src, eq_payload,
     rng_key, step, total_words: int, d0=None, d1=None,
 ):
-    """Pop + gather + v3 word block (+ digest when d0/d1 are given), one
-    warp per lane on the card; the twin for CPU tensors. Inputs: the
-    [L, Q] int32 queue planes and bool valid plane, payload [L, Q, P]
-    int32, rng_key [L, 2], step [L], d0/d1 [L], all int32 (uint32 words
-    as bit patterns). Outputs as `step_prefix_plain`."""
+    """Pop + gather + v3 word block (+ digest when d0/d1 are given), a
+    group of threads per lane on the card; the twin for CPU tensors.
+    Inputs: the [L, Q] int32 queue planes and bool valid plane, payload
+    [L, Q, P] int32, rng_key [L, 2], step [L], d0/d1 [L], all int32
+    (uint32 words as bit patterns). Outputs as `step_prefix_plain`."""
     device = eq_time.device
     if not _on_card("step_megakernel", device):
         return step_prefix_plain(
@@ -269,3 +274,27 @@ def cov_flush_batch(cov_map, buf, n):
     _raise_on(err, "cov_flush")
     launches["cov_flush"] += 1
     return cov_map
+
+
+# -- the launch floor ---------------------------------------------------------
+
+
+def lane_group_geometry(lanes: int):
+    """(grid, block) of the lane-group kernels (pop_gather,
+    step_megakernel) at `lanes` lanes, as the built sources define it."""
+    fn = load()["launch_floor"].lane_group_geometry
+    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    grid, block = ctypes.c_int(), ctypes.c_int()
+    fn(lanes, ctypes.byref(grid), ctypes.byref(block))
+    return grid.value, block.value
+
+
+def launch_floor(grid: int, block: int, device) -> None:
+    """Launch an empty kernel of `grid` blocks of `block` threads on the
+    current stream of `device` (a CUDA device): the least time a launch
+    of that shape takes."""
+    fn = _lib("launch_floor", "launch_floor_launch")
+    with torch.cuda.device(device):
+        err = fn(grid, block, _stream(device))
+    _raise_on(err, "launch_floor")

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import EDGE_SHAPES, misaligned_copy
+
 pytestmark = pytest.mark.cuda
 
 
@@ -153,3 +155,45 @@ def test_run_batch_on_the_card_matches_the_cpu(dev):
         return a.dtype == b.dtype and np.array_equal(a, b)
 
     assert same(on_card, on_cpu)
+
+
+# -- edge shapes of the lane-group mapping (pop_gather, step_megakernel) -------
+#
+# The smoke's list (chip_smoke.EDGE_SHAPES says what each shape takes);
+# misaligned planes are contiguous views one element into their storage.
+
+
+def _edge_inputs(dev, lanes, q, p, misaligned):
+    g = np.random.default_rng(lanes * 1000 + q * 10 + p)
+
+    def t(a):
+        return torch.as_tensor(a).to(dev)
+
+    time_ = g.integers(0, 4, (lanes, q)).astype(np.int32)  # dense: many ties
+    time_[g.random((lanes, q)) < 0.1] = 2**31 - 1  # INT32_MAX is a legal time
+    seq = g.integers(0, 3, (lanes, q)).astype(np.int32)  # equal (time, seq) in different slots
+    valid = g.random((lanes, q)) < 0.5
+    valid[::3] = False  # empty lanes
+    planes = [t(time_), t(seq), t(valid)]
+    if misaligned:
+        planes = [misaligned_copy(x) for x in planes]
+        assert planes[0].data_ptr() % 16 and planes[0].is_contiguous()
+    return planes + [t(g.integers(-2**31, 2**31, (lanes, q)).astype(np.int32)) for _ in range(3)] + [
+        t(g.integers(-2**31, 2**31, (lanes, q, p)).astype(np.int32))]
+
+
+@pytest.mark.parametrize("lanes,q,p,w,misaligned", EDGE_SHAPES)
+def test_lane_group_kernels_match_twins_on_edge_shapes(dev, lanes, q, p, w, misaligned):
+    from madsim_tpu_torch.ops import kernels
+
+    ins = _edge_inputs(dev, lanes, q, p, misaligned)
+    got, want = kernels.pop_gather_batch(*ins), kernels.pop_gather_plain(*ins)
+    g = np.random.default_rng(w)
+    key = torch.as_tensor(g.integers(-2**31, 2**31, (lanes, 2)).astype(np.int32)).to(dev)
+    step = torch.as_tensor(g.integers(0, 2**31, lanes).astype(np.int32)).to(dev)
+    d = [torch.as_tensor(g.integers(-2**31, 2**31, lanes).astype(np.int32)).to(dev) for _ in range(2)]
+    got_s = _flat(kernels.step_megakernel(*ins, key, step, w, *d))
+    want_s = _flat(kernels.step_prefix_plain(*ins, key, step, w, *d))
+    torch.cuda.synchronize()
+    for a, b in zip([got[0], got[1], *got[2], got[3], *got_s], [want[0], want[1], *want[2], want[3], *want_s]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
