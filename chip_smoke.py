@@ -8,15 +8,19 @@ last line):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: compile the CUDA kernels from ops/csrc (nvcc, one per source,
      all started together), with ptxas's registers, shared memory and
-     spills for each kernel; a spill in a lane-group kernel fails;
+     spills for each kernel; a spill in any of the four kernels fails;
   3. kernels: each kernel bit for bit against its plain PyTorch twin on
      the card, at its main path's shapes and at edge shapes (odd W and
      W = 1 / 11 / 17 / 256, ragged L and L = 1 / 3 / 31 / 8191, Q = 1 / 3 /
      33 / 40 / 96 / 256, P = 0 / 1 / 7 / 13, rows off 16-byte alignment,
-     all-invalid lanes, n=0), with its median time, the twin's time, the
-     least time the card could take (bound) and, for the lane-group
-     kernels, the time of an empty kernel of the same grid and block
-     (floor);
+     all-invalid lanes; for the flush C = 1 / 3 / 4 / 5 / 16 / 17 / 64 by
+     W = 1 / 64 / 512 with n = 0 and n = C, every entry on one word,
+     negative slots, words past the map and unaligned rows), with its
+     median time, the twin's time, the least time the card could take
+     (bound) and the time of an empty kernel of the same grid and block
+     (floor), each at the shape where the kernel's launches run
+     (pop_earliest: the single-lane replay's L = 1, and the 8192-lane
+     batch beside it);
   4. card against CPU: run_batch of 256 flagship seeds on both devices
      must give equal results; then the overcommit bug (COMMIT_TO_LOG_LEN)
      on 64 seeds that hold its known failures, through run_batch and a
@@ -41,10 +45,12 @@ last line):
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
-git-ignored build/; repeatable), a `head_to_head` line times the step
-megakernel (at the flagship's W and at W past 2 * GROUP) and pop +
-gather of each design at the flagship inputs in turns (A, B, ..., B, A),
-each design held bit for bit against the twins first.
+git-ignored build/; repeatable), a `head_to_head` line times each design
+in turns (A, B, ..., B, A), each held bit for bit against the twins
+first: the step megakernel (at the flagship's W and at W past 2 *
+GROUP), pop + gather and the flush at the flagship inputs, and the pop
+at the replay's L = 1 and at the 8192-lane batch; with the floors of
+each design's grid and block.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after; a kernel of the path that never launched fails the run.
@@ -85,6 +91,7 @@ MULTIPAXOS_FAULTS = dict(n_faults=3, allow_dir_clog=True, allow_group=True, allo
 WIDE_WORDS = (17, 64)  # the head to head's megakernel word blocks past 2 * GROUP
 REPLAY_SEED = 66531  # the overcommit regression of tests/test_engine.py
 REPLAY_CONFIG = dict(horizon_us=5_000_000, queue_capacity=32)
+REPLAY_STATE_STEPS = 300  # the replay state the pop is timed on: seed 66531 this far in
 
 
 def card_line():
@@ -180,10 +187,35 @@ EDGE_SHAPES = [(1, 1, 0, 1, False), (3, 3, 1, 11, False), (31, 33, 7, 256, False
                (8191, 33, 7, 11, False), (3, 32, 6, 10, True), (31, 40, 13, 17, True), (1, 96, 0, 256, True)]
 
 
-def floor_ms(kernels, lanes, dev):
-    """Device time of an empty kernel with the lane-group kernels' grid
-    and block at `lanes` lanes."""
-    grid, block = kernels.lane_group_geometry(lanes)
+# The flush's edge grid: C off the int4 path (1, 3, 5, 17), one round of
+# 16 entries and past it (17, 64), by W = 1 / 64 / 512.
+FLUSH_C, FLUSH_W = (1, 3, 4, 5, 16, 17, 64), (1, 64, 512)
+
+
+def flush_inputs(g, lanes, c, w):
+    """Random flush inputs (map [L, W], buf [L, C], n [L], int32 numpy),
+    lanes >= 4: lane 0 has n = 0, lanes 1-3 n = C; lane 2's entries all
+    fall on one word, the odd lanes' on two neighbouring words (as a full
+    buffer's crowd); a fifth of the entries (all of lane 3's) are negative
+    slots or words past the map, which no column matches."""
+    import numpy as np
+
+    cov_map = g.integers(-2**31, 2**31, (lanes, w)).astype(np.int32)
+    buf = g.integers(0, 32 * w, (lanes, c)).astype(np.int32)
+    buf[1::2] = (32 * g.integers(0, w, (lanes, 1)) + g.integers(0, 64, (lanes, c)))[1::2]
+    n = g.integers(0, c + 1, lanes).astype(np.int32)
+    n[0], n[1:4] = 0, c
+    bad = g.random((lanes, c)) < 0.2
+    bad[3] = True
+    buf[bad] = g.choice(np.array([-1, -32, -33, -2**31, 32 * w, 32 * w + 31, 2**31 - 1]), int(bad.sum()))
+    buf[2] = 32 * int(g.integers(0, w)) + g.integers(0, 32, c)
+    return cov_map, buf, n
+
+
+def floor_ms(kernels, name, lanes, dev, entries=0):
+    """Device time of an empty kernel with kernel `name`'s grid and block
+    at `lanes` lanes (the flush: of `entries` buffered entries each)."""
+    grid, block = kernels.kernel_geometry(name, lanes, entries)
     return device_time_ms(lambda: kernels.launch_floor(grid, block, dev))
 
 
@@ -234,7 +266,7 @@ def check_step_kernel(kernels, g, dev, state, total_words):
     ms = device_time_ms(lambda: kernels.step_megakernel(*main, total_words, d0=state.fr["d0"], d1=state.fr["d1"]))
     plain_ms = wall_time_ms(lambda: kernels.step_prefix_plain(*main, total_words, state.fr["d0"], state.fr["d1"]))
     lanes, q = state.eq_time.shape
-    floor = floor_ms(kernels, lanes, dev)
+    floor = floor_ms(kernels, "step_megakernel", lanes, dev)
     p = state.eq_payload.shape[2]
     # bytes: the time, seq and valid planes whole; one 32-byte sector for
     # each gathered field (kind, node, src, the payload row); key, step
@@ -248,16 +280,23 @@ def check_step_kernel(kernels, g, dev, state, total_words):
     return err, ms, plain_ms, bytes_in + bytes_out, ops, floor
 
 
-def check_pop_kernels(kernels, g, dev, state):
+def pop_planes(state, gather=True):
+    """A state's queue planes, as the pop kernels take them."""
+    planes = [state.eq_time, state.eq_seq, state.eq_valid]
+    return planes + [state.eq_kind, state.eq_node, state.eq_src, state.eq_payload] if gather else planes
+
+
+def check_pop_kernels(kernels, g, dev, state, replay_state):
     """The pop + gather and pop kernels against their twins on the main
-    path's inputs (a split-chain flagship batch) and on edge shapes:
-    8191 lanes of Q = 96 with empty lanes, one lane, Q = 40 and Q = 256,
-    and the lane-group edge shapes."""
+    path's inputs (a split-chain flagship batch, and for the pop the
+    replay's single lane) and on edge shapes: 8191 lanes of Q = 96 with
+    empty lanes, one lane, Q = 40 and Q = 256, and the lane-group edge
+    shapes. Times pop + gather at the batch and the pop at the replay's
+    L = 1 (where its launches run) and at the batch."""
     import torch
 
-    main = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
-            state.eq_src, state.eq_payload]
-    cases = [("flagship-v2", main)]
+    main = pop_planes(state)
+    cases = [("flagship-v2", main), ("replay-L1", pop_planes(replay_state))]
     shapes = [(8191, 96, 6, False), (1, 32, 6, False), (13, 40, 4, False), (64, 256, 6, False)]
     shapes += [(lanes, q, p, mis) for lanes, q, p, _, mis in EDGE_SHAPES]
     for lanes, q, p, mis in shapes:
@@ -275,27 +314,34 @@ def check_pop_kernels(kernels, g, dev, state):
         if e or e_pop:
             fail(f"pop kernels disagree with their twins on {name}: max abs err {e} / {e_pop}")
         gather_err, pop_err = max(gather_err, e), max(pop_err, e_pop)
+
+    def timed(name, fn, plain, ins, nbytes, err):
+        lanes, q = ins[0].shape
+        return {"err": err, "lanes": lanes, "ms": device_time_ms(fn), "plain_ms": wall_time_ms(plain),
+                "floor_ms": floor_ms(kernels, name, lanes, dev), "bytes": nbytes,
+                # three compares a slot, one per argmin stage
+                "ops": lanes * 3 * q}
+
     lanes, q = state.eq_time.shape
     p = state.eq_payload.shape[2]
-    out = {}
-    for name, fn, plain, nbytes in (
-        # bytes: time, seq and valid planes whole (9 B a slot); one 32-byte
-        # sector for each gathered field (kind, node, src, the payload
-        # row); idx, any, the four fields and the payload row out
-        ("pop_gather", lambda: kernels.pop_gather_batch(*main), lambda: kernels.pop_gather_plain(*main),
-         lanes * (9 * q + 4 * 32 + 4 + 1 + 16 + 4 * p)),
-        ("pop_earliest", lambda: kernels.pop_earliest_batch(*main[:3]),
-         lambda: kernels.pop_earliest_plain(*main[:3]), lanes * (9 * q + 4 + 1)),
-    ):
-        out[name] = {"err": gather_err if name == "pop_gather" else pop_err, "ms": device_time_ms(fn),
-                     "plain_ms": wall_time_ms(plain), "bytes": nbytes,
-                     # three compares a slot, one per argmin stage
-                     "ops": lanes * 3 * q}
-    out["pop_gather"]["floor_ms"] = floor_ms(kernels, lanes, dev)
+    # bytes: time, seq and valid planes whole (9 B a slot); one 32-byte
+    # sector for each gathered field (kind, node, src, the payload row);
+    # idx, any, the four fields and the payload row out
+    out = {"pop_gather": timed("pop_gather", lambda: kernels.pop_gather_batch(*main),
+                               lambda: kernels.pop_gather_plain(*main), main,
+                               lanes * (9 * q + 4 * 32 + 4 + 1 + 16 + 4 * p), gather_err)}
+    for key, ins in (("L1", pop_planes(replay_state, gather=False)), (f"L{lanes}", main[:3])):
+        n, qq = ins[0].shape
+        out[f"pop_earliest_{key}"] = timed("pop_earliest", lambda: kernels.pop_earliest_batch(*ins),
+                                           lambda: kernels.pop_earliest_plain(*ins), ins, n * (9 * qq + 4 + 1),
+                                           pop_err)
     return out
 
 
 def check_cov_flush(kernels, g, dev, state):
+    """The flush against its twin on the main path's inputs (the flagship
+    batch's full buffers) and on the edge grid (`flush_inputs` at every C
+    of FLUSH_C by W of FLUSH_W, rows aligned and not), then its times."""
     import torch
 
     cov = state.cov
@@ -306,6 +352,11 @@ def check_cov_flush(kernels, g, dev, state):
         n = torch.as_tensor(g.integers(0, c + 1, lanes).astype("int32")).to(dev)
         n[::4] = 0
         cases.append((f"L{lanes}-C{c}-W{w}", m, buf, n))
+    for c in FLUSH_C:
+        for w in FLUSH_W:
+            m, buf, n = (torch.as_tensor(a).to(dev) for a in flush_inputs(g, 70, c, w))
+            cases.append((f"L70-C{c}-W{w}", m, buf, n))
+            cases.append((f"L70-C{c}-W{w}-misaligned", m, misaligned_copy(buf), n))
     err = 0
     for name, m, buf, n in cases:
         got = kernels.cov_flush_batch(m.clone(), buf, n)
@@ -315,10 +366,11 @@ def check_cov_flush(kernels, g, dev, state):
         if e:
             fail(f"cov_flush disagrees with its twin on {name}: max abs err {e}")
         err = max(err, e)
-    scratch = cov["map"].clone()
+    scratch = cov["map"].clone()  # the flush is idempotent: the map stays valid across reps
     ms = device_time_ms(lambda: kernels.cov_flush_batch(scratch, cov["buf"], cov["buf_n"]))
     plain_ms = wall_time_ms(lambda: kernels.cov_flush_plain(cov["map"], cov["buf"], cov["buf_n"]))
     lanes, c = cov["buf"].shape
+    floor = floor_ms(kernels, "cov_flush", lanes, dev, c)
     live = int(cov["buf_n"].sum())
     # bytes: the buffer and counts read once; one 32-byte sector read and
     # written per distinct live (lane, sector). A sector holds 8 map
@@ -330,7 +382,7 @@ def check_cov_flush(kernels, g, dev, state):
     sectors = torch.unique((lane_ids * (cov["map"].shape[1] // 8) + (slots >> 8))[live_mask]).numel()
     nbytes = lanes * c * 4 + lanes * 4 + sectors * 64
     ops = lanes * c * 4 + live * 3
-    return err, ms, plain_ms, nbytes, ops, live, sectors
+    return err, ms, plain_ms, nbytes, ops, live, sectors, floor
 
 
 def profile_steps(eng, state, steps):
@@ -395,8 +447,9 @@ def card_vs_cpu(make_engine, seeds, max_steps, what):
 
 def split_chain_phases(torch, np, kernels):
     """Phase 6: the default split-chain stream on the card. Returns the
-    timed v2 stream's launch counts, the replay's, and the v2 flagship
-    state the pop kernels are checked on."""
+    timed v2 stream's launch counts, the replay's, the v2 flagship state
+    the pop kernels are checked on, its engine, and the replay's state of
+    seed 66531 REPLAY_STATE_STEPS events in, where the pop is timed."""
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
     from madsim_tpu_torch.engine import audit, corpus
     from madsim_tpu_torch.engine.replay import replay
@@ -455,6 +508,8 @@ def split_chain_phases(torch, np, kernels):
     emit({"phase": "replay_66531", "overcommit": [over.fail_code, len(over.trace)],
           "raft": [honest.fail_code, len(honest.trace)], "card_s": round(t_card, 3),
           "launches": replay_launches, "equal": True})
+    rp_eng = Engine(build_machine("raft"), rp_cfg)
+    replay_state = rp_eng.run_segment(rp_eng.init_batch([REPLAY_SEED]), REPLAY_STATE_STEPS)
 
     # corpus: the five multi-Paxos entries, with their digest trails
     found = []
@@ -498,7 +553,7 @@ def split_chain_phases(torch, np, kernels):
           "slots_hit": res["stats"]["coverage"]["slots_hit"], "launches": launches})
     if res["completed"] < 2 * LANES:
         fail(f"the v2 stream completed {res['completed']} < {2 * LANES} seeds")
-    return launches, replay_launches, state, eng
+    return launches, replay_launches, state, eng, replay_state
 
 
 def time_in_turns(kernels, designs, fn):
@@ -526,10 +581,10 @@ def check_designs(kernels, designs, fn, plain, what):
 
 
 def ptxas_line(build, libs):
-    """ptxas's account of each kernel; fails if a lane-group kernel spills
-    or reports nothing."""
+    """ptxas's account of each kernel; fails if a kernel spills or
+    reports nothing."""
     report = build.ptxas_report(libs)
-    for key in ("step_megakernel_kernel", "pop_gather_kernel"):
+    for key in ("step_megakernel_kernel", "pop_gather_kernel", "pop_earliest_kernel", "cov_flush_kernel"):
         mine = {name: r for name, r in report.items() if key in name}
         if not mine:
             fail(f"ptxas reported nothing for {key}")
@@ -603,7 +658,14 @@ def main(argv=None):
                           f"step_megakernel W={w}")
             head_to_head[f"step_megakernel_w{w}"] = time_in_turns(
                 kernels, designs, lambda: kernels.step_megakernel(*main_ins, w, d0, d1))
-    c_err, c_ms, c_plain, c_bytes, c_ops, c_live, c_sectors = check_cov_flush(kernels, g, dev, state)
+    c_err, c_ms, c_plain, c_bytes, c_ops, c_live, c_sectors, c_floor = check_cov_flush(kernels, g, dev, state)
+    if designs:
+        cov = state.cov
+        check_designs(kernels, designs, lambda: [kernels.cov_flush_batch(cov["map"].clone(), cov["buf"], cov["buf_n"])],
+                      lambda: [kernels.cov_flush_plain(cov["map"], cov["buf"], cov["buf_n"])], "cov_flush")
+        scratch = cov["map"].clone()  # the flush is idempotent: the map stays valid across reps
+        head_to_head["cov_flush"] = time_in_turns(
+            kernels, designs, lambda: kernels.cov_flush_batch(scratch, cov["buf"], cov["buf_n"]))
 
     def bound(nbytes, ops):
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
@@ -612,8 +674,8 @@ def main(argv=None):
     s_bound, c_bound = bound(s_bytes, s_ops), bound(c_bytes, c_ops)
     emit({"phase": "kernels", "step_megakernel": {"ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
                                                   "floor_ms": s_floor, "bytes": s_bytes, "ops": s_ops},
-          "cov_flush": {"ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0], "bytes": c_bytes,
-                        "ops": c_ops, "live_entries": c_live, "live_sectors": c_sectors}})
+          "cov_flush": {"ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0], "floor_ms": c_floor,
+                        "bytes": c_bytes, "ops": c_ops, "live_entries": c_live, "live_sectors": c_sectors}})
 
     # 4. the card against the CPU: 256 flagship seeds, whole results
     seeds = np.arange(CHECK_LANES, dtype=np.uint32) + 10_000
@@ -682,17 +744,16 @@ def main(argv=None):
     # where a flagship step's time goes: a short profiler window
     emit({"phase": "profile", **profile_steps(eng, state, steps=8)})
 
-    # 6. the split-chain stream, and the pop kernels on its inputs
-    v2_launches, replay_launches, v2_state, v2_eng = split_chain_phases(torch, np, kernels)
-    pops = check_pop_kernels(kernels, g, dev, v2_state)
+    # 6. the split-chain stream, and the pop kernels on its inputs and the replay's
+    v2_launches, replay_launches, v2_state, v2_eng, replay_state = split_chain_phases(torch, np, kernels)
+    pops = check_pop_kernels(kernels, g, dev, v2_state, replay_state)
     for name, k in pops.items():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
-    emit({"phase": "pop_kernels", **{name: {key: k[key] for key in ("ms", "plain_ms", "bound_ms", "floor_ms",
-                                                                    "bytes", "ops") if key in k}
+    emit({"phase": "pop_kernels", **{name: {key: k[key] for key in ("lanes", "ms", "plain_ms", "bound_ms",
+                                                                    "floor_ms", "bytes", "ops")}
                                      for name, k in pops.items()}})
     if designs:
-        pop_ins = [v2_state.eq_time, v2_state.eq_seq, v2_state.eq_valid, v2_state.eq_kind, v2_state.eq_node,
-                   v2_state.eq_src, v2_state.eq_payload]
+        pop_ins = pop_planes(v2_state)
 
         def flat_pop(r):
             return [r[0], r[1], *r[2], r[3]]
@@ -701,11 +762,25 @@ def main(argv=None):
                       lambda: flat_pop(kernels.pop_gather_plain(*pop_ins)), "pop_gather")
         head_to_head["pop_gather"] = time_in_turns(kernels, designs, lambda: kernels.pop_gather_batch(*pop_ins))
         lanes = v2_state.eq_time.shape[0]
-        # the floors: this checkout's grid and block, and one warp per lane
-        # (8 warps a block), the design of the earlier kernels
+        for key, ins in (("L1", pop_planes(replay_state, gather=False)), (f"L{lanes}", pop_ins[:3])):
+            check_designs(kernels, designs, lambda: kernels.pop_earliest_batch(*ins),
+                          lambda: kernels.pop_earliest_plain(*ins), f"pop_earliest {key}")
+            head_to_head[f"pop_earliest_{key}"] = time_in_turns(
+                kernels, designs, lambda: kernels.pop_earliest_batch(*ins))
+        # the floors: this checkout's grids and blocks, and those of other
+        # designs: one warp per lane (8 warps a block) for the first pops,
+        # 4 threads a lane (64 lanes a block) for a flush that merges a
+        # lane's entries by shuffles
+        c = state.cov["buf"].shape[1]
+        earlier = {f"one warp per lane L{lanes}": ((lanes + 7) // 8, 256),
+                   f"4 threads a lane L{lanes}": ((lanes + 63) // 64, 256)}
         head_to_head["floor_ms"] = {
-            "lane groups": floor_ms(kernels, lanes, dev),
-            "one warp per lane": device_time_ms(lambda: kernels.launch_floor((lanes + 7) // 8, 256, dev)),
+            f"pop_gather L{lanes}": floor_ms(kernels, "pop_gather", lanes, dev),
+            f"pop_earliest L{lanes}": floor_ms(kernels, "pop_earliest", lanes, dev),
+            "pop_earliest L1": floor_ms(kernels, "pop_earliest", 1, dev),
+            f"cov_flush L{lanes} C{c}": floor_ms(kernels, "cov_flush", lanes, dev, c),
+            **{name: device_time_ms(lambda: kernels.launch_floor(grid, block, dev))
+               for name, (grid, block) in earlier.items()},
         }
         emit({"phase": "head_to_head", "order": [n for n, _ in designs + designs[::-1]], "lanes": lanes,
               **head_to_head})
@@ -716,18 +791,21 @@ def main(argv=None):
         {"name": "step_megakernel", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/step_megakernel.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:310", "launches": launches["step_megakernel"],
          "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
-         "bound_by": s_bound[1], "library_ms": None},
+         "bound_by": s_bound[1], "library_ms": None, "floor_ms": s_floor},
         {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
-         "bound_by": c_bound[1], "library_ms": None},
+         "bound_by": c_bound[1], "library_ms": None, "floor_ms": c_floor},
+        # each at the shape where its launches run: pop_earliest's are the
+        # single-lane replay's
         *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
-           "replaces": replaces, "launches": n, "max_abs_err": pops[name]["err"], "ms": pops[name]["ms"],
-           "plain_ms": pops[name]["plain_ms"], "bound_ms": pops[name]["bound_ms"],
-           "bound_by": pops[name]["bound_by"], "library_ms": None}
-          for name, replaces, n in (
-              ("pop_gather", "madsim_tpu/ops/pallas_pop.py:172", v2_launches["pop_gather"]),
-              ("pop_earliest", "madsim_tpu/ops/pallas_pop.py:143", replay_launches["pop_earliest"]))),
+           "replaces": replaces, "launches": n, "max_abs_err": k["err"], "ms": k["ms"],
+           "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+           "floor_ms": k["floor_ms"], "lanes": k["lanes"]}
+          for name, replaces, n, k in (
+              ("pop_gather", "madsim_tpu/ops/pallas_pop.py:172", v2_launches["pop_gather"], pops["pop_gather"]),
+              ("pop_earliest", "madsim_tpu/ops/pallas_pop.py:143", replay_launches["pop_earliest"],
+               pops["pop_earliest_L1"]))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,49 +13,6 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL_MASK, v, o));
-  return v;
-}
-
-// The pop of one lane's event queue, computed by a whole warp: the
-// lexicographic (time, seq, index) argmin over the valid slots of the
-// row. Thread t reads slots t, t + 32, ... (any Q), and three butterfly
-// min-reductions give min time over the valid slots, min seq over the
-// time ties, then the first slot index holding both. Every thread gets
-// the index; `any` says whether the row holds a valid slot. An
-// all-invalid row gives index 0 and any = false, as the reference's
-// `_lex_argmin` does. INT_MAX is a legal time: a valid slot at INT_MAX
-// still matches the minimum. All 32 threads of the warp must call it.
-__device__ __forceinline__ int warp_lex_argmin(const int32_t* __restrict__ time,
-                                               const int32_t* __restrict__ seq,
-                                               const uint8_t* __restrict__ valid, int q,
-                                               bool& any) {
-  const int t = threadIdx.x & 31;
-  int tmin = INT_MAX;
-  bool mine = false;
-  for (int j = t; j < q; j += 32) {
-    if (valid[j]) {
-      mine = true;
-      tmin = min(tmin, time[j]);
-    }
-  }
-  tmin = warp_min(tmin);
-  any = __any_sync(FULL_MASK, mine);
-  int smin = INT_MAX;
-  for (int j = t; j < q; j += 32) {
-    if (valid[j] && time[j] == tmin) smin = min(smin, seq[j]);
-  }
-  smin = warp_min(smin);
-  int best = q;
-  for (int j = t; j < q; j += 32) {
-    if (valid[j] && time[j] == tmin && seq[j] == smin) best = min(best, j);
-  }
-  best = warp_min(best);
-  return best == q ? 0 : best;
-}
-
 // -- lane groups --------------------------------------------------------------
 //
 // A group of GROUP neighbouring threads of a warp owns one lane, so a warp
@@ -116,14 +73,13 @@ struct LexBest {
 };
 
 // The pop of one lane's event queue by its group: the lexicographic
-// (time, seq, index) argmin over the valid slots of the row, as
-// `warp_lex_argmin` gives it, with each plane read once. With VEC, thread
-// g loads slots 4g..4g+3 (+ 4 GROUP, ...) of the time and seq planes as
-// one int4 each and of the valid plane as one uchar4; otherwise slots
-// g, g + GROUP, ... one by one. One local pass in registers, then one
-// xor butterfly over the group that keeps the lexicographic minimum of
-// (time, seq, index) triples: log2(GROUP) steps of three independent
-// shuffles. An all-invalid row gives index 0 and any = false; a valid
+// (time, seq, index) argmin over the valid slots of the row, with each
+// plane read once. With VEC, thread g loads slots 4g..4g+3 (+ 4 GROUP,
+// ...) of the time and seq planes as one int4 each and of the valid plane
+// as one uchar4; otherwise slots g, g + GROUP, ... one by one. One local
+// pass in registers, then one xor butterfly over the group that keeps the
+// lexicographic minimum of (time, seq, index) triples: log2(GROUP) steps
+// of three independent shuffles. An all-invalid row gives index 0 and any = false; a valid
 // slot at INT_MAX is a legal time and still wins. Every thread of the
 // warp must call it.
 template <bool VEC>

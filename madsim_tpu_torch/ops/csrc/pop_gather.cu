@@ -19,22 +19,22 @@
 // memory (the planes, then the popped slot) plus the instructions issued
 // in between, on top of the fixed cost of one launch of one wave.
 //
-// What `pop_gather` does about it: lane groups (common.cuh). Eight
-// threads own a lane, so a warp serves four and a 256-thread block 32.
-// Each plane is read once, as 16-byte loads where Q % 4 == 0 and the rows
-// are aligned (a scalar path takes Q = 33 or a sliced plane), and the
-// argmin is one local pass in registers and one three-step xor butterfly
-// over (time, seq, index) triples. The gather is one load per field from
-// the thread that owns the field, its address known before the argmin,
-// all issued together, and each thread writes what it loaded.
-//
-// `pop_earliest` runs one warp per lane (`madsim::warp_lex_argmin`).
+// What the design does about it: lane groups (common.cuh). Eight threads
+// own a lane, so a warp serves four and a 256-thread block 32. Each plane
+// is read once, as 16-byte loads where Q % 4 == 0 and the rows are
+// aligned (a scalar path takes Q = 33 or a sliced plane), and the argmin
+// is one local pass in registers and one three-step xor butterfly over
+// (time, seq, index) triples. `pop_gather` then gathers with one load per
+// field from the thread that owns the field, its address known before
+// the argmin, all issued together, and each thread writes what it loaded.
+// `pop_earliest` stores (idx, any) from the group's first thread: one trip
+// to memory a launch, at any L. Its launches are the single-lane replay's
+// (L = 1, Q = 32): one block, whose other 31 groups compute lane 0 again
+// and store nothing (a one-warp block there was no faster).
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int WARPS_PER_BLOCK = 8;
 
 template <bool VEC>
 __global__ void __launch_bounds__(madsim::GROUP_BLOCK)
@@ -74,22 +74,21 @@ pop_gather_kernel(const int32_t* __restrict__ eq_time, const int32_t* __restrict
   }
 }
 
-__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+template <bool VEC>
+__global__ void __launch_bounds__(madsim::GROUP_BLOCK)
 pop_earliest_kernel(const int32_t* __restrict__ eq_time, const int32_t* __restrict__ eq_seq,
                     const uint8_t* __restrict__ eq_valid, int lanes, int q,
                     int32_t* __restrict__ idx_out, uint8_t* __restrict__ any_out) {
-  const int lane = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (lane >= lanes) return;  // uniform over the warp
-  const int64_t row = static_cast<int64_t>(lane) * q;
+  using namespace madsim;
+  const LaneGroup grp = lane_group(lanes);
+  const int64_t row = grp.lane * q;
   bool any;
-  const int best = madsim::warp_lex_argmin(eq_time + row, eq_seq + row, eq_valid + row, q, any);
-  if ((threadIdx.x & 31) == 0) {
-    idx_out[lane] = best;
-    any_out[lane] = any ? 1 : 0;
+  const int best = group_lex_argmin<VEC>(eq_time + row, eq_seq + row, eq_valid + row, q, grp.g, any);
+  if (grp.live && grp.g == 0) {
+    idx_out[grp.lane] = best;
+    any_out[grp.lane] = any ? 1 : 0;
   }
 }
-
-dim3 warp_grid(int lanes) { return dim3((lanes + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK); }
 
 }  // namespace
 
@@ -118,7 +117,9 @@ extern "C" int pop_earliest_launch(const void* eq_time, const void* eq_seq, cons
                                    int lanes, int q, void* idx_out, void* any_out, void* stream) {
   if (q < 1 || lanes < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (lanes == 0) return 0;
-  pop_earliest_kernel<<<warp_grid(lanes), 32 * WARPS_PER_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = madsim::rows_vectorizable(eq_time, eq_seq, eq_valid, q) ? pop_earliest_kernel<true>
+                                                                        : pop_earliest_kernel<false>;
+  kernel<<<madsim::group_grid(lanes), madsim::GROUP_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(eq_time), static_cast<const int32_t*>(eq_seq),
       static_cast<const uint8_t*>(eq_valid), lanes, q, static_cast<int32_t*>(idx_out),
       static_cast<uint8_t*>(any_out));

@@ -17,8 +17,8 @@ tensors it checks device, dtype, shape and contiguity, allocates the
 outputs, launches the kernel on PyTorch's current stream and adds one
 to `launches[name]`; anything else raises. Nothing falls back.
 
-`launch_floor` launches an empty kernel with the lane-group kernels'
-grid and block (`csrc/launch_floor.cu`): it serves chip_smoke.py's
+`launch_floor` launches an empty kernel with a kernel's grid and block
+(`kernel_geometry`, `csrc/launch_floor.cu`): it serves chip_smoke.py's
 measurements and counts no launch.
 """
 
@@ -66,6 +66,13 @@ _ARGTYPES = {
     "pop_gather_launch": [_P] * 7 + [_I] * 3 + [_P] * 8,
     "pop_earliest_launch": [_P] * 3 + [_I] * 2 + [_P] * 3,
     "launch_floor_launch": [_I] * 2 + [_P],
+}
+# the library that reports each kernel's launch geometry, and its C function
+_GEOMETRY = {
+    "step_megakernel": ("launch_floor", "lane_group_geometry"),
+    "pop_gather": ("launch_floor", "lane_group_geometry"),
+    "pop_earliest": ("launch_floor", "lane_group_geometry"),
+    "cov_flush": ("cov_flush", "cov_flush_geometry"),
 }
 
 
@@ -131,9 +138,9 @@ def pop_gather_plain(eq_time, eq_seq, eq_valid, eq_kind, eq_node, eq_src, eq_pay
 
 
 def pop_earliest_batch(eq_time, eq_seq, eq_valid):
-    """The pop of every lane, one warp per lane on the card; the twin for
-    CPU tensors. Inputs [L, Q] int32 time/seq and bool valid; outputs as
-    `pop_earliest_plain`."""
+    """The pop of every lane, a group of threads per lane on the card;
+    the twin for CPU tensors. Inputs [L, Q] int32 time/seq and bool
+    valid; outputs as `pop_earliest_plain`."""
     device = eq_time.device
     if not _on_card("pop_earliest", device):
         return pop_earliest_plain(eq_time, eq_seq, eq_valid)
@@ -279,14 +286,16 @@ def cov_flush_batch(cov_map, buf, n):
 # -- the launch floor ---------------------------------------------------------
 
 
-def lane_group_geometry(lanes: int):
-    """(grid, block) of the lane-group kernels (pop_gather,
-    step_megakernel) at `lanes` lanes, as the built sources define it."""
-    fn = load()["launch_floor"].lane_group_geometry
-    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+def kernel_geometry(name: str, lanes: int, entries: int = 0):
+    """(grid, block) of kernel `name`'s launch at `lanes` lanes (the flush:
+    of `entries` buffered entries each), as the built sources define it."""
+    stem, fn_name = _GEOMETRY[name]
+    fn = getattr(load()[stem], fn_name)
+    sizes = [lanes, entries] if name == "cov_flush" else [lanes]
+    fn.argtypes = [_I] * len(sizes) + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = None
     grid, block = ctypes.c_int(), ctypes.c_int()
-    fn(lanes, ctypes.byref(grid), ctypes.byref(block))
+    fn(*sizes, ctypes.byref(grid), ctypes.byref(block))
     return grid.value, block.value
 
 

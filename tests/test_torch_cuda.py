@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import EDGE_SHAPES, misaligned_copy
+from chip_smoke import (EDGE_SHAPES, FLUSH_C, FLUSH_W, REPLAY_CONFIG, REPLAY_SEED, REPLAY_STATE_STEPS,
+                        flush_inputs, misaligned_copy)
 
 pytestmark = pytest.mark.cuda
 
@@ -56,21 +57,48 @@ def test_step_megakernel_matches_twin(dev, lanes, q, p, w, digest):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("lanes,c,w", [(8192, 16, 512), (33, 5, 64)])
-def test_cov_flush_matches_twin(dev, lanes, c, w):
+# the flush's edge grid (chip_smoke.flush_inputs says what its lanes hold),
+# rows aligned and one element off 16-byte alignment
+_FLUSH_GRID = [(70, c, w, mis) for c in FLUSH_C for w in FLUSH_W for mis in (False, True)]
+
+
+@pytest.mark.parametrize("lanes,c,w,misaligned", [(8192, 16, 512, False), (33, 5, 64, False)] + _FLUSH_GRID)
+def test_cov_flush_matches_twin(dev, lanes, c, w, misaligned):
     from madsim_tpu_torch.ops import kernels
 
-    g = np.random.default_rng(c)
-    cov_map = torch.as_tensor(g.integers(-2**31, 2**31, (lanes, w)).astype(np.int32)).to(dev)
-    buf = torch.as_tensor(g.integers(0, 32 * w, (lanes, c)).astype(np.int32)).to(dev)
-    n = torch.as_tensor(g.integers(0, c + 1, lanes).astype(np.int32)).to(dev)
+    g = np.random.default_rng(c * 1000 + w)
+    if lanes == 70:
+        cov_map, buf, n = (torch.as_tensor(a).to(dev) for a in flush_inputs(g, lanes, c, w))
+    else:
+        cov_map = torch.as_tensor(g.integers(-2**31, 2**31, (lanes, w)).astype(np.int32)).to(dev)
+        buf = torch.as_tensor(g.integers(0, 32 * w, (lanes, c)).astype(np.int32)).to(dev)
+        n = torch.as_tensor(g.integers(0, c + 1, lanes).astype(np.int32)).to(dev)
+    if misaligned:
+        buf = misaligned_copy(buf)
+        assert buf.data_ptr() % 16 and buf.is_contiguous()
     want = kernels.cov_flush_plain(cov_map, buf, n)
+    before = kernels.launches["cov_flush"]
     got = kernels.cov_flush_batch(cov_map.clone(), buf, n)
     torch.cuda.synchronize()
+    assert kernels.launches["cov_flush"] == before + 1
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("lanes,q,p", [(8192, 32, 6), (8191, 96, 6), (1, 32, 6), (13, 40, 4)])
+def _replay_state_planes(dev):
+    """The queue planes of the single-lane replay's state: seed 66531,
+    REPLAY_STATE_STEPS events in, on the card."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import build_machine
+
+    cfg = EngineConfig(**REPLAY_CONFIG, faults=FaultPlan(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000,
+                                                         dur_max_us=800_000))
+    eng = Engine(build_machine("raft"), cfg)
+    s = eng.run_segment(eng.init_batch([REPLAY_SEED]), REPLAY_STATE_STEPS)
+    assert s.eq_time.device.type == "cuda" and tuple(s.eq_time.shape) == (1, 32) and bool(s.eq_valid.any())
+    return [s.eq_time, s.eq_seq, s.eq_valid, s.eq_kind, s.eq_node, s.eq_src, s.eq_payload]
+
+
+@pytest.mark.parametrize("lanes,q,p", [(8192, 32, 6), (8191, 96, 6), (1, 32, 6), (13, 40, 4), ("replay", 32, 6)])
 def test_pop_kernels_match_twins(dev, lanes, q, p):
     from madsim_tpu_torch.ops import kernels
 
@@ -79,14 +107,17 @@ def test_pop_kernels_match_twins(dev, lanes, q, p):
     def t(a):
         return torch.as_tensor(a).to(dev)
 
-    time_ = g.integers(0, 30, (lanes, q)).astype(np.int32)
-    time_[g.random((lanes, q)) < 0.1] = 2**31 - 1  # INT32_MAX is a legal time
-    seq = g.integers(0, 2**31 - 1, (lanes, q)).astype(np.int32)
-    valid = g.random((lanes, q)) < 0.5
-    valid[::3] = False  # empty lanes
-    ins = [t(time_), t(seq), t(valid), *(t(g.integers(-2**31, 2**31, (lanes, q)).astype(np.int32))
-                                         for _ in range(3)),
-           t(g.integers(-2**31, 2**31, (lanes, q, p)).astype(np.int32))]
+    if lanes == "replay":  # the replay's own shape, L = 1 and Q = 32, on a real state
+        ins = _replay_state_planes(dev)
+    else:
+        time_ = g.integers(0, 30, (lanes, q)).astype(np.int32)
+        time_[g.random((lanes, q)) < 0.1] = 2**31 - 1  # INT32_MAX is a legal time
+        seq = g.integers(0, 2**31 - 1, (lanes, q)).astype(np.int32)
+        valid = g.random((lanes, q)) < 0.5
+        valid[::3] = False  # empty lanes
+        ins = [t(time_), t(seq), t(valid), *(t(g.integers(-2**31, 2**31, (lanes, q)).astype(np.int32))
+                                             for _ in range(3)),
+               t(g.integers(-2**31, 2**31, (lanes, q, p)).astype(np.int32))]
     before = dict(kernels.launches)
     got = kernels.pop_gather_batch(*ins)
     want = kernels.pop_gather_plain(*ins)

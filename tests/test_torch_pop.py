@@ -221,6 +221,71 @@ def test_lane_group_pop_gather_emulation_matches_jax(q, group, aligned):
     assert anys[1] == bool(arrs[2][1].any()) and (not anys[1] or arrs[0][1, idx[1]] == INT32_MAX)
 
 
+# `pop_earliest_kernel` (pop_gather.cu) over its whole grid: blocks of
+# GROUP_BLOCK threads, GROUP threads a lane, a group past the last lane
+# computing the last lane again and storing nothing (at the replay's L = 1,
+# 31 of the block's 32 groups), each live group's first thread storing
+# (idx, any).
+
+GROUP, GROUP_BLOCK = 8, 256  # common.cuh
+
+
+def _emulate_pop_earliest(time, seq, valid, aligned):
+    lanes, q = time.shape
+    vec = q % 4 == 0 and aligned
+    block, per_block = GROUP_BLOCK, GROUP_BLOCK // GROUP
+    idx, anys, stores = np.zeros(lanes, np.int32), np.zeros(lanes, bool), np.zeros(lanes, int)
+    for b in range((lanes + per_block - 1) // per_block):
+        for t in range(0, block, GROUP):
+            mine = b * per_block + t // GROUP
+            lane = min(mine, lanes - 1)
+            best, any_valid, slots = _group_argmin(time[lane], seq[lane], valid[lane], GROUP, vec)
+            assert sorted(j for s in slots for j in s) == list(range(q))  # every slot read once
+            if mine < lanes:
+                idx[lane], anys[lane] = best, any_valid
+                stores[lane] += 1
+    assert stores.tolist() == [1] * lanes  # every lane stored, by one group
+    return idx, anys
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["int4", "scalar"])
+@pytest.mark.parametrize("q", [1, 3, 32, 33])
+@pytest.mark.parametrize("lanes", [1, 4, 5, 37])
+def test_lane_group_pop_earliest_emulation_matches_jax(lanes, q, aligned):
+    """At the replay's L = 1 and small batches, against the JAX package's
+    Pallas pop in interpret mode and the twin."""
+    arrs = _tie_heavy_queues(lanes * 100 + q, lanes + 4, q, 1)
+    rows = slice(1, 1 + lanes) if lanes <= 4 else slice(0, lanes)  # L <= 4: no all-invalid lane 0
+    time, seq, valid = (a[rows] for a in arrs[:3])
+    want_idx, want_any = jax_pop_earliest(jnp.asarray(time), jnp.asarray(seq), jnp.asarray(valid),
+                                          use_pallas=True, interpret=True)
+    t_idx, t_any = kernels.pop_earliest_plain(*(torch.from_numpy(a) for a in (time, seq, valid)))
+    idx, anys = _emulate_pop_earliest(time, seq, valid, aligned)
+    assert idx.tolist() == np.asarray(want_idx).tolist() == t_idx.tolist()
+    assert anys.tolist() == np.asarray(want_any).tolist() == t_any.tolist()
+
+
+def test_lane_group_pop_earliest_emulation_on_a_replay_state():
+    """The replay's own input: seed 66531's single lane REPLAY_STATE_STEPS
+    events in (the port on the CPU), popped by the emulated kernel, the
+    JAX package's Pallas pop in interpret mode and the twin."""
+    from chip_smoke import REPLAY_CONFIG, REPLAY_SEED, REPLAY_STATE_STEPS
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import build_machine
+
+    faults = FaultPlan(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
+    eng = Engine(build_machine("raft"), EngineConfig(**REPLAY_CONFIG, faults=faults), device="cpu")
+    state = eng.run_segment(eng.init_batch([REPLAY_SEED]), REPLAY_STATE_STEPS)
+    time, seq, valid = (x.numpy() for x in (state.eq_time, state.eq_seq, state.eq_valid))
+    assert time.shape == (1, 32) and valid.sum() > 1
+    want_idx, want_any = jax_pop_earliest(jnp.asarray(time), jnp.asarray(seq), jnp.asarray(valid),
+                                          use_pallas=True, interpret=True)
+    idx, anys = _emulate_pop_earliest(time, seq, valid, aligned=True)
+    t_idx, t_any = kernels.pop_earliest_batch(state.eq_time, state.eq_seq, state.eq_valid)
+    assert idx.tolist() == np.asarray(want_idx).tolist() == t_idx.tolist()
+    assert anys.tolist() == np.asarray(want_any).tolist() == t_any.tolist() == [True]
+
+
 # The megakernel's word block and digest (step_megakernel.cu), in uint32
 # arithmetic mirroring the .cu's `threefry2x32` and `digest_word`.
 
