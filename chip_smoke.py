@@ -38,10 +38,23 @@ last line):
      (card_vs_cpu_multipaxos), all equal to the CPU; the single-lane
      replay of seed 66531 (replay_66531: OvercommitRaft fails
      LOG_MATCHING, RaftMachine passes, trace and state equal to the
-     CPU's), which pops with the pop kernel; the five multi-Paxos entries
-     of corpus.json (corpus: code 150 and the recorded digest trail);
-     and the 8192-lane flagship stream under rng_stream=2 (stream_v2);
-  7. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+     CPU's), which pops with the pop kernel; all eight entries of
+     corpus.json (corpus: codes 150 x5, 206, 160, 212 and the recorded
+     digest trails, the pop kernel launched); and the 8192-lane flagship
+     stream under rng_stream=2 (stream_v2);
+  7. the delay-spike kind and the etcd-MVCC, S3 and gossip models:
+     run_batch of 256 flagship seeds with delay faults on both streams
+     equal to the CPU, with the sends that took a spike counted and the
+     megakernel held against its twin at W = 18 (card_vs_cpu_delay); each
+     model and its corpus demo on the card against the CPU, the demo
+     failing with its code (card_vs_cpu_models: mvcc and s3 at Q = 48,
+     gossip at 33 nodes and Q = 256); the MVCC give-up hunt at 8192 lanes
+     under delay spikes (stream_mvcc), whose first ABANDONED_WRITE seed
+     replays equal on the card and the CPU; then the pop kernels against
+     their twins and timed at the new shapes (pop_kernels: pop + gather
+     at the hunt's Q = 48 and the replay's L = 1, the pop at L = 1 with
+     Q = 48 and 256 on the corpus replays' states);
+  8. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
@@ -79,7 +92,9 @@ FLAGSHIP = dict(
 )
 FLAGSHIP_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
 LANES, SEGMENT_STEPS = 8192, 384
-CHECK_LANES, CHECK_STEPS = 256, 2000  # phase 4
+# phases 4 and 6: lanes and run_batch's step budget (some flagship lanes
+# run it out); small enough that the script fits half its time limit
+CHECK_LANES, CHECK_STEPS = 256, 1024
 # phase 4b: OvercommitRaft fails these seeds with LOG_MATCHING under the
 # flagship config (the first at step 364, the last two by step 533)
 OVERCOMMIT_SEEDS, OVERCOMMIT_STEPS = [232949, 134519, 143336], 640
@@ -92,6 +107,33 @@ WIDE_WORDS = (17, 64)  # the head to head's megakernel word blocks past 2 * GROU
 REPLAY_SEED = 66531  # the overcommit regression of tests/test_engine.py
 REPLAY_CONFIG = dict(horizon_us=5_000_000, queue_capacity=32)
 REPLAY_STATE_STEPS = 300  # the replay state the pop is timed on: seed 66531 this far in
+# the delay kind and the etcd-MVCC, S3 and gossip models
+# card_vs_cpu_delay: lanes, run_batch's step budget, and the steps over
+# which the sends that took a spike are counted
+DELAY_LANES, DELAY_STEPS, DELAY_SPIKE_STEPS = 256, 512, 384
+# card_vs_cpu_models: lanes, and step budgets (mvcc and s3 lanes end in
+# ~70-120 events; gossip's run past the budget)
+MODEL_LANES, GOSSIP_LANES = 256, 64
+MVCC_STEPS, S3_STEPS, GOSSIP_STEPS = 3000, 4000, 600
+# the delay-only plan of tests/test_engine_mvcc.py, and the full vocabularies
+# of tests/test_engine_s3.py (with delay) and tests/test_engine_gossip.py
+MVCC = dict(horizon_us=8_000_000, queue_capacity=48)
+MVCC_DELAY_FAULTS = dict(n_faults=3, allow_partition=False, allow_kill=False, allow_delay=True,
+                         t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
+S3_FAULTS = dict(n_faults=3, allow_dir_clog=True, allow_group=True, allow_storm=True, allow_delay=True,
+                 t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=800_000)
+GOSSIP = dict(horizon_us=5_000_000, queue_capacity=256)
+GOSSIP_FAULTS = dict(n_faults=3, allow_dir_clog=True, allow_group=True, allow_storm=True, allow_delay=True,
+                     t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=700_000)
+# the demo-dupack-gossip corpus entry's plan and seeds around its seed 45
+DUPACK_FAULTS = {**GOSSIP_FAULTS, "dur_min_us": 100_000, "dur_max_us": 800_000}
+DUPACK_SEEDS, DUPACK_STEPS = list(range(38, 54)), 500
+# stream_mvcc: the give-up hunt at full width, the corpus entry's plan at the full horizon
+MVCC_HUNT = dict(horizon_us=8_000_000, queue_capacity=48, rng_stream=2, handler_rand_words=4, clog_packed=True,
+                 flight_recorder=True, coverage=True)
+MVCC_HUNT_FAULTS = dict(n_faults=2, allow_partition=False, allow_kill=False, allow_delay=True,
+                        t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=800_000)
+CORPUS_STATE_STEPS = {"demo-giveup-mvcc": 36, "demo-dupack-gossip": 300}  # pop_earliest's L = 1 states
 
 
 def card_line():
@@ -265,19 +307,29 @@ def check_step_kernel(kernels, g, dev, state, total_words):
         err = max(err, e)
     ms = device_time_ms(lambda: kernels.step_megakernel(*main, total_words, d0=state.fr["d0"], d1=state.fr["d1"]))
     plain_ms = wall_time_ms(lambda: kernels.step_prefix_plain(*main, total_words, state.fr["d0"], state.fr["d1"]))
-    lanes, q = state.eq_time.shape
-    floor = floor_ms(kernels, "step_megakernel", lanes, dev)
-    p = state.eq_payload.shape[2]
-    # bytes: the time, seq and valid planes whole; one 32-byte sector for
-    # each gathered field (kind, node, src, the payload row); key, step
-    # and digest in; idx, any, the tuple, payload, words and digest out
+    floor = floor_ms(kernels, "step_megakernel", state.eq_time.shape[0], dev)
+    return (err, ms, plain_ms, *step_kernel_cost(state.eq_time.shape[0], state.eq_time.shape[1],
+                                                 state.eq_payload.shape[2], total_words), floor)
+
+
+def step_kernel_cost(lanes, q, p, total_words):
+    """(bytes, operations) of the megakernel's work at one shape. Bytes:
+    the time, seq and valid planes whole; one 32-byte sector for each
+    gathered field (kind, node, src, the payload row); key, step and
+    digest in; idx, any, the tuple, payload, words and digest out.
+    Operations: per Threefry pair 20 rounds of 3 + 5 injections of 3, per
+    digest word ~11; the argmin ~3 compares a slot per stage."""
     bytes_in = lanes * (q * (4 + 4 + 1) + 4 * 32 + 8 + 4 + 8)
     bytes_out = lanes * (4 + 1 + 4 * 4 + 4 * p + 4 * total_words + 8)
-    # operations: per Threefry pair 20 rounds of 3 + 5 injections of 3,
-    # per digest word ~11; the argmin ~3 compares a slot per stage
     half = (total_words + 1) // 2
     ops = lanes * (half * (20 * 3 + 5 * 3 + 2) + (4 + p + total_words) * 11 + 9 * q)
-    return err, ms, plain_ms, bytes_in + bytes_out, ops, floor
+    return bytes_in + bytes_out, ops
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def pop_planes(state, gather=True):
@@ -286,17 +338,22 @@ def pop_planes(state, gather=True):
     return planes + [state.eq_kind, state.eq_node, state.eq_src, state.eq_payload] if gather else planes
 
 
-def check_pop_kernels(kernels, g, dev, state, replay_state):
+def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_states):
     """The pop + gather and pop kernels against their twins on the main
-    path's inputs (a split-chain flagship batch, and for the pop the
-    replay's single lane) and on edge shapes: 8191 lanes of Q = 96 with
-    empty lanes, one lane, Q = 40 and Q = 256, and the lane-group edge
-    shapes. Times pop + gather at the batch and the pop at the replay's
-    L = 1 (where its launches run) and at the batch."""
+    paths' inputs (a split-chain flagship batch, the mvcc hunt's batch at
+    Q = 48, P = 5, and single lanes: the replay's at Q = 32, the mvcc and
+    gossip corpus replays' at Q = 48 and 256) and on edge shapes: 8191
+    lanes of Q = 96 with empty lanes, one lane, Q = 40 and Q = 256, and
+    the lane-group edge shapes. Times pop + gather at the flagship batch,
+    the hunt's batch and the replay's L = 1, and the pop at L = 1 on the
+    three replays (where its launches run) and at the batch."""
     import torch
 
     main = pop_planes(state)
-    cases = [("flagship-v2", main), ("replay-L1", pop_planes(replay_state))]
+    hunt = pop_planes(hunt_state)
+    mvcc_l1, gossip_l1 = (pop_planes(corpus_states[m]) for m in ("demo-giveup-mvcc", "demo-dupack-gossip"))
+    cases = [("flagship-v2", main), ("replay-L1", pop_planes(replay_state)), ("mvcc-hunt", hunt),
+             ("mvcc-replay-L1", mvcc_l1), ("gossip-replay-L1", gossip_l1)]
     shapes = [(8191, 96, 6, False), (1, 32, 6, False), (13, 40, 4, False), (64, 256, 6, False)]
     shapes += [(lanes, q, p, mis) for lanes, q, p, _, mis in EDGE_SHAPES]
     for lanes, q, p, mis in shapes:
@@ -315,27 +372,35 @@ def check_pop_kernels(kernels, g, dev, state, replay_state):
             fail(f"pop kernels disagree with their twins on {name}: max abs err {e} / {e_pop}")
         gather_err, pop_err = max(gather_err, e), max(pop_err, e_pop)
 
-    def timed(name, fn, plain, ins, nbytes, err):
+    def timed(name, ins):
         lanes, q = ins[0].shape
-        return {"err": err, "lanes": lanes, "ms": device_time_ms(fn), "plain_ms": wall_time_ms(plain),
+        if name == "pop_gather":
+            fn, plain, err = (lambda: kernels.pop_gather_batch(*ins)), (lambda: kernels.pop_gather_plain(*ins)), \
+                gather_err
+            # bytes: time, seq and valid planes whole (9 B a slot); one
+            # 32-byte sector for each gathered field (kind, node, src, the
+            # payload row); idx, any, the four fields and the payload row out
+            nbytes = lanes * (9 * q + 4 * 32 + 4 + 1 + 16 + 4 * ins[6].shape[2])
+        else:
+            fn, plain, err = (lambda: kernels.pop_earliest_batch(*ins[:3])), \
+                (lambda: kernels.pop_earliest_plain(*ins[:3])), pop_err
+            nbytes = lanes * (9 * q + 4 + 1)
+        return {"err": err, "lanes": lanes, "q": q, "ms": device_time_ms(fn), "plain_ms": wall_time_ms(plain),
                 "floor_ms": floor_ms(kernels, name, lanes, dev), "bytes": nbytes,
                 # three compares a slot, one per argmin stage
                 "ops": lanes * 3 * q}
 
-    lanes, q = state.eq_time.shape
-    p = state.eq_payload.shape[2]
-    # bytes: time, seq and valid planes whole (9 B a slot); one 32-byte
-    # sector for each gathered field (kind, node, src, the payload row);
-    # idx, any, the four fields and the payload row out
-    out = {"pop_gather": timed("pop_gather", lambda: kernels.pop_gather_batch(*main),
-                               lambda: kernels.pop_gather_plain(*main), main,
-                               lanes * (9 * q + 4 * 32 + 4 + 1 + 16 + 4 * p), gather_err)}
-    for key, ins in (("L1", pop_planes(replay_state, gather=False)), (f"L{lanes}", main[:3])):
-        n, qq = ins[0].shape
-        out[f"pop_earliest_{key}"] = timed("pop_earliest", lambda: kernels.pop_earliest_batch(*ins),
-                                           lambda: kernels.pop_earliest_plain(*ins), ins, n * (9 * qq + 4 + 1),
-                                           pop_err)
-    return out
+    lanes = state.eq_time.shape[0]
+    replay = pop_planes(replay_state)
+    return {
+        "pop_gather": timed("pop_gather", main),
+        "pop_gather_mvcc_hunt": timed("pop_gather", hunt),
+        "pop_gather_L1": timed("pop_gather", replay),
+        "pop_earliest_L1": timed("pop_earliest", replay),
+        "pop_earliest_L1_Q48": timed("pop_earliest", mvcc_l1),
+        "pop_earliest_L1_Q256": timed("pop_earliest", gossip_l1),
+        f"pop_earliest_L{lanes}": timed("pop_earliest", main),
+    }
 
 
 def check_cov_flush(kernels, g, dev, state):
@@ -448,8 +513,9 @@ def card_vs_cpu(make_engine, seeds, max_steps, what):
 def split_chain_phases(torch, np, kernels):
     """Phase 6: the default split-chain stream on the card. Returns the
     timed v2 stream's launch counts, the replay's, the v2 flagship state
-    the pop kernels are checked on, its engine, and the replay's state of
-    seed 66531 REPLAY_STATE_STEPS events in, where the pop is timed."""
+    the pop kernels are checked on, its engine, the replay's state of
+    seed 66531 REPLAY_STATE_STEPS events in, where the pop is timed, and
+    the mvcc and gossip corpus replays' states (CORPUS_STATE_STEPS)."""
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
     from madsim_tpu_torch.engine import audit, corpus
     from madsim_tpu_torch.engine.replay import replay
@@ -511,22 +577,58 @@ def split_chain_phases(torch, np, kernels):
     rp_eng = Engine(build_machine("raft"), rp_cfg)
     replay_state = rp_eng.run_segment(rp_eng.init_batch([REPLAY_SEED]), REPLAY_STATE_STEPS)
 
-    # corpus: the five multi-Paxos entries, with their digest trails
+    # corpus: every entry, with its code and digest trail, replayed on the
+    #   card (multi-Paxos, the MVCC give-up under delay spikes, 33-node
+    #   gossip at Q = 256, the S3 abort leak); then the single-lane states
+    #   pop_earliest is timed at, Q = 48 and 256
+    entries = corpus.load(str(pathlib.Path(__file__).resolve().parent / "corpus.json"))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
     found = []
-    for entry in corpus.load(str(pathlib.Path(__file__).resolve().parent / "corpus.json")):
-        if entry.machine != "demo-nopromise-multipaxos":
-            continue
+    for entry in entries:
         out = corpus.check(entry, build_machine)
         trail = audit.audit_entry(entry, build_machine).trail
         digests, final = trail.to_lists()
-        if not (out.ok and out.fail_code == AGREEMENT_MULTI) or digests != entry.digests \
+        if not (out.ok and out.fail_code == entry.fail_code) or digests != entry.digests \
                 or final != entry.digest_final:
-            fail(f"corpus entry seed {entry.seed}: {out.verdict}; trail {digests} {final} vs "
+            fail(f"corpus entry {entry.machine} seed {entry.seed}: {out.verdict}; trail {digests} {final} vs "
                  f"{entry.digests} {entry.digest_final}")
-        found.append([entry.seed, out.fail_code, final[0]])
-    if len(found) != 5:
-        fail(f"corpus.json holds {len(found)} multi-Paxos entries, not 5")
-    emit({"phase": "corpus", "entries": found, "digest_trails_equal": True})
+        found.append([entry.machine, entry.seed, out.fail_code, final[0], entry.config.queue_capacity])
+    corpus_launches = dict(kernels.launches)
+    if len(found) != 8 or sorted({f[2] for f in found}) != [AGREEMENT_MULTI, 160, 206, 212]:
+        fail(f"corpus.json holds {len(found)} entries with codes {sorted({f[2] for f in found})}, not the 8 "
+             f"with codes 150, 160, 206 and 212")
+    if corpus_launches["pop_gather"] <= 0:
+        fail("the corpus replays never launched pop_gather")
+    # the traced replay a user prints of each new entry (pop_earliest at
+    # Q = 48 and 256), equal to the CPU's
+    kernels.reset_launches()
+    traced = {}
+    for entry in entries:
+        if entry.machine == "demo-nopromise-multipaxos":
+            continue
+        machine = build_machine(entry.machine, entry.nodes)
+        before = kernels.launches["pop_earliest"]
+        on_card = replay(Engine(machine, entry.config), entry.seed, max_steps=entry.max_steps)
+        pops = kernels.launches["pop_earliest"] - before
+        on_cpu = replay(Engine(machine, entry.config, device="cpu"), entry.seed, max_steps=entry.max_steps)
+        if on_card.trace != on_cpu.trace or on_card.fail_code != entry.fail_code:
+            fail(f"traced replay of {entry.machine} seed {entry.seed}: code {on_card.fail_code}, the card's "
+                 f"trace {'equals' if on_card.trace == on_cpu.trace else 'differs from'} the CPU's")
+        traced[entry.machine] = {"q": entry.config.queue_capacity, "events": len(on_card.trace),
+                                 "pop_earliest": pops}
+    trace_launches = dict(kernels.launches)
+    if trace_launches["pop_earliest"] <= 0:
+        fail("the corpus's traced replays never launched pop_earliest")
+    emit({"phase": "corpus", "entries": found, "digest_trails_equal": True,
+          "seconds": round(time.perf_counter() - t0, 3), "launches": corpus_launches,
+          "traced": traced, "traces_equal": True, "traced_launches": trace_launches})
+    corpus_states = {}
+    for entry in entries:
+        if entry.machine in CORPUS_STATE_STEPS:
+            c_eng = Engine(build_machine(entry.machine, entry.nodes), entry.config)
+            corpus_states[entry.machine] = c_eng.run_segment(c_eng.init_batch([entry.seed]),
+                                                             CORPUS_STATE_STEPS[entry.machine])
 
     # stream_v2: the flagship hunt on the split-chain stream
     eng = v2(True)
@@ -553,7 +655,161 @@ def split_chain_phases(torch, np, kernels):
           "slots_hit": res["stats"]["coverage"]["slots_hit"], "launches": launches})
     if res["completed"] < 2 * LANES:
         fail(f"the v2 stream completed {res['completed']} < {2 * LANES} seeds")
-    return launches, replay_launches, state, eng, replay_state
+    return launches, replay_launches, state, eng, replay_state, corpus_states
+
+
+def spiked_sends(torch, eng, seeds, steps):
+    """(sends, spiked) over `steps` event steps of `seeds` on the card: the
+    message events each step pushed (seq past the lane's old next_seq),
+    and those due more than DELAY_EXTRA_MIN_US out, which only a delay
+    spike gives (a plain latency is 1-10 ms)."""
+    from madsim_tpu_torch.engine.core import DELAY_EXTRA_MIN_US, EV_MSG
+
+    state = eng.init_batch(seeds)
+    sends = spiked = torch.zeros((), dtype=torch.int64, device=eng.device)
+    for _ in range(steps):
+        old_seq = state.next_seq
+        state = eng.step_batch(state)
+        new = state.eq_valid & (state.eq_kind == EV_MSG) & (state.eq_seq >= old_seq[:, None])
+        sends = sends + new.sum()
+        spiked = spiked + (new & (state.eq_time - state.now_us[:, None] > DELAY_EXTRA_MIN_US)).sum()
+    return int(sends), int(spiked)
+
+
+def delay_and_model_phases(torch, np, kernels, dev):
+    """Phase 7: the delay-spike kind and the MVCC, S3 and gossip models.
+    card_vs_cpu_delay (the flagship Raft with delay faults on both
+    streams, the megakernel at W = 18 held against its twin), then
+    card_vs_cpu_models, then stream_mvcc (the give-up hunt at 8192 lanes,
+    its first ABANDONED_WRITE seed replayed on the card and the CPU).
+    Returns the hunt's launch counts and its batch state (8192 lanes,
+    Q = 48, P = 5), where pop + gather is timed."""
+    from collections import Counter
+
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import RaftMachine, build_machine
+    from madsim_tpu_torch.models.etcd_mvcc import ABANDONED_WRITE
+
+    # card_vs_cpu_delay: both streams; v3 launches the megakernel at W = 18
+    raft, out = RaftMachine(num_nodes=5, log_capacity=8), {}
+    seeds = np.arange(DELAY_LANES, dtype=np.uint32) + 30_000
+    for stream, kernel in ((3, "step_megakernel"), (2, "pop_gather")):
+        cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": stream},
+                           faults=FaultPlan(**FLAGSHIP_FAULTS, allow_delay=True))
+        card = Engine(raft, cfg)
+        kernels.reset_launches()
+        res, t_card, t_cpu = card_vs_cpu(lambda d: card if d is None else Engine(raft, cfg, device="cpu"), seeds,
+                                         DELAY_STEPS, f"delay spikes, rng_stream={stream}")
+        launches = dict(kernels.launches)
+        if launches[kernel] <= 0:
+            fail(f"delay spikes on rng_stream={stream} never launched {kernel}")
+        sends, spiked = spiked_sends(torch, card, seeds, DELAY_SPIKE_STEPS)
+        if not spiked:
+            fail(f"delay spikes on rng_stream={stream}: no send took a spike in {DELAY_SPIKE_STEPS} steps")
+        state = card.run_segment(card.init_batch(seeds), 96)
+        w = card._rng_layout.total_words
+        if stream == 3:
+            ins = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node, state.eq_src,
+                   state.eq_payload, state.rng_key, state.step]
+            d = (state.fr["d0"], state.fr["d1"])
+            err = max_abs_err(flat_prefix(kernels.step_megakernel(*ins, w, *d)),
+                              flat_prefix(kernels.step_prefix_plain(*ins, w, *d)))
+            # timed at the hunt's width: 8192 lanes of the same config
+            big = card.run_segment(card.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
+            big_ins = [big.eq_time, big.eq_seq, big.eq_valid, big.eq_kind, big.eq_node, big.eq_src,
+                       big.eq_payload, big.rng_key, big.step]
+            big_d = (big.fr["d0"], big.fr["d1"])
+            err = max(err, max_abs_err(flat_prefix(kernels.step_megakernel(*big_ins, w, *big_d)),
+                                       flat_prefix(kernels.step_prefix_plain(*big_ins, w, *big_d))))
+            nbytes, ops = step_kernel_cost(LANES, big.eq_time.shape[1], big.eq_payload.shape[2], w)
+            timing = {"lanes": LANES, "ms": device_time_ms(lambda: kernels.step_megakernel(*big_ins, w, *big_d)),
+                      "floor_ms": floor_ms(kernels, "step_megakernel", LANES, dev),
+                      "bound_ms": bound(nbytes, ops)[0], "bytes": nbytes, "ops": ops}
+        else:
+            planes = pop_planes(state)
+            got, want = kernels.pop_gather_batch(*planes), kernels.pop_gather_plain(*planes)
+            err, timing = max_abs_err([got[0], got[1], *got[2], got[3]], [want[0], want[1], *want[2], want[3]]), {}
+        if err:
+            fail(f"{kernel} disagrees with its twin on the delay state (rng_stream={stream}): max abs err {err}")
+        out[f"rng_stream={stream}"] = {
+            "lanes": DELAY_LANES, "equal": True, "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3),
+            "max_steps": int(res["steps"].max()), "n_failed": int(res["failed"].sum()),
+            "delay_windows": int(res["fr"]["inj"][:, 5].sum()), "sends": sends, "spiked_sends": spiked,
+            "launches": launches, "words": w, kernel: {"max_abs_err": err, **timing}}
+    emit({"phase": "card_vs_cpu_delay", **out})
+
+    # card_vs_cpu_models: each model and its corpus demo; a demo must fail
+    #   with its code on the CPU on some seed
+    out = {}
+    for name, base, faults, model_seeds, steps, code in (
+        ("etcd-mvcc", MVCC, MVCC_DELAY_FAULTS, range(MODEL_LANES), MVCC_STEPS, None),
+        ("demo-giveup-mvcc", MVCC, MVCC_DELAY_FAULTS, range(64), MVCC_STEPS, ABANDONED_WRITE),
+        ("s3", MVCC, S3_FAULTS, range(MODEL_LANES), S3_STEPS, None),
+        ("demo-abortleak-s3", MVCC, S3_FAULTS, range(64), S3_STEPS, 212),
+        ("gossip", GOSSIP, GOSSIP_FAULTS, range(GOSSIP_LANES), GOSSIP_STEPS, None),
+        ("demo-dupack-gossip", GOSSIP, DUPACK_FAULTS, DUPACK_SEEDS, DUPACK_STEPS, 160),
+    ):
+        cfg = EngineConfig(**base, faults=FaultPlan(**faults))
+        machine = build_machine(name)
+        kernels.reset_launches()
+        res, t_card, t_cpu = card_vs_cpu(lambda d: Engine(machine, cfg, device=d),
+                                         np.array(model_seeds, dtype=np.uint32), steps, name)
+        launches = dict(kernels.launches)
+        if launches["pop_gather"] <= 0:
+            fail(f"{name} on the card never launched pop_gather")
+        codes = Counter(int(c) for c, f in zip(res["fail_code"], res["failed"]) if f)
+        if code is not None and not codes[code]:
+            fail(f"{name}: no seed failed with code {code} ({dict(codes)})")
+        out[name] = {"lanes": len(model_seeds), "q": base["queue_capacity"], "equal": True,
+                     "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3), "max_steps": int(res["steps"].max()),
+                     "n_done": int(res["done"].sum()), "fail_codes": dict(codes),
+                     "pop_gather": launches["pop_gather"]}
+    emit({"phase": "card_vs_cpu_models", **out})
+
+    # stream_mvcc: the give-up hunt at full width, through the entry points
+    machine = build_machine("demo-giveup-mvcc")
+    cfg = EngineConfig(**MVCC_HUNT, faults=FaultPlan(**MVCC_HUNT_FAULTS))
+    eng = Engine(machine, cfg)
+    state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 24)
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
+    run(1)  # warm: one segment
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run(2 * LANES, seed_start=LANES)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name in ("pop_gather", "cov_flush"):
+        if launches[name] <= 0:
+            fail(f"the mvcc hunt never launched {name}")
+    by_code = Counter(code for _, code in res["failing"])
+    first = next((seed for seed, code in res["failing"] if code == ABANDONED_WRITE), None)
+    if first is None or res["completed"] < 2 * LANES:
+        fail(f"the mvcc hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: no "
+             f"ABANDONED_WRITE seed")
+    t1 = time.perf_counter()
+    before = kernels.launches["pop_earliest"]
+    on_card = replay(Engine(machine, cfg), first)
+    t_replay = time.perf_counter() - t1
+    pops = kernels.launches["pop_earliest"] - before
+    on_cpu = replay(Engine(machine, cfg, device="cpu"), first)
+    bad = tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))
+    if on_card.fail_code != ABANDONED_WRITE or on_card.trace != on_cpu.trace or bad:
+        fail(f"mvcc seed {first}: the card replay gave {on_card.fail_code} and differs from the CPU's in "
+             f"{bad[:8] or 'the trace'}")
+    segments = res["stats"]["device_segments"]
+    emit({"phase": "stream_mvcc", "completed": res["completed"], "failing_by_code": dict(by_code),
+          "n_infra": len(res["infra"]), "n_abandoned": len(res["abandoned"]), "seconds": round(elapsed, 3),
+          "seeds_per_s": round(res["completed"] / elapsed, 2), "segments": segments,
+          "ms_per_step": round(elapsed * 1e3 / (segments * SEGMENT_STEPS), 3),
+          "slots_hit": res["stats"]["coverage"]["slots_hit"], "launches": launches,
+          "replay": {"seed": first, "fail_code": on_card.fail_code, "events": len(on_card.trace),
+                     "pop_earliest": pops, "card_s": round(t_replay, 3), "equal": True},
+          "profile": profile_steps(eng, state, steps=8)})
+    return launches, state
 
 
 def time_in_turns(kernels, designs, fn):
@@ -612,6 +868,7 @@ def main(argv=None):
     from madsim_tpu_torch.ops import build, kernels
 
     # 1. device
+    started = time.perf_counter()
     print(card_line(), flush=True)
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "kind": torch.cuda.get_device_name(0),
@@ -666,10 +923,6 @@ def main(argv=None):
         scratch = cov["map"].clone()  # the flush is idempotent: the map stays valid across reps
         head_to_head["cov_flush"] = time_in_turns(
             kernels, designs, lambda: kernels.cov_flush_batch(scratch, cov["buf"], cov["buf_n"]))
-
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     s_bound, c_bound = bound(s_bytes, s_ops), bound(c_bytes, c_ops)
     emit({"phase": "kernels", "step_megakernel": {"ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
@@ -745,13 +998,17 @@ def main(argv=None):
     emit({"phase": "profile", **profile_steps(eng, state, steps=8)})
 
     # 6. the split-chain stream, and the pop kernels on its inputs and the replay's
-    v2_launches, replay_launches, v2_state, v2_eng, replay_state = split_chain_phases(torch, np, kernels)
-    pops = check_pop_kernels(kernels, g, dev, v2_state, replay_state)
+    v2_launches, replay_launches, v2_state, v2_eng, replay_state, corpus_states = split_chain_phases(
+        torch, np, kernels)
+
+    # 7. the delay-spike kind and the MVCC, S3 and gossip models
+    _, hunt_state = delay_and_model_phases(torch, np, kernels, dev)
+    pops = check_pop_kernels(kernels, g, dev, v2_state, replay_state, hunt_state, corpus_states)
     for name, k in pops.items():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
-    emit({"phase": "pop_kernels", **{name: {key: k[key] for key in ("lanes", "ms", "plain_ms", "bound_ms",
-                                                                    "floor_ms", "bytes", "ops")}
-                                     for name, k in pops.items()}})
+    emit({"phase": "pop_kernels", "max_abs_err": max(k["err"] for k in pops.values()),
+          **{name: {key: k[key] for key in ("lanes", "q", "ms", "plain_ms", "bound_ms", "floor_ms", "bytes", "ops")}
+             for name, k in pops.items()}})
     if designs:
         pop_ins = pop_planes(v2_state)
 
@@ -786,7 +1043,9 @@ def main(argv=None):
               **head_to_head})
     emit({"phase": "profile_v2", **profile_steps(v2_eng, v2_state, steps=8)})
 
-    # 6. the kernels line
+    emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+
+    # 8. the kernels line
     emit({"kernels": [
         {"name": "step_megakernel", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/step_megakernel.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:310", "launches": launches["step_megakernel"],

@@ -90,6 +90,12 @@ K_SKEW = 7
 K_TORN = 8
 K_HEAL_ASYM = 9
 
+# delay-spike windows: while one is active, DELAY_PROB_U32 / 2^32 (~10%)
+# of sends take 1 to 5 virtual seconds more (the reference's numbers)
+DELAY_PROB_U32 = int(0.1 * 0xFFFFFFFF)
+DELAY_EXTRA_MIN_US = 1_000_000
+DELAY_EXTRA_SPAN_US = 4_000_001
+
 # Failure codes
 OK = 0
 OVERFLOW = 1  # event queue full: lane aborts (an infrastructure artifact)
@@ -157,9 +163,9 @@ def _clog_row_bools(row, n):
 class FaultPlan:
     """Per-lane randomized fault schedule (drawn from the lane seed); the
     reference's fields and defaults. The port runs the partition (pair
-    clog), kill/restart, directional clog, group partition and loss
-    storm kinds, under the v1 derivation (pair and kill only) or the v2
-    one (any other kind enabled)."""
+    clog), kill/restart, directional clog, group partition, loss storm
+    and delay-spike kinds, under the v1 derivation (pair and kill only)
+    or the v2 one (any other kind enabled)."""
 
     n_faults: int = 0
     allow_partition: bool = True
@@ -311,8 +317,8 @@ class StreamCarry:
 def _unported(gate: str) -> NotImplementedError:
     return NotImplementedError(
         f"{gate} is not ported to madsim_tpu_torch yet (the port runs both "
-        f"RNG streams, packed clogs, the pair, kill, dir, group and storm "
-        f"fault kinds, packet loss, and the flight recorder and buffered "
+        f"RNG streams, packed clogs, the pair, kill, dir, group, storm and "
+        f"delay fault kinds, packet loss, and the flight recorder and buffered "
         f"coverage on or off)"
     )
 
@@ -377,8 +383,8 @@ class Engine:
             config.handler_rand_words,
             machine.MAX_MSGS,
             loss_possible=config.packet_loss_rate > 0 or fp.allow_storm,
-            spike_possible=False,
-            delay_enabled=False,
+            spike_possible=fp.allow_delay,
+            delay_enabled=fp.allow_delay,
             restart_possible=fp.allow_kill,
         )
         # one slot per step (no dup band in the port yet), so flushing
@@ -407,7 +413,7 @@ class Engine:
             ("cov_buffer=0", cfg.cov_buffer == 0),
             ("compile_cache_dir (a JAX compile cache)", cfg.compile_cache_dir is not None),
         ]
-        for name in ("allow_delay", "allow_pause", "allow_skew", "allow_dup", "allow_torn",
+        for name in ("allow_pause", "allow_skew", "allow_dup", "allow_torn",
                      "allow_heal_asym"):
             gates.append((f"FaultPlan.{name}", getattr(fp, name)))
         for gate, hit in gates:
@@ -611,7 +617,7 @@ class Engine:
         # the three branches, for every lane; selected by event kind
         t_nodes, t_out = m.on_timer(s.nodes, ev_node, op, new_now, rand_u32)
         m_nodes, m_out = m.on_message(s.nodes, ev_node, ev_src, payload, new_now, rand_u32)
-        f_nodes, f_clogged, f_killed, f_storm, f_boot = self._fault_branch(s, payload, k_restart)
+        f_nodes, f_clogged, f_killed, f_storm, f_delay, f_boot = self._fault_branch(s, payload, k_restart)
         branch = ev_kind.clamp(0, 2)
         is_fault = branch == EV_FAULT
         nodes = tree_where(branch == EV_TIMER, t_nodes, tree_where(is_fault, f_nodes, m_nodes))
@@ -624,6 +630,7 @@ class Engine:
         clogged = torch.where(fault_applies[:, None, None], f_clogged, s.clogged)
         killed = torch.where(fault_applies[:, None], f_killed, s.killed)
         storm_loss = torch.where(fault_applies, f_storm, s.storm_loss)
+        delay_spike = torch.where(fault_applies, f_delay, s.delay_spike) if layout.spike_active else s.delay_spike
         boot_node = torch.where(is_fault, f_boot, -1)
         msg_valid = outbox.msg_valid & effective[:, None]
         timer_valid = outbox.timer_valid & effective[:, None]
@@ -642,6 +649,14 @@ class Engine:
             loss_threshold = torch.where(summed < storm_threshold, u32.MASK, summed)
             blocked = blocked | (drop_bits < loss_threshold[:, None])
         latency = cfg.latency_min_us + (lat_bits % lat_span).to(torch.int32)
+        if layout.spike_active:
+            # in a delay-spike window ~10% of sends take +1-5 virtual s; the
+            # gate and magnitude are independent words, drawn every step
+            spike_bits = words[:, layout.spike_off : layout.spike_off + m.MAX_MSGS]
+            mag_bits = words[:, layout.spike_off + m.MAX_MSGS : layout.spike_off + 2 * m.MAX_MSGS]
+            spiked = (delay_spike > 0)[:, None] & (spike_bits < DELAY_PROB_U32)
+            extra = DELAY_EXTRA_MIN_US + (mag_bits % DELAY_EXTRA_SPAN_US).to(torch.int32)
+            latency = latency + torch.where(spiked, extra, 0)
         node_col = ev_node[:, None]
         timer_pay = torch.zeros((lanes, m.MAX_TIMERS, payload.shape[1]), dtype=torch.int32, device=dev)
         timer_pay[:, :, 0] = outbox.timer_id
@@ -706,7 +721,7 @@ class Engine:
                 killed.sum(dim=1, dtype=torch.int32).clamp(0, 7)
                 | ((clogged != 0).flatten(1).any(dim=1).to(torch.int32) << 3)
                 | ((storm_loss > 0).to(torch.int32) << 4)
-                | ((s.delay_spike > 0).to(torch.int32) << 5)
+                | ((delay_spike > 0).to(torch.int32) << 5)
             )
             op_word = torch.where(ev_kind == EV_TIMER, 0, op)
             band = cov_band(ev_kind, op_word, self.cov_band_bits)
@@ -733,7 +748,7 @@ class Engine:
             horizon_hit=s.horizon_hit | horizon_hit,
             msg_count=msg_count,
             storm_loss=storm_loss,
-            delay_spike=s.delay_spike,
+            delay_spike=delay_spike,
             eq_time=eq["time"],
             eq_seq=eq["seq"],
             eq_kind=eq["kind"],
@@ -756,9 +771,10 @@ class Engine:
 
     def _fault_branch(self, s: LaneState, payload, k_restart):
         """The fault ops on the packed clog rows (pair, directional and
-        group clogs and their undos), kill and restart, and the loss
-        storm, for every lane (the caller selects fault lanes). Returns
-        (nodes, clogged, killed, storm_loss, boot_node)."""
+        group clogs and their undos), kill and restart, the loss storm
+        and the delay-spike window, for every lane (the caller selects
+        fault lanes). Returns (nodes, clogged, killed, storm_loss,
+        delay_spike, boot_node)."""
         n = self.machine.NUM_NODES
         op, a, b = payload[:, 0], payload[:, 1], payload[:, 2]
         col = lambda x: x[:, None]  # noqa: E731
@@ -806,9 +822,14 @@ class Engine:
         )
         # loss storm: `a` is the storm's loss rate in 1/65536
         storm = torch.where(op == F_LOSS_STORM, a, torch.where(op == F_LOSS_END, 0, s.storm_loss))
+        # delay-spike window; with the kind off the flag stays 0, and the
+        # eager step skips its kernels
+        delay = s.delay_spike
+        if self._rng_layout.spike_active:
+            delay = torch.where(op == F_DELAY_SPIKE, 1, torch.where(op == F_DELAY_END, 0, delay)).to(torch.int32)
         nodes = self.machine.restart_node_if(s.nodes, a, restart_op, k_restart)
         boot_node = torch.where(restart_op, a, -1)
-        return nodes, clogged, killed, storm.to(torch.int32), boot_node
+        return nodes, clogged, killed, storm.to(torch.int32), delay, boot_node
 
     # -- batch runners -------------------------------------------------------
 

@@ -1,12 +1,17 @@
 """Protocol models of the port (lane-batched Machines) and the registry
 that rebuilds a machine from its CLI name, as corpus entries name it."""
 
+from .etcd_mvcc import EtcdMvccMachine, MvccState, NoDedupMvcc, PrematureGiveupMvcc
+from .gossip import DupAckGossip, GossipMachine, GossipState
 from .multipaxos import MultiPaxosMachine, MultiPaxosState, NoPromiseCheckMultiPaxos
 from .raft import RaftMachine, RaftState
+from .s3 import AbortLeakS3, ArrivalOrderS3, EarlyExpiryS3, NoDedupS3, S3Machine, S3State, TombstoneLeakS3
 
 __all__ = [
-    "MultiPaxosMachine", "MultiPaxosState", "NoPromiseCheckMultiPaxos", "RaftMachine", "RaftState",
-    "build_machine",
+    "AbortLeakS3", "ArrivalOrderS3", "DupAckGossip", "EarlyExpiryS3", "EtcdMvccMachine", "GossipMachine",
+    "GossipState", "MultiPaxosMachine", "MultiPaxosState", "MvccState", "NoDedupMvcc", "NoDedupS3",
+    "NoPromiseCheckMultiPaxos", "PrematureGiveupMvcc", "RaftMachine", "RaftState", "S3Machine", "S3State",
+    "TombstoneLeakS3", "build_machine",
 ]
 
 
@@ -34,6 +39,17 @@ _MACHINES = {
     "demo-dupvote-raft": lambda n: DupVoteRaft(num_nodes=n or 5, log_capacity=8),
     "multipaxos": lambda n: MultiPaxosMachine(num_nodes=n or 5),
     "demo-nopromise-multipaxos": lambda n: NoPromiseCheckMultiPaxos(num_nodes=n or 5),
+    "etcd-mvcc": lambda n: EtcdMvccMachine(num_nodes=n or 4),
+    "demo-nodedup-mvcc": lambda n: NoDedupMvcc(num_nodes=n or 4),
+    "demo-giveup-mvcc": lambda n: PrematureGiveupMvcc(num_nodes=n or 4),
+    "s3": lambda n: S3Machine(num_nodes=n or 4),
+    "demo-arrivalorder-s3": lambda n: ArrivalOrderS3(num_nodes=n or 4),
+    "demo-abortleak-s3": lambda n: AbortLeakS3(num_nodes=n or 4),
+    "demo-earlyexpiry-s3": lambda n: EarlyExpiryS3(num_nodes=n or 4),
+    "demo-tombstoneleak-s3": lambda n: TombstoneLeakS3(num_nodes=n or 4),
+    "demo-nodedup-s3": lambda n: NoDedupS3(num_nodes=n or 4),
+    "gossip": lambda n: GossipMachine(num_nodes=n or 33),
+    "demo-dupack-gossip": lambda n: DupAckGossip(num_nodes=n or 33),
 }
 
 

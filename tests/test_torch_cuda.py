@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain twins on the card, and
-short engine runs on the card against the CPU (both streams, and the
-single-lane replay). These need an NVIDIA card with nvcc (they build the
+short engine runs on the card against the CPU (both streams, delay
+spikes, the single-lane replay and the corpus). These need an NVIDIA card with nvcc (they build the
 kernels); without one they skip. On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -28,8 +28,10 @@ def _flat(r):
     return [idx, any_v, *popped, payload, words, *digest]
 
 
-@pytest.mark.parametrize("lanes,q,p,w,digest", [(8192, 32, 6, 10, True), (1000, 64, 4, 7, True),
-                                                 (37, 32, 6, 7, False), (5, 40, 3, 1, True)])
+# (8192, 32, 6, 18): the flagship Raft with delay spikes on rng_stream=3
+@pytest.mark.parametrize("lanes,q,p,w,digest", [(8192, 32, 6, 10, True), (8192, 32, 6, 18, True),
+                                                 (1000, 64, 4, 7, True), (37, 32, 6, 7, False),
+                                                 (5, 40, 3, 1, True)])
 def test_step_megakernel_matches_twin(dev, lanes, q, p, w, digest):
     from madsim_tpu_torch.ops import kernels
 
@@ -98,7 +100,9 @@ def _replay_state_planes(dev):
     return [s.eq_time, s.eq_seq, s.eq_valid, s.eq_kind, s.eq_node, s.eq_src, s.eq_payload]
 
 
-@pytest.mark.parametrize("lanes,q,p", [(8192, 32, 6), (8191, 96, 6), (1, 32, 6), (13, 40, 4), ("replay", 32, 6)])
+# Q = 48 (P = 5): the mvcc and s3 hunts and replays; Q = 256 (P = 4): gossip's
+@pytest.mark.parametrize("lanes,q,p", [(8192, 32, 6), (8191, 96, 6), (1, 32, 6), (13, 40, 4), ("replay", 32, 6),
+                                       (8192, 48, 5), (8192, 256, 4), (1, 48, 5), (1, 256, 4)])
 def test_pop_kernels_match_twins(dev, lanes, q, p):
     from madsim_tpu_torch.ops import kernels
 
@@ -228,3 +232,39 @@ def test_lane_group_kernels_match_twins_on_edge_shapes(dev, lanes, q, p, w, misa
     torch.cuda.synchronize()
     for a, b in zip([got[0], got[1], *got[2], got[3], *got_s], [want[0], want[1], *want[2], want[3], *want_s]):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_delay_spikes_on_the_card_match_the_cpu(dev):
+    """The flagship Raft with delay faults on both streams: the v3 path
+    launches the megakernel at W = 18, the v2 path pop + gather."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import RaftMachine
+    from madsim_tpu_torch.ops import kernels
+
+    for stream, kernel in ((3, "step_megakernel"), (2, "pop_gather")):
+        cfg = EngineConfig(horizon_us=5_000_000, queue_capacity=32, rng_stream=stream, flight_recorder=True,
+                           coverage=True, faults=FaultPlan(n_faults=2, allow_delay=True, t_max_us=3_000_000,
+                                                           dur_min_us=200_000, dur_max_us=800_000))
+        seeds = np.arange(64, dtype=np.uint32)
+        before = kernels.launches[kernel]
+        on_card = tree_to_numpy(Engine(RaftMachine(5, 8), cfg).run_batch(seeds, 256))
+        assert kernels.launches[kernel] > before
+        on_cpu = tree_to_numpy(Engine(RaftMachine(5, 8), cfg, device="cpu").run_batch(seeds, 256))
+        assert _same(on_card, on_cpu)
+
+
+def test_corpus_reproduces_on_the_card(dev):
+    """Every corpus.json entry, replayed as one lane on the card: its
+    code and recorded digest trail."""
+    import pathlib
+
+    from madsim_tpu_torch.engine import audit, corpus
+    from madsim_tpu_torch.models import build_machine
+
+    entries = corpus.load(str(pathlib.Path(__file__).resolve().parents[1] / "corpus.json"))
+    assert len(entries) == 8
+    for entry in entries:
+        out = corpus.check(entry, build_machine)
+        assert out.ok and out.fail_code == entry.fail_code, out.verdict
+        assert audit.audit_entry(entry, build_machine).trail.to_lists() == (entry.digests, entry.digest_final)

@@ -144,7 +144,7 @@ GATES = [
     ("compile_cache_dir", dict(compile_cache_dir="cache")),
 ] + [
     (f"FaultPlan.{flag}", dict(faults=FaultPlan(n_faults=1, **{flag: True})))
-    for flag in ("allow_delay", "allow_pause", "allow_skew", "allow_dup", "allow_torn", "allow_heal_asym")
+    for flag in ("allow_pause", "allow_skew", "allow_dup", "allow_torn", "allow_heal_asym")
 ]
 
 

@@ -1,7 +1,7 @@
 """The configuration gates the port has lifted, each held against the
 JAX package: `run_batch` of the flagship hunt with one override (the
 split-chain stream, packet loss, the recorder or coverage off, the step
-megakernel off, and the dir, group and storm fault kinds) must give the
+megakernel off, and the dir, group, storm and delay fault kinds) must give the
 reference's whole `BatchResult`. The ids are the gates' names, as
 `test_unported_gates_raise` named them while they were closed."""
 
@@ -24,7 +24,7 @@ LIFTED = [
     ("pallas_megakernel=False", dict(pallas_megakernel=False)),
 ] + [
     (f"FaultPlan.{flag}", dict(faults={**FLAGSHIP_FAULTS, flag: True}))
-    for flag in ("allow_dir_clog", "allow_group", "allow_storm")
+    for flag in ("allow_dir_clog", "allow_group", "allow_storm", "allow_delay")
 ]
 
 
@@ -37,7 +37,7 @@ def test_lifted_gates_match_jax(gate, overrides):
     diff = tree_diff(jax_to_numpy(want), tree_to_numpy(got))
     assert not diff, diff[:5]
     if gate.startswith("FaultPlan."):
-        kind = {"allow_dir_clog": 2, "allow_group": 3, "allow_storm": 4}[gate.split(".")[1]]
+        kind = {"allow_dir_clog": 2, "allow_group": 3, "allow_storm": 4, "allow_delay": 5}[gate.split(".")[1]]
         assert np.asarray(want.fr["inj"])[:, kind].sum() > 0  # the kind was injected
     assert port.use_megakernel == (gate not in ("rng_stream=2", "pallas_megakernel=False"))
 

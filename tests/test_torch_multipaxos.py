@@ -6,8 +6,6 @@ invariant, termination, summary and restart hooks, then the engine:
 32 lanes, for the honest model and the no-promise-check bug. Every
 comparison is exact."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +17,10 @@ from madsim_tpu.engine import EngineConfig as JaxConfig
 from madsim_tpu.engine import FaultPlan as JaxFaultPlan
 from madsim_tpu.models import multipaxos as jax_mp
 from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
-from madsim_tpu_torch.interop import lane_state_from_numpy, tree_to_numpy
+from madsim_tpu_torch.interop import lane_state_from_numpy
 from madsim_tpu_torch.models import multipaxos
 
-from torch_port_util import jax_to_numpy, tree_diff
+from torch_port_util import check_handlers, check_hooks, jax_snapshots, same, torch_nodes
 
 LANES = 32
 N, S = 5, 8
@@ -44,30 +42,10 @@ def _engines(variant, **overrides):
             Engine(port_cls(N), EngineConfig(faults=FaultPlan(**V2_FAULTS), **kw), device="cpu"))
 
 
-def _same(want, got, what=""):
-    diff = tree_diff(jax_to_numpy(want), tree_to_numpy(got))
-    assert not diff, (what, diff[:5])
-
-
 @pytest.fixture(scope="module")
 def snapshots():
     """Node states of a JAX run of the bug variant at SNAP_STEPS."""
-    jax_eng, _ = _engines("nopromise")
-    step = jax.jit(jax_eng.step_batch)
-    state = jax.jit(jax_eng.init_batch)(jnp.arange(LANES, dtype=jnp.uint32) + 900)
-    snaps = []
-    for k in range(max(SNAP_STEPS) + 1):
-        if k in SNAP_STEPS:
-            snaps.append((jax.tree.map(np.asarray, state.nodes), np.asarray(state.now_us)))
-        state = step(state)
-    return snaps
-
-
-def _torch_nodes(np_nodes):
-    return multipaxos.MultiPaxosState(**{
-        f.name: torch.from_numpy(np.asarray(getattr(np_nodes, f.name)).copy())
-        for f in dataclasses.fields(multipaxos.MultiPaxosState)
-    })
+    return jax_snapshots(_engines("nopromise")[0], np.arange(LANES) + 900, SNAP_STEPS)
 
 
 def _inputs(seed, np_nodes, now):
@@ -96,28 +74,11 @@ def _inputs(seed, np_nodes, now):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_handlers_match_jax(snapshots, variant):
     jax_cls, port_cls = VARIANTS[variant]
-    jax_m, port_m = jax_cls(N), port_cls(N)
-    on_timer = jax.jit(jax.vmap(jax_m.on_timer))
-    on_message = jax.jit(jax.vmap(jax_m.on_message))
-    t = torch.from_numpy
-    for k, (np_nodes, now) in enumerate(snapshots):
-        for rep in range(3):
-            node, tid, t_now, rand, src, payload = _inputs(10 * k + rep, np_nodes, now)
-            t_nodes, t_rand = _torch_nodes(np_nodes), t(rand.astype(np.int64))
-            _same(on_timer(np_nodes, node, tid, t_now, rand),
-                  port_m.on_timer(t_nodes, t(node), t(tid), t(t_now), t_rand), ("on_timer", k))
-            _same(on_message(np_nodes, node, src, payload, t_now, rand),
-                  port_m.on_message(t_nodes, t(node), t(src), t(payload), t(t_now), t_rand),
-                  ("on_message", k))
+    check_handlers(jax_cls(N), port_cls(N), snapshots, _inputs)
 
 
 def test_invariant_done_summary_restart_match_jax(snapshots):
     jax_m, port_m = jax_mp.MultiPaxosMachine(N), multipaxos.MultiPaxosMachine(N)
-    invariant = jax.jit(jax.vmap(jax_m.invariant))
-    is_done = jax.jit(jax.vmap(jax_m.is_done))
-    summary = jax.jit(jax.vmap(jax_m.summary))
-    restart = jax.jit(jax.vmap(jax_m.restart_node_if))
-    g = np.random.default_rng(5)
     for k, (np_nodes, now) in enumerate(snapshots):
         bad = jax.tree.map(np.copy, np_nodes)
         bad.bad[::3, 0] = True  # AGREEMENT_MULTI
@@ -125,19 +86,9 @@ def test_invariant_done_summary_restart_match_jax(snapshots):
         bad.chosen_val[1::3, 0, 2] = 5
         bad.learned[1::3, 3, 2] = 6
         bad.learned[2::3, :2] = 1  # both proposers learned every slot
-        ok, code = port_m.invariant(_torch_nodes(bad), torch.from_numpy(now.copy()))
+        _, code = port_m.invariant(torch_nodes(multipaxos.MultiPaxosState, bad), torch.from_numpy(now.copy()))
         assert {multipaxos.AGREEMENT_MULTI, multipaxos.LEARN_DIVERGED} <= set(code.tolist())
-        for s in (np_nodes, bad):
-            t_nodes, t_now = _torch_nodes(s), torch.from_numpy(now.copy())
-            _same(invariant(s, now), port_m.invariant(t_nodes, t_now), ("invariant", k))
-            _same(is_done(s, now), port_m.is_done(t_nodes, t_now), ("is_done", k))
-            _same(summary(s), port_m.summary(t_nodes), ("summary", k))
-            node = g.integers(0, N, LANES).astype(np.int32)
-            cond = g.random(LANES) < 0.5
-            keys = g.integers(0, 2**32, (LANES, 2), dtype=np.uint32)
-            _same(restart(s, node, cond, keys),
-                  port_m.restart_node_if(t_nodes, torch.from_numpy(node), torch.from_numpy(cond),
-                                         torch.from_numpy(keys.astype(np.int64))), ("restart", k))
+        check_hooks(jax_m, port_m, [np_nodes, bad], now, seed=k)
 
 
 def test_step_batch_matches_jax_from_a_carried_state():
@@ -153,7 +104,7 @@ def test_step_batch_matches_jax_from_a_carried_state():
     assert isinstance(carried.nodes, multipaxos.MultiPaxosState)
     for k in range(30):
         state, carried = step(state), port.step_batch(carried)
-        _same(state, carried, k)
+        same(state, carried, k)
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
@@ -161,7 +112,7 @@ def test_run_batch_matches_jax(variant):
     jax_eng, port = _engines(variant)
     seeds = np.arange(LANES, dtype=np.uint32)
     want = jax.jit(jax_eng.run_batch, static_argnums=1)(jnp.asarray(seeds), 400)
-    _same(want, port.run_batch(seeds, 400))
+    same(want, port.run_batch(seeds, 400))
     inj = np.asarray(jax.jit(jax_eng.init_batch)(jnp.asarray(seeds)).eq_payload)[:, N : N + 6, 0]
     assert {2, 4, 6, 8} <= set(inj.ravel().tolist())  # dir, group and storm faults scheduled
     if variant == "nopromise":

@@ -209,7 +209,7 @@ def _jax_pop(q, p):
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["int4", "scalar"])
 @pytest.mark.parametrize("group", [4, 8])
-@pytest.mark.parametrize("q", [1, 3, 5, 32, 33, 40, 96, 256])
+@pytest.mark.parametrize("q", [1, 3, 5, 32, 33, 40, 48, 96, 256])
 def test_lane_group_pop_gather_emulation_matches_jax(q, group, aligned):
     arrs, want_idx, want_any = _jax_pop(q, 6)
     idx, anys, fields = _emulate_pop_gather(*arrs, group, aligned)
@@ -249,11 +249,13 @@ def _emulate_pop_earliest(time, seq, valid, aligned):
 
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["int4", "scalar"])
-@pytest.mark.parametrize("q", [1, 3, 32, 33])
+@pytest.mark.parametrize("q", [1, 3, 32, 33, 48, 256])
 @pytest.mark.parametrize("lanes", [1, 4, 5, 37])
 def test_lane_group_pop_earliest_emulation_matches_jax(lanes, q, aligned):
     """At the replay's L = 1 and small batches, against the JAX package's
-    Pallas pop in interpret mode and the twin."""
+    Pallas pop in interpret mode and the twin; Q = 48 (the mvcc and s3
+    replays: 12 int4 loads over 8 threads) and 256 (gossip's: 32 slots a
+    thread) are the corpus replays' widths."""
     arrs = _tie_heavy_queues(lanes * 100 + q, lanes + 4, q, 1)
     rows = slice(1, 1 + lanes) if lanes <= 4 else slice(0, lanes)  # L <= 4: no all-invalid lane 0
     time, seq, valid = (a[rows] for a in arrs[:3])

@@ -14,6 +14,7 @@ from madsim_tpu.engine import Engine as JaxEngine
 from madsim_tpu.engine import EngineConfig as JaxConfig
 from madsim_tpu.engine import FaultPlan as JaxFaultPlan
 from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+from madsim_tpu_torch.interop import tree_to_numpy
 
 # The port's tests run small tensors that gain nothing from intra-op
 # threads; one thread keeps each test worker from crowding the others.
@@ -66,3 +67,76 @@ def tree_diff(a, b, path=""):
     if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
         return [f"{path}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}"]
     return []
+
+
+def same(want, got, what=""):
+    """Assert a JAX-side tree equals a port tree leaf for leaf."""
+    diff = tree_diff(jax_to_numpy(want), tree_to_numpy(got))
+    assert not diff, (what, diff[:5])
+
+
+def jax_snapshots(jax_eng, seeds, snap_steps):
+    """(node state, now_us) of a JAX batch run at each of `snap_steps`."""
+    import jax
+    import jax.numpy as jnp
+
+    step = jax.jit(jax_eng.step_batch)
+    state = jax.jit(jax_eng.init_batch)(jnp.asarray(seeds, dtype=jnp.uint32))
+    snaps = []
+    for k in range(max(snap_steps) + 1):
+        if k in snap_steps:
+            snaps.append((jax.tree.map(np.asarray, state.nodes), np.asarray(state.now_us)))
+        state = step(state)
+    return snaps
+
+
+def torch_nodes(state_type, np_nodes):
+    """A JAX node state of numpy leaves as the port's `state_type`."""
+    return state_type(**{
+        f.name: torch.from_numpy(np.asarray(getattr(np_nodes, f.name)).copy())
+        for f in dataclasses.fields(state_type)
+    })
+
+
+def check_handlers(jax_m, port_m, snapshots, inputs, reps=3):
+    """The port's `on_timer` and `on_message` against the reference's,
+    vmapped, on every snapshot: `inputs(seed, np_nodes, now)` gives
+    (node, timer_id, now, rand [L, H] uint32, src, payload) numpy arrays."""
+    import jax
+
+    on_timer = jax.jit(jax.vmap(jax_m.on_timer))
+    on_message = jax.jit(jax.vmap(jax_m.on_message))
+    t = torch.from_numpy
+    for k, (np_nodes, now) in enumerate(snapshots):
+        for rep in range(reps):
+            node, tid, t_now, rand, src, payload = inputs(10 * k + rep, np_nodes, now)
+            t_nodes, t_rand = torch_nodes(port_m.state_type, np_nodes), t(rand.astype(np.int64))
+            same(on_timer(np_nodes, node, tid, t_now, rand),
+                 port_m.on_timer(t_nodes, t(node), t(tid), t(t_now), t_rand), ("on_timer", k, rep))
+            same(on_message(np_nodes, node, src, payload, t_now, rand),
+                 port_m.on_message(t_nodes, t(node), t(src), t(payload), t(t_now), t_rand), ("on_message", k, rep))
+
+
+def check_hooks(jax_m, port_m, states, now, seed=0):
+    """`invariant`, `is_done`, `summary` and `restart_node_if` of the port
+    against the reference's, vmapped, on each node state of `states`."""
+    import jax
+
+    invariant = jax.jit(jax.vmap(jax_m.invariant))
+    is_done = jax.jit(jax.vmap(jax_m.is_done))
+    summary = jax.jit(jax.vmap(jax_m.summary))
+    restart = jax.jit(jax.vmap(jax_m.restart_node_if))
+    g = np.random.default_rng(seed)
+    t_now = torch.from_numpy(now.copy())
+    for k, s in enumerate(states):
+        t_nodes = torch_nodes(port_m.state_type, s)
+        same(invariant(s, now), port_m.invariant(t_nodes, t_now), ("invariant", k))
+        same(is_done(s, now), port_m.is_done(t_nodes, t_now), ("is_done", k))
+        same(summary(s), port_m.summary(t_nodes), ("summary", k))
+        lanes = len(now)
+        node = g.integers(0, port_m.NUM_NODES, lanes).astype(np.int32)
+        cond = g.random(lanes) < 0.5
+        keys = g.integers(0, 2**32, (lanes, 2), dtype=np.uint32)
+        same(restart(s, node, cond, keys),
+             port_m.restart_node_if(t_nodes, torch.from_numpy(node), torch.from_numpy(cond),
+                                    torch.from_numpy(keys.astype(np.int64))), ("restart", k))
