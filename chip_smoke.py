@@ -54,7 +54,19 @@ last line):
      their twins and timed at the new shapes (pop_kernels: pop + gather
      at the hunt's Q = 48 and the replay's L = 1, the pop at L = 1 with
      Q = 48 and 256 on the corpus replays' states);
-  8. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+  8. the chaos palette (pause, skew, dup and strict restarts): run_batch
+     of 256 flagship seeds at Q = 96 under the four on both streams equal
+     to the CPU, each capability counted and seen in its coverage band
+     (card_vs_cpu_palette); the two demos only these gates reach, on the
+     card against the CPU: VolatileCommit fails 102 under strict restarts
+     with honest Raft clean, the duplicate-vote tally fails 101 under dup,
+     and its first seed's traced replay is equal (card_vs_cpu_demos); the
+     dup-vote hunt at 8192 lanes under the whole palette (stream_palette),
+     whose first ELECTION_SAFETY seed replays equal on the card and the
+     CPU, and whose seeds failing with another code are replayed on the
+     CPU and listed; the megakernel at Q = 96, W = 18 and the flush at two
+     entries a step in `kernels`, the pops at Q = 96 in `pop_kernels`;
+  9. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
@@ -92,9 +104,9 @@ FLAGSHIP = dict(
 )
 FLAGSHIP_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
 LANES, SEGMENT_STEPS = 8192, 384
-# phases 4 and 6: lanes and run_batch's step budget (some flagship lanes
-# run it out); small enough that the script fits half its time limit
-CHECK_LANES, CHECK_STEPS = 256, 1024
+# phases 4 and 6: lanes and run_batch's step budget (flagship lanes run
+# it out); small enough that the script fits half its time limit
+CHECK_LANES, CHECK_STEPS = 256, 512
 # phase 4b: OvercommitRaft fails these seeds with LOG_MATCHING under the
 # flagship config (the first at step 364, the last two by step 533)
 OVERCOMMIT_SEEDS, OVERCOMMIT_STEPS = [232949, 134519, 143336], 640
@@ -105,16 +117,17 @@ MULTIPAXOS_FAULTS = dict(n_faults=3, allow_dir_clog=True, allow_group=True, allo
                          t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=800_000)
 WIDE_WORDS = (17, 64)  # the head to head's megakernel word blocks past 2 * GROUP
 REPLAY_SEED = 66531  # the overcommit regression of tests/test_engine.py
+REPLAY_STEPS = 1024  # past both replays' ends (334 and 527 events)
 REPLAY_CONFIG = dict(horizon_us=5_000_000, queue_capacity=32)
 REPLAY_STATE_STEPS = 300  # the replay state the pop is timed on: seed 66531 this far in
 # the delay kind and the etcd-MVCC, S3 and gossip models
 # card_vs_cpu_delay: lanes, run_batch's step budget, and the steps over
 # which the sends that took a spike are counted
-DELAY_LANES, DELAY_STEPS, DELAY_SPIKE_STEPS = 256, 512, 384
+DELAY_LANES, DELAY_STEPS, DELAY_SPIKE_STEPS = 256, 384, 256
 # card_vs_cpu_models: lanes, and step budgets (mvcc and s3 lanes end in
 # ~70-120 events; gossip's run past the budget)
 MODEL_LANES, GOSSIP_LANES = 256, 64
-MVCC_STEPS, S3_STEPS, GOSSIP_STEPS = 3000, 4000, 600
+MVCC_STEPS, S3_STEPS, GOSSIP_STEPS = 3000, 4000, 300
 # the delay-only plan of tests/test_engine_mvcc.py, and the full vocabularies
 # of tests/test_engine_s3.py (with delay) and tests/test_engine_gossip.py
 MVCC = dict(horizon_us=8_000_000, queue_capacity=48)
@@ -134,6 +147,28 @@ MVCC_HUNT = dict(horizon_us=8_000_000, queue_capacity=48, rng_stream=2, handler_
 MVCC_HUNT_FAULTS = dict(n_faults=2, allow_partition=False, allow_kill=False, allow_delay=True,
                         t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=800_000)
 CORPUS_STATE_STEPS = {"demo-giveup-mvcc": 36, "demo-dupack-gossip": 300}  # pop_earliest's L = 1 states
+# the chaos palette: pause, skew, dup and strict restarts on the flagship
+# plan, with the queue headroom a pause's parked deliveries need
+PALETTE_FAULTS = dict(FLAGSHIP_FAULTS, allow_pause=True, allow_skew=True, allow_dup=True, strict_restart=True)
+PALETTE_Q, PALETTE_LANES, PALETTE_STEPS = 96, 256, 256
+# card_vs_cpu_demos: the plans of tests/test_chaos_palette.py:211-231 and
+# :244-262. VolatileCommit fails 10 of seeds 0-31 by step 400 in the JAX
+# package; the dup-vote seeds are those of 0-2047 the JAX package fails
+# with ELECTION_SAFETY (all by step 331)
+VOLATILE = dict(horizon_us=3_000_000, queue_capacity=64)
+VOLATILE_FAULTS = dict(n_faults=2, t_max_us=1_800_000, dur_min_us=100_000, dur_max_us=600_000, strict_restart=True)
+VOLATILE_LANES, VOLATILE_STEPS = 32, 400
+DUPVOTE = dict(horizon_us=1_000_000, queue_capacity=96)
+DUPVOTE_FAULTS = dict(n_faults=2, t_max_us=600_000, dur_min_us=100_000, dur_max_us=800_000, allow_dup=True)
+DUPVOTE_SEEDS = [24, 48, 91, 140, 150, 312, 459, 499, 518, 736, 737, 768, 791, 807, 845, 878, 896, 903, 1077,
+                 1107, 1147, 1248, 1520, 1624, 1639, 1677, 1701, 1722, 1760, 1827, 1845, 1895, 1920, 1927]
+DUPVOTE_STEPS = 360
+# stream_palette: the dup-vote hunt under the whole palette, at full width
+PALETTE_HUNT = dict(horizon_us=1_000_000, queue_capacity=96, rng_stream=3, clog_packed=True, flight_recorder=True,
+                    coverage=True, cov_buffer=16)
+PALETTE_HUNT_FAULTS = dict(n_faults=2, t_max_us=600_000, dur_min_us=100_000, dur_max_us=800_000,
+                           allow_pause=True, allow_skew=True, allow_dup=True, strict_restart=True)
+PALETTE_REPLAY_STEPS = 40  # the hunt replay's state pop_earliest is timed on: this far in
 
 
 def card_line():
@@ -278,14 +313,39 @@ def flat_prefix(r):
     return [idx, any_v, *popped, payload, words, *digest]
 
 
+def step_kernel_ins(state):
+    """A state's megakernel inputs: the queue planes, key and step, and
+    the digest halves."""
+    return ([state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node, state.eq_src,
+             state.eq_payload, state.rng_key, state.step], (state.fr["d0"], state.fr["d1"]))
+
+
+def time_step_kernel(kernels, dev, state, total_words):
+    """The megakernel against its twin on a main path's state, then its
+    time there, the twin's, its (bytes, operations) and its floor."""
+    import torch
+
+    ins, (d0, d1) = step_kernel_ins(state)
+    got = flat_prefix(kernels.step_megakernel(*ins, total_words, d0=d0, d1=d1))
+    want = flat_prefix(kernels.step_prefix_plain(*ins, total_words, d0, d1))
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        fail(f"step_megakernel disagrees with its twin at W = {total_words}, Q = {state.eq_time.shape[1]}: "
+             f"max abs err {err}")
+    lanes, q = state.eq_time.shape
+    ms = device_time_ms(lambda: kernels.step_megakernel(*ins, total_words, d0=d0, d1=d1))
+    plain_ms = wall_time_ms(lambda: kernels.step_prefix_plain(*ins, total_words, d0, d1))
+    return (err, ms, plain_ms, *step_kernel_cost(lanes, q, state.eq_payload.shape[2], total_words),
+            floor_ms(kernels, "step_megakernel", lanes, dev))
+
+
 def check_step_kernel(kernels, g, dev, state, total_words):
-    """Kernel vs twin on the main path's inputs and on edge cases."""
+    """Kernel vs twin on edge cases, then on the main path's inputs, and
+    its times there."""
     import torch
 
     cases = []
-    main = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
-            state.eq_src, state.eq_payload, state.rng_key, state.step]
-    cases.append(("flagship", main, total_words, (state.fr["d0"], state.fr["d1"])))
     shapes = [(1000, 32, 6, 7, True, False), (37, 64, 4, 10, False, False), (5, 40, 3, 1, True, False)]
     shapes += [(lanes, q, p, w, True, mis) for lanes, q, p, w, mis in EDGE_SHAPES]
     shapes += [(lanes, q, p, w, False, mis) for lanes, q, p, w, mis in EDGE_SHAPES[2::3]]
@@ -296,7 +356,6 @@ def check_step_kernel(kernels, g, dev, state, total_words):
         d = tuple(torch.as_tensor(g.integers(-2**31, 2**31, lanes).astype("int32")).to(dev) for _ in range(2))
         cases.append((f"L{lanes}-Q{q}-P{p}-W{w}{'-digest' if digest else ''}{'-misaligned' if mis else ''}",
                       qs + [key, step], w, d if digest else (None, None)))
-    err = 0
     for name, ins, w, (d0, d1) in cases:
         got = flat_prefix(kernels.step_megakernel(*ins, w, d0=d0, d1=d1))
         want = flat_prefix(kernels.step_prefix_plain(*ins, w, d0, d1))
@@ -304,12 +363,7 @@ def check_step_kernel(kernels, g, dev, state, total_words):
         e = max_abs_err(got, want)
         if e:
             fail(f"step_megakernel disagrees with its twin on {name}: max abs err {e}")
-        err = max(err, e)
-    ms = device_time_ms(lambda: kernels.step_megakernel(*main, total_words, d0=state.fr["d0"], d1=state.fr["d1"]))
-    plain_ms = wall_time_ms(lambda: kernels.step_prefix_plain(*main, total_words, state.fr["d0"], state.fr["d1"]))
-    floor = floor_ms(kernels, "step_megakernel", state.eq_time.shape[0], dev)
-    return (err, ms, plain_ms, *step_kernel_cost(state.eq_time.shape[0], state.eq_time.shape[1],
-                                                 state.eq_payload.shape[2], total_words), floor)
+    return time_step_kernel(kernels, dev, state, total_words)
 
 
 def step_kernel_cost(lanes, q, p, total_words):
@@ -338,22 +392,27 @@ def pop_planes(state, gather=True):
     return planes + [state.eq_kind, state.eq_node, state.eq_src, state.eq_payload] if gather else planes
 
 
-def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_states):
+def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_states, palette_states):
     """The pop + gather and pop kernels against their twins on the main
     paths' inputs (a split-chain flagship batch, the mvcc hunt's batch at
-    Q = 48, P = 5, and single lanes: the replay's at Q = 32, the mvcc and
-    gossip corpus replays' at Q = 48 and 256) and on edge shapes: 8191
-    lanes of Q = 96 with empty lanes, one lane, Q = 40 and Q = 256, and
-    the lane-group edge shapes. Times pop + gather at the flagship batch,
-    the hunt's batch and the replay's L = 1, and the pop at L = 1 on the
-    three replays (where its launches run) and at the batch."""
+    Q = 48, P = 5, the palette's v2 batch at Q = 96, and single lanes: the
+    replay's at Q = 32, the mvcc and gossip corpus replays' at Q = 48 and
+    256, the dup-vote demo's and hunt's replays at Q = 96) and on edge
+    shapes: 8191 lanes of Q = 96 with empty lanes, one lane, Q = 40 and
+    Q = 256, and the lane-group edge shapes. Times pop + gather at the
+    flagship batch, the hunt's batch, the palette's batch and the
+    replays' L = 1, and the pop at L = 1 on the four replays (where its
+    launches run) and at the batch."""
     import torch
 
     main = pop_planes(state)
     hunt = pop_planes(hunt_state)
     mvcc_l1, gossip_l1 = (pop_planes(corpus_states[m]) for m in ("demo-giveup-mvcc", "demo-dupack-gossip"))
+    palette_v2, dupvote_l1, palette_l1 = (pop_planes(palette_states[k]) for k in
+                                          ("palette_v2", "dupvote_replay", "palette_replay"))
     cases = [("flagship-v2", main), ("replay-L1", pop_planes(replay_state)), ("mvcc-hunt", hunt),
-             ("mvcc-replay-L1", mvcc_l1), ("gossip-replay-L1", gossip_l1)]
+             ("mvcc-replay-L1", mvcc_l1), ("gossip-replay-L1", gossip_l1), ("palette-v2", palette_v2),
+             ("dupvote-replay-L1", dupvote_l1), ("palette-replay-L1", palette_l1)]
     shapes = [(8191, 96, 6, False), (1, 32, 6, False), (13, 40, 4, False), (64, 256, 6, False)]
     shapes += [(lanes, q, p, mis) for lanes, q, p, _, mis in EDGE_SHAPES]
     for lanes, q, p, mis in shapes:
@@ -400,6 +459,9 @@ def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_s
         "pop_earliest_L1_Q48": timed("pop_earliest", mvcc_l1),
         "pop_earliest_L1_Q256": timed("pop_earliest", gossip_l1),
         f"pop_earliest_L{lanes}": timed("pop_earliest", main),
+        "pop_gather_palette_v2": timed("pop_gather", palette_v2),
+        "pop_gather_L1_Q96": timed("pop_gather", dupvote_l1),
+        "pop_earliest_L1_Q96": timed("pop_earliest", palette_l1),
     }
 
 
@@ -409,8 +471,7 @@ def check_cov_flush(kernels, g, dev, state):
     of FLUSH_C by W of FLUSH_W, rows aligned and not), then its times."""
     import torch
 
-    cov = state.cov
-    cases = [("flagship", cov["map"], cov["buf"], cov["buf_n"])]
+    cases = []
     for lanes, c, w in ((1000, 16, 512), (33, 5, 64)):
         m = torch.as_tensor(g.integers(-2**31, 2**31, (lanes, w)).astype("int32")).to(dev)
         buf = torch.as_tensor(g.integers(0, w * 32, (lanes, c)).astype("int32")).to(dev)
@@ -422,15 +483,29 @@ def check_cov_flush(kernels, g, dev, state):
             m, buf, n = (torch.as_tensor(a).to(dev) for a in flush_inputs(g, 70, c, w))
             cases.append((f"L70-C{c}-W{w}", m, buf, n))
             cases.append((f"L70-C{c}-W{w}-misaligned", m, misaligned_copy(buf), n))
-    err = 0
     for name, m, buf, n in cases:
-        got = kernels.cov_flush_batch(m.clone(), buf, n)
-        want = kernels.cov_flush_plain(m, buf, n)
-        torch.cuda.synchronize()
-        e = max_abs_err([got], [want])
-        if e:
-            fail(f"cov_flush disagrees with its twin on {name}: max abs err {e}")
-        err = max(err, e)
+        check_cov_flush_case(kernels, name, m, buf, n)
+    return time_cov_flush(kernels, dev, state.cov)
+
+
+def check_cov_flush_case(kernels, name, m, buf, n):
+    import torch
+
+    got = kernels.cov_flush_batch(m.clone(), buf, n)
+    want = kernels.cov_flush_plain(m, buf, n)
+    torch.cuda.synchronize()
+    e = max_abs_err([got], [want])
+    if e:
+        fail(f"cov_flush disagrees with its twin on {name}: max abs err {e}")
+
+
+def time_cov_flush(kernels, dev, cov):
+    """The flush against its twin on a main path's buffers, then its
+    times there, (bytes, operations), the live entries and sectors, and
+    its floor."""
+    import torch
+
+    check_cov_flush_case(kernels, "the main path's buffers", cov["map"], cov["buf"], cov["buf_n"])
     scratch = cov["map"].clone()  # the flush is idempotent: the map stays valid across reps
     ms = device_time_ms(lambda: kernels.cov_flush_batch(scratch, cov["buf"], cov["buf_n"]))
     plain_ms = wall_time_ms(lambda: kernels.cov_flush_plain(cov["map"], cov["buf"], cov["buf_n"]))
@@ -447,7 +522,7 @@ def check_cov_flush(kernels, g, dev, state):
     sectors = torch.unique((lane_ids * (cov["map"].shape[1] // 8) + (slots >> 8))[live_mask]).numel()
     nbytes = lanes * c * 4 + lanes * 4 + sectors * 64
     ops = lanes * c * 4 + live * 3
-    return err, ms, plain_ms, nbytes, ops, live, sectors, floor
+    return 0, ms, plain_ms, nbytes, ops, live, sectors, floor
 
 
 def profile_steps(eng, state, steps):
@@ -554,7 +629,7 @@ def split_chain_phases(torch, np, kernels):
     rp_cfg = EngineConfig(**REPLAY_CONFIG, faults=faults)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    replays = {name: replay(Engine(build_machine(name), rp_cfg), REPLAY_SEED, max_steps=CHECK_STEPS)
+    replays = {name: replay(Engine(build_machine(name), rp_cfg), REPLAY_SEED, max_steps=REPLAY_STEPS)
                for name in ("demo-overcommit-raft", "raft")}
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
@@ -565,7 +640,7 @@ def split_chain_phases(torch, np, kernels):
     if not (over.failed and over.fail_code == LOG_MATCHING) or honest.failed:
         fail(f"seed {REPLAY_SEED}: overcommit gave {over.failed, over.fail_code}, raft {honest.failed}")
     for name, on_card in replays.items():
-        on_cpu = replay(Engine(build_machine(name), rp_cfg, device="cpu"), REPLAY_SEED, max_steps=CHECK_STEPS)
+        on_cpu = replay(Engine(build_machine(name), rp_cfg, device="cpu"), REPLAY_SEED, max_steps=REPLAY_STEPS)
         if on_card.trace != on_cpu.trace:
             bad.append(f"{name}: trace")
         bad += [f"{name}: {d}" for d in tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))]
@@ -711,16 +786,12 @@ def delay_and_model_phases(torch, np, kernels, dev):
         state = card.run_segment(card.init_batch(seeds), 96)
         w = card._rng_layout.total_words
         if stream == 3:
-            ins = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node, state.eq_src,
-                   state.eq_payload, state.rng_key, state.step]
-            d = (state.fr["d0"], state.fr["d1"])
+            ins, d = step_kernel_ins(state)
             err = max_abs_err(flat_prefix(kernels.step_megakernel(*ins, w, *d)),
                               flat_prefix(kernels.step_prefix_plain(*ins, w, *d)))
             # timed at the hunt's width: 8192 lanes of the same config
             big = card.run_segment(card.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
-            big_ins = [big.eq_time, big.eq_seq, big.eq_valid, big.eq_kind, big.eq_node, big.eq_src,
-                       big.eq_payload, big.rng_key, big.step]
-            big_d = (big.fr["d0"], big.fr["d1"])
+            big_ins, big_d = step_kernel_ins(big)
             err = max(err, max_abs_err(flat_prefix(kernels.step_megakernel(*big_ins, w, *big_d)),
                                        flat_prefix(kernels.step_prefix_plain(*big_ins, w, *big_d))))
             nbytes, ops = step_kernel_cost(LANES, big.eq_time.shape[1], big.eq_payload.shape[2], w)
@@ -812,6 +883,170 @@ def delay_and_model_phases(torch, np, kernels, dev):
     return launches, state
 
 
+def coverage_bands(res, band_bits):
+    """Per-band slot counts of the OR of a run_batch result's lane maps."""
+    from madsim_tpu_torch.ops.coverage import COV_SLOTS_LOG2_DEFAULT
+    from madsim_tpu_torch.runtime.coverage import coverage_dict, unpack_map
+
+    lane_maps = unpack_map(res["cov"]["map"], COV_SLOTS_LOG2_DEFAULT)
+    return coverage_dict(lane_maps.any(axis=0), COV_SLOTS_LOG2_DEFAULT, band_bits=band_bits)["by_band"]
+
+
+def palette_hunt_engine(device=None):
+    """The dup-vote hunt's engine: demo-dupvote-raft under the whole palette."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import build_machine
+
+    return Engine(build_machine("demo-dupvote-raft"),
+                  EngineConfig(**PALETTE_HUNT, faults=FaultPlan(**PALETTE_HUNT_FAULTS)), device=device)
+
+
+def palette_phases(torch, np, kernels):
+    """Phase 8: the chaos palette. card_vs_cpu_palette (the flagship Raft
+    at Q = 96 under pause, skew, dup and strict restarts, both streams),
+    card_vs_cpu_demos (VolatileCommit under strict restarts, the
+    dup-vote tally under dup, with a traced replay), then stream_palette
+    (the dup-vote hunt at 8192 lanes). Returns the hunt's launch counts
+    and the states the pops are timed on: the palette's v2 batch (256
+    lanes, Q = 96), the dup-vote demo replay's lane (v2) and the hunt
+    replay's lane (v3), each at Q = 96."""
+    from collections import Counter
+
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.engine.core import K_PAUSE, K_SKEW
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import RaftMachine, build_machine
+    from madsim_tpu_torch.models.raft import ELECTION_SAFETY, LOG_MATCHING
+
+    # card_vs_cpu_palette: both streams; v3 launches the megakernel at W = 18
+    raft, out, states = RaftMachine(num_nodes=5, log_capacity=8), {}, {}
+    seeds = np.arange(PALETTE_LANES, dtype=np.uint32) + 50_000
+    for stream, kernel in ((3, "step_megakernel"), (2, "pop_gather")):
+        cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": stream, "queue_capacity": PALETTE_Q},
+                           faults=FaultPlan(**PALETTE_FAULTS))
+        card = Engine(raft, cfg)
+        kernels.reset_launches()
+        res, t_card, t_cpu = card_vs_cpu(lambda d: card if d is None else Engine(raft, cfg, device="cpu"), seeds,
+                                         PALETTE_STEPS, f"the palette, rng_stream={stream}")
+        launches = dict(kernels.launches)
+        if launches[kernel] <= 0:
+            fail(f"the palette on rng_stream={stream} never launched {kernel}")
+        counts = {"pause": int(res["fr"]["inj"][:, K_PAUSE].sum()), "skew": int(res["fr"]["inj"][:, K_SKEW].sum()),
+                  "dup": int(res["fr"]["dup"].sum()), "amnesia": int(res["fr"]["amnesia"].sum())}
+        all_bands = coverage_bands(res, card.cov_band_bits)
+        bands = {b: all_bands[b] for b in ("pause", "skew", "dup", "amnesia")}
+        if not all(counts.values()) or not all(bands.values()):
+            fail(f"the palette on rng_stream={stream}: a capability never showed: {counts}, bands {bands}")
+        out[f"rng_stream={stream}"] = {
+            "lanes": PALETTE_LANES, "q": PALETTE_Q, "words": card._rng_layout.total_words, "equal": True,
+            "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3), "max_steps": int(res["steps"].max()),
+            "n_failed": int(res["failed"].sum()), "counts": counts, "bands": bands, "launches": launches}
+        if stream == 2:
+            states["palette_v2"] = card.run_segment(card.init_batch(seeds), 96)
+    emit({"phase": "card_vs_cpu_palette", **out})
+
+    # card_vs_cpu_demos: the two demos only these gates reach, each under its
+    #   reference test's plan on the default stream
+    out = {}
+    volatile_cfg = EngineConfig(**VOLATILE, faults=FaultPlan(**VOLATILE_FAULTS))
+    seeds = np.arange(VOLATILE_LANES, dtype=np.uint32)
+    for name in ("demo-volatilecommit-raft", "raft"):
+        machine = build_machine(name)
+        kernels.reset_launches()
+        res, t_card, t_cpu = card_vs_cpu(lambda d: Engine(machine, volatile_cfg, device=d), seeds, VOLATILE_STEPS,
+                                         f"{name} under strict restarts")
+        codes = Counter(int(c) for c, f in zip(res["fail_code"], res["failed"]) if f)
+        if (name == "raft" and codes) or (name != "raft" and set(codes) != {LOG_MATCHING}):
+            fail(f"{name} under strict restarts failed with {dict(codes)}")
+        out[name] = {"lanes": VOLATILE_LANES, "equal": True, "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3),
+                     "fail_codes": dict(codes), "pop_gather": kernels.launches["pop_gather"]}
+    dupvote_cfg = EngineConfig(**DUPVOTE, faults=FaultPlan(**DUPVOTE_FAULTS))
+    machine = build_machine("demo-dupvote-raft")
+    kernels.reset_launches()
+    res, t_card, t_cpu = card_vs_cpu(lambda d: Engine(machine, dupvote_cfg, device=d),
+                                     np.array(DUPVOTE_SEEDS, dtype=np.uint32), DUPVOTE_STEPS, "demo-dupvote-raft")
+    codes = Counter(int(c) for c, f in zip(res["fail_code"], res["failed"]) if f)
+    if set(codes) != {ELECTION_SAFETY}:
+        fail(f"demo-dupvote-raft under dup failed with {dict(codes)} on its seeds")
+    batch_launches = dict(kernels.launches)
+    # the traced replay of its first seed, pop_earliest and pop + gather at L = 1
+    kernels.reset_launches()
+    on_card = replay(Engine(machine, dupvote_cfg), DUPVOTE_SEEDS[0], max_steps=DUPVOTE_STEPS)
+    replay_launches = dict(kernels.launches)
+    on_cpu = replay(Engine(machine, dupvote_cfg, device="cpu"), DUPVOTE_SEEDS[0], max_steps=DUPVOTE_STEPS)
+    bad = tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))
+    if on_card.fail_code != ELECTION_SAFETY or on_card.trace != on_cpu.trace or bad:
+        fail(f"dup-vote seed {DUPVOTE_SEEDS[0]}: the card replay gave {on_card.fail_code} and differs from the "
+             f"CPU's in {bad[:8] or 'the trace'}")
+    if min(replay_launches["pop_earliest"], replay_launches["pop_gather"]) <= 0:
+        fail(f"the dup-vote replay on the card launched {replay_launches}")
+    out["demo-dupvote-raft"] = {"lanes": len(DUPVOTE_SEEDS), "equal": True, "card_s": round(t_card, 3),
+                                "cpu_s": round(t_cpu, 3), "fail_codes": dict(codes),
+                                "launches": batch_launches,
+                                "replay": {"seed": DUPVOTE_SEEDS[0], "events": len(on_card.trace),
+                                           "launches": replay_launches, "equal": True}}
+    emit({"phase": "card_vs_cpu_demos", **out})
+    d_eng = Engine(machine, dupvote_cfg)
+    states["dupvote_replay"] = d_eng.run_segment(d_eng.init_batch(DUPVOTE_SEEDS[:1]), len(on_card.trace) // 2)
+
+    # stream_palette: the dup-vote hunt at full width, through the entry points
+    eng = palette_hunt_engine()
+    machine = eng.machine
+    state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
+    run(1)  # warm: one segment
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run(2 * LANES, seed_start=LANES)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name in ("step_megakernel", "cov_flush"):
+        if launches[name] <= 0:
+            fail(f"the palette hunt never launched {name}")
+    by_code = Counter(code for _, code in res["failing"])
+    first = next((seed for seed, code in res["failing"] if code == ELECTION_SAFETY), None)
+    if first is None or res["completed"] < 2 * LANES:
+        fail(f"the palette hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: no "
+             f"ELECTION_SAFETY seed")
+    t1 = time.perf_counter()
+    before = kernels.launches["pop_earliest"]
+    on_card = replay(eng, first)
+    t_replay = time.perf_counter() - t1
+    pops = kernels.launches["pop_earliest"] - before
+    cpu_eng = palette_hunt_engine("cpu")
+    on_cpu = replay(cpu_eng, first)
+    bad = tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))
+    if on_card.fail_code != ELECTION_SAFETY or on_card.trace != on_cpu.trace or bad:
+        fail(f"palette hunt seed {first}: the card replay gave {on_card.fail_code} and differs from the CPU's in "
+             f"{bad[:8] or 'the trace'}")
+    # seeds failing with another code are findings: each replays on the CPU
+    # with the code the card gave
+    others = [(seed, code) for seed, code in res["failing"] if code != ELECTION_SAFETY][:4]
+    for seed, code in others:
+        got = replay(cpu_eng, seed, trace=False)
+        if got.fail_code != code:
+            fail(f"palette hunt seed {seed} failed {code} on the card and {got.fail_code} on the CPU")
+    segments = res["stats"]["device_segments"]
+    fr = res["stats"]["flight_recorder"]
+    emit({"phase": "stream_palette", "completed": res["completed"], "failing_by_code": dict(by_code),
+          "failing_share": round(len(res["failing"]) / res["completed"], 6), "n_infra": len(res["infra"]),
+          "n_abandoned": len(res["abandoned"]), "seconds": round(elapsed, 3),
+          "seeds_per_s": round(res["completed"] / elapsed, 2), "segments": segments,
+          "ms_per_step": round(elapsed * 1e3 / (segments * SEGMENT_STEPS), 3),
+          "faults_injected": fr["faults_injected"], "dup_injected": fr["dup_injected"],
+          "amnesia_restarts": fr["amnesia_restarts"], "slots_hit": res["stats"]["coverage"]["slots_hit"],
+          "by_band": res["stats"]["coverage"]["by_band"], "launches": launches,
+          "replay": {"seed": first, "fail_code": on_card.fail_code, "events": len(on_card.trace),
+                     "pop_earliest": pops, "card_s": round(t_replay, 3), "equal": True},
+          "other_codes_replayed_on_cpu": others,
+          "profile": profile_steps(eng, state, steps=8)})
+    states["palette_replay"] = eng.run_segment(eng.init_batch([first]), PALETTE_REPLAY_STEPS)
+    return launches, states
+
+
 def time_in_turns(kernels, designs, fn):
     """Device time of `fn` under each design's libraries, in turns: the
     designs in order, then in reverse (A, B, B, A). {name: [ms, ms]}."""
@@ -899,9 +1134,7 @@ def main(argv=None):
     s_err, s_ms, s_plain, s_bytes, s_ops, s_floor = check_step_kernel(kernels, g, dev, state, total_words)
     head_to_head = {}
     if designs:
-        main_ins = [state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
-                    state.eq_src, state.eq_payload, state.rng_key, state.step]
-        d0, d1 = state.fr["d0"], state.fr["d1"]
+        main_ins, (d0, d1) = step_kernel_ins(state)
         check_designs(kernels, designs, lambda: flat_prefix(kernels.step_megakernel(*main_ins, total_words, d0, d1)),
                       lambda: flat_prefix(kernels.step_prefix_plain(*main_ins, total_words, d0, d1)),
                       "step_megakernel")
@@ -916,6 +1149,15 @@ def main(argv=None):
             head_to_head[f"step_megakernel_w{w}"] = time_in_turns(
                 kernels, designs, lambda: kernels.step_megakernel(*main_ins, w, d0, d1))
     c_err, c_ms, c_plain, c_bytes, c_ops, c_live, c_sectors, c_floor = check_cov_flush(kernels, g, dev, state)
+    # the palette hunt's shapes: 8192 lanes at Q = 96, W = 18, and its
+    # buffers a flush period in (two entries a step, flushed every 8 steps)
+    p_eng = palette_hunt_engine()
+    p_state = p_eng.run_segment(p_eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
+    for _ in range(p_eng._cov_flush_every):
+        p_state = p_eng.step_batch(p_state)
+    p_words = p_eng._rng_layout.total_words
+    _, ps_ms, ps_plain, ps_bytes, ps_ops, ps_floor = time_step_kernel(kernels, dev, p_state, p_words)
+    _, pc_ms, pc_plain, pc_bytes, pc_ops, pc_live, pc_sectors, pc_floor = time_cov_flush(kernels, dev, p_state.cov)
     if designs:
         cov = state.cov
         check_designs(kernels, designs, lambda: [kernels.cov_flush_batch(cov["map"].clone(), cov["buf"], cov["buf_n"])],
@@ -925,10 +1167,19 @@ def main(argv=None):
             kernels, designs, lambda: kernels.cov_flush_batch(scratch, cov["buf"], cov["buf_n"]))
 
     s_bound, c_bound = bound(s_bytes, s_ops), bound(c_bytes, c_ops)
+    ps_bound, pc_bound = bound(ps_bytes, ps_ops), bound(pc_bytes, pc_ops)
     emit({"phase": "kernels", "step_megakernel": {"ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
                                                   "floor_ms": s_floor, "bytes": s_bytes, "ops": s_ops},
           "cov_flush": {"ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0], "floor_ms": c_floor,
-                        "bytes": c_bytes, "ops": c_ops, "live_entries": c_live, "live_sectors": c_sectors}})
+                        "bytes": c_bytes, "ops": c_ops, "live_entries": c_live, "live_sectors": c_sectors},
+          "step_megakernel_palette": {"q": PALETTE_Q, "words": p_words, "ms": ps_ms, "plain_ms": ps_plain,
+                                      "bound_ms": ps_bound[0], "bound_by": ps_bound[1], "floor_ms": ps_floor,
+                                      "bytes": ps_bytes, "ops": ps_ops},
+          "cov_flush_palette": {"flush_every": p_eng._cov_flush_every, "ms": pc_ms, "plain_ms": pc_plain,
+                                "bound_ms": pc_bound[0], "bound_by": pc_bound[1], "floor_ms": pc_floor,
+                                "bytes": pc_bytes, "ops": pc_ops, "live_entries": pc_live,
+                                "live_sectors": pc_sectors}})
+    del p_state
 
     # 4. the card against the CPU: 256 flagship seeds, whole results
     seeds = np.arange(CHECK_LANES, dtype=np.uint32) + 10_000
@@ -1003,7 +1254,10 @@ def main(argv=None):
 
     # 7. the delay-spike kind and the MVCC, S3 and gossip models
     _, hunt_state = delay_and_model_phases(torch, np, kernels, dev)
-    pops = check_pop_kernels(kernels, g, dev, v2_state, replay_state, hunt_state, corpus_states)
+
+    # 8. the chaos palette: pause, skew, dup and strict restarts
+    _, palette_states = palette_phases(torch, np, kernels)
+    pops = check_pop_kernels(kernels, g, dev, v2_state, replay_state, hunt_state, corpus_states, palette_states)
     for name, k in pops.items():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
     emit({"phase": "pop_kernels", "max_abs_err": max(k["err"] for k in pops.values()),
@@ -1045,7 +1299,7 @@ def main(argv=None):
 
     emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
 
-    # 8. the kernels line
+    # 9. the kernels line
     emit({"kernels": [
         {"name": "step_megakernel", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/step_megakernel.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:310", "launches": launches["step_megakernel"],

@@ -17,6 +17,13 @@ Design rules shared with the reference (the determinism contract):
   * Threefry RNG under the partitionable lowering (`ops/step_rng.py`);
   * fixed-shape everything; overflow = lane failure (code OVERFLOW).
 
+The chaos palette's window and delivery kinds run too: pause windows
+defer a frozen node's events to its resume time (a time rewrite of the
+popped slot after the prefix kernel, which knows nothing of pauses),
+skew windows scale the node's timers, duplicates ride beside their
+messages in the push order, and strict restarts wipe what the
+machine's `durable_spec` calls volatile.
+
 Configurations outside this slice raise NotImplementedError naming the
 gate; nothing is silently ignored. The entry points run under
 `torch.inference_mode()`: the engine is integer code with no gradients,
@@ -35,6 +42,8 @@ import torch
 from .. import kinds as _kinds
 from ..ops import u32
 from ..ops.coverage import (
+    COV_BAND_AMNESIA,
+    COV_BAND_DUP,
     COV_BUFFER_DEFAULT,
     COV_SLOTS_LOG2_DEFAULT,
     cov_band,
@@ -95,6 +104,23 @@ K_HEAL_ASYM = 9
 DELAY_PROB_U32 = int(0.1 * 0xFFFFFFFF)
 DELAY_EXTRA_MIN_US = 1_000_000
 DELAY_EXTRA_SPAN_US = 4_000_001
+
+# message duplication (FaultPlan.allow_dup): ~10% of the messages pushed
+# get a second copy with its own latency draw
+DUP_PROB_U32 = int(0.1 * 0xFFFFFFFF)
+
+# clock-skew factor: a q10 fixed-point timer multiplier drawn uniform in
+# [SKEW_Q10_MIN, SKEW_Q10_MIN + SKEW_Q10_SPAN), 0.5x to 2.0x
+SKEW_Q10_MIN = 512
+SKEW_Q10_SPAN = 1536
+
+
+def skew_scale_us(delay_us, q10):
+    """Scale int32 delays by q10 factors exactly, in int32 as the
+    reference does: (d >> 10) * q + (((d & 1023) * q) >> 10)."""
+    d, q = delay_us.to(torch.int32), q10.to(torch.int32)
+    return (d >> 10) * q + (((d & 1023) * q) >> 10)
+
 
 # Failure codes
 OK = 0
@@ -163,9 +189,12 @@ def _clog_row_bools(row, n):
 class FaultPlan:
     """Per-lane randomized fault schedule (drawn from the lane seed); the
     reference's fields and defaults. The port runs the partition (pair
-    clog), kill/restart, directional clog, group partition, loss storm
-    and delay-spike kinds, under the v1 derivation (pair and kill only)
-    or the v2 one (any other kind enabled)."""
+    clog), kill/restart, directional clog, group partition, loss storm,
+    delay-spike, pause and skew kinds, under the v1 derivation (pair
+    and kill only) or the v2 one (any other kind enabled; pause or skew
+    take one more draw a fault), and the two unscheduled gates:
+    `allow_dup` (message duplication) and `strict_restart` (restarts
+    wipe what `Machine.durable_spec` calls volatile)."""
 
     n_faults: int = 0
     allow_partition: bool = True
@@ -266,8 +295,8 @@ class LaneState:
     eq_valid: torch.Tensor  # bool[L, Q]
     clogged: torch.Tensor  # int32[L, N, CLOG_WORDS]
     killed: torch.Tensor  # bool[L, N]
-    paused_until: torch.Tensor  # int32[L, 0] (pause kind not in this slice)
-    skew_q10: torch.Tensor  # int32[L, 0]
+    paused_until: torch.Tensor  # int32[L, N] resume times ([L, 0] with the pause kind off)
+    skew_q10: torch.Tensor  # int32[L, N] q10 timer factors ([L, 0] with the skew kind off)
     node_prov: torch.Tensor  # [L, 0] (provenance off)
     eq_prov: torch.Tensor  # [L, 0]
     fail_prov: torch.Tensor  # [L, 0]
@@ -317,9 +346,9 @@ class StreamCarry:
 def _unported(gate: str) -> NotImplementedError:
     return NotImplementedError(
         f"{gate} is not ported to madsim_tpu_torch yet (the port runs both "
-        f"RNG streams, packed clogs, the pair, kill, dir, group, storm and "
-        f"delay fault kinds, packet loss, and the flight recorder and buffered "
-        f"coverage on or off)"
+        f"RNG streams, packed clogs, the pair, kill, dir, group, storm, "
+        f"delay, pause and skew fault kinds, packet loss, duplication, strict "
+        f"restarts, and the flight recorder and buffered coverage on or off)"
     )
 
 
@@ -361,13 +390,19 @@ class Engine:
             raise ValueError(f"clog_packed needs NUM_NODES <= {CLOG_MAX_NODES}")
         if config.flight_recorder and (config.fr_digest_every < 1 or config.fr_digest_ring < 1):
             raise ValueError("flight_recorder needs fr_digest_every >= 1 and fr_digest_ring >= 1")
+        if fp.strict_restart and fp.allow_kill and machine.durable_spec() is None:
+            raise ValueError(
+                f"strict_restart (crash-with-amnesia) needs {type(machine).__name__}.durable_spec() "
+                f"to declare the durable-state contract (which leaves survive restart)"
+            )
         if config.cov_band_bits_min not in (0, 3, 4):
             raise ValueError(f"cov_band_bits_min={config.cov_band_bits_min!r}: 0, 3 or 4")
-        self.cov_band_bits = max(config.cov_band_bits_min, 3)
+        # the band field is 4 bits wide whenever a chaos-palette kind can
+        # occur (the reference's layout v2), else 3
+        palette = fp.allow_pause or fp.allow_skew or fp.allow_dup or fp.strict_restart
+        self.cov_band_bits = max(config.cov_band_bits_min, 4 if palette else 3)
         if config.coverage and not self.cov_band_bits + 4 <= config.cov_slots_log2 <= 20:
             raise ValueError(f"coverage needs {self.cov_band_bits + 4} <= cov_slots_log2 <= 20")
-        if config.cov_buffer < 1 or config.cov_buffer > 1024:
-            raise ValueError(f"cov_buffer={config.cov_buffer!r}: a depth in [1, 1024]")
         # the step-prefix kernel: the megakernel computes the v3 word
         # block, so it serves the counter-based stream only; None means
         # "whenever it can", as the reference's auto setting on its chip
@@ -386,15 +421,26 @@ class Engine:
             spike_possible=fp.allow_delay,
             delay_enabled=fp.allow_delay,
             restart_possible=fp.allow_kill,
+            dup_possible=fp.allow_dup,
         )
-        # one slot per step (no dup band in the port yet), so flushing
-        # every cov_buffer iterations can never overflow the buffer
-        self._cov_flush_every = config.cov_buffer
-        # the event kind of each of a step's pushes: messages, timers,
-        # the restart boot (made once: a per-step host list would be a
-        # host-to-device copy, and so a sync, inside the segment)
+        # a step appends the popped event's slot, and under dup the
+        # synthetic dup-band slot, so flushing every cov_buffer //
+        # slots_per_step iterations can never overflow the buffer
+        slots_per_step = 2 if self._rng_layout.dup_active else 1
+        if config.cov_buffer < 1 or config.cov_buffer > 1024:
+            raise ValueError(f"cov_buffer={config.cov_buffer!r}: a depth in [{slots_per_step}, 1024]")
+        if config.coverage and config.cov_buffer < slots_per_step:
+            raise ValueError(
+                f"cov_buffer={config.cov_buffer} is shallower than the {slots_per_step} slots one "
+                f"step can append under this config (dup events add a synthetic band slot)"
+            )
+        self._cov_flush_every = config.cov_buffer // slots_per_step
+        # the event kind of each of a step's pushes: messages (each
+        # followed by its duplicate under dup), timers, the restart boot
+        # (made once: a per-step host list would be a host-to-device
+        # copy, and so a sync, inside the segment)
         self._push_kinds = torch.tensor(
-            [EV_MSG] * machine.MAX_MSGS + [EV_TIMER] * (machine.MAX_TIMERS + 1),
+            [EV_MSG] * (machine.MAX_MSGS * slots_per_step) + [EV_TIMER] * (machine.MAX_TIMERS + 1),
             dtype=torch.int32, device=self.device,
         )
         # the v2 fault derivation's kind table, made once for the same reason
@@ -407,14 +453,12 @@ class Engine:
             raise ValueError(f"rng_stream={cfg.rng_stream!r} unknown; supported: {RNG_STREAM_VERSIONS}")
         gates = [
             ("clog_packed=False", not cfg.clog_packed),
-            ("strict_restart", fp.strict_restart),
             ("trace_ring>0", cfg.trace_ring > 0),
             ("provenance", cfg.provenance),
             ("cov_buffer=0", cfg.cov_buffer == 0),
             ("compile_cache_dir (a JAX compile cache)", cfg.compile_cache_dir is not None),
         ]
-        for name in ("allow_pause", "allow_skew", "allow_dup", "allow_torn",
-                     "allow_heal_asym"):
+        for name in ("allow_torn", "allow_heal_asym"):
             gates.append((f"FaultPlan.{name}", getattr(fp, name)))
         for gate, hit in gates:
             if hit:
@@ -432,7 +476,10 @@ class Engine:
     @torch.inference_mode()
     def init_batch(self, seeds) -> LaneState:
         """One fresh lane per uint32 seed: the reference's `init_lane`
-        (v1 or v2 fault derivation), batched."""
+        (v1 or v2 fault derivation), batched. With pause or skew on, each
+        v2 fault takes one more split, after the high-mask split, for
+        the skew factor: a pause's arg2 is its resume time, a skew's the
+        factor."""
         m, cfg, dev = self.machine, self.config, self.device
         seeds = self._seed_values(seeds)
         lanes = seeds.shape[0]
@@ -494,6 +541,11 @@ class Engine:
                 arg1 = torch.where(kind == K_GROUP, mask_lo,
                                    torch.where(kind == K_STORM, fp.storm_loss_u16, a)).to(torch.int32)
                 arg2 = torch.where(kind == K_GROUP, mask_hi, b).to(torch.int32)
+                if fp.uses_window_kinds:
+                    ks = split(k_faults, 2)
+                    k_faults = ks[:, 0]
+                    skew_q10 = (SKEW_Q10_MIN + bits32(ks[:, 1]) % SKEW_Q10_SPAN).to(torch.int32)
+                    arg2 = torch.where(kind == K_PAUSE, t + dur, torch.where(kind == K_SKEW, skew_q10, arg2))
             for slot_off, (tt, op) in enumerate(((t, op_apply), (t + dur, op_undo))):
                 msk = (slots == n + 2 * f + slot_off).expand(lanes, q)
                 eq_time = torch.where(msk, tt[:, None], eq_time)
@@ -509,6 +561,7 @@ class Engine:
             return torch.full((lanes,), value, dtype=dtype, device=dev)
 
         empty = torch.zeros((lanes, 0), **i32)
+        per_node = torch.zeros((lanes, n), **i32)
         return LaneState(
             now_us=full(0),
             next_seq=full(next_seq),
@@ -530,8 +583,8 @@ class Engine:
             eq_valid=eq_valid,
             clogged=torch.zeros((lanes, n, CLOG_WORDS), **i32),
             killed=torch.zeros((lanes, n), dtype=torch.bool, device=dev),
-            paused_until=empty,
-            skew_q10=empty,
+            paused_until=per_node if fp.allow_pause else empty,
+            skew_q10=per_node.clone() if fp.allow_skew else empty,
             node_prov=empty,
             eq_prov=empty,
             fail_prov=empty,
@@ -595,6 +648,7 @@ class Engine:
         coverage buffer write the way the reference's early-exit loop
         does."""
         m, cfg, layout = self.machine, self.config, self._rng_layout
+        fp = cfg.faults
         lanes, q = s.eq_valid.shape
         n = m.NUM_NODES
         dev = s.eq_valid.device
@@ -606,8 +660,18 @@ class Engine:
         horizon_hit = live & (new_now >= cfg.horizon_us)
         process = live & ~horizon_hit
         node_alive = ~take(s.killed, ev_node)
-        slots = torch.arange(q, device=dev)
-        eq_valid = s.eq_valid & ~((slots == idx.to(torch.int64)[:, None]) & live[:, None])
+        # pause windows: a handler event whose (alive) target is paused
+        # past now is deferred: its slot stays valid and only its time
+        # moves to the resume point, below. Kill still dominates. The
+        # deferred pop is still a popped event (digest, coverage, trace).
+        at_idx = torch.arange(q, device=dev) == idx.to(torch.int64)[:, None]
+        popped_slot = at_idx & live[:, None]
+        defer = None
+        if fp.allow_pause:
+            node_resume_us = take(s.paused_until, ev_node)
+            defer = process & (ev_kind != EV_FAULT) & node_alive & (node_resume_us > new_now)
+            popped_slot = popped_slot & ~defer[:, None]
+        eq_valid = s.eq_valid & ~popped_slot
         rand_u32 = words[:, : layout.handler_words]
         rng_key = s.rng_key
         if layout.version == RNG_STREAM_LEGACY:
@@ -617,20 +681,27 @@ class Engine:
         # the three branches, for every lane; selected by event kind
         t_nodes, t_out = m.on_timer(s.nodes, ev_node, op, new_now, rand_u32)
         m_nodes, m_out = m.on_message(s.nodes, ev_node, ev_src, payload, new_now, rand_u32)
-        f_nodes, f_clogged, f_killed, f_storm, f_delay, f_boot = self._fault_branch(s, payload, k_restart)
+        f_nodes, f_clogged, f_killed, f_storm, f_delay, f_paused, f_skew, f_boot = self._fault_branch(
+            s, payload, k_restart)
         branch = ev_kind.clamp(0, 2)
         is_fault = branch == EV_FAULT
         nodes = tree_where(branch == EV_TIMER, t_nodes, tree_where(is_fault, f_nodes, m_nodes))
         outbox = tree_where(branch == EV_TIMER, t_out, tree_where(is_fault, m.empty_outbox(lanes, dev), m_out))
 
-        # killed nodes process nothing; fault events always apply
+        # killed nodes process nothing; fault events always apply;
+        # deferred events re-deliver at their node's resume time
         effective = process & (node_alive | (ev_kind == EV_FAULT))
+        if defer is not None:
+            effective = effective & ~defer
         nodes = tree_where(effective, nodes, s.nodes)
         fault_applies = is_fault & effective
         clogged = torch.where(fault_applies[:, None, None], f_clogged, s.clogged)
         killed = torch.where(fault_applies[:, None], f_killed, s.killed)
         storm_loss = torch.where(fault_applies, f_storm, s.storm_loss)
         delay_spike = torch.where(fault_applies, f_delay, s.delay_spike) if layout.spike_active else s.delay_spike
+        paused_until = torch.where(fault_applies[:, None], f_paused, s.paused_until) if fp.allow_pause \
+            else s.paused_until
+        skew_q10 = torch.where(fault_applies[:, None], f_skew, s.skew_q10) if fp.allow_skew else s.skew_q10
         boot_node = torch.where(is_fault, f_boot, -1)
         msg_valid = outbox.msg_valid & effective[:, None]
         timer_valid = outbox.timer_valid & effective[:, None]
@@ -658,25 +729,59 @@ class Engine:
             extra = DELAY_EXTRA_MIN_US + (mag_bits % DELAY_EXTRA_SPAN_US).to(torch.int32)
             latency = latency + torch.where(spiked, extra, 0)
         node_col = ev_node[:, None]
+        msg_want = msg_valid & ~blocked
+        msg_time = new_now[:, None] + latency
+        msg_dst, msg_src, msg_pay = outbox.msg_dst, node_col.expand(-1, m.MAX_MSGS), outbox.msg_payload
+        if layout.dup_active:
+            # each pushed message has a ~10% chance of a second copy with
+            # its own latency draw (no delay spike). The reference pushes
+            # message i, then its copy, then message i + 1, so the copies'
+            # columns interleave: [m0, d0, m1, d1, ...]. Ranks are
+            # monotone, so a copy of a message that did not fit does not
+            # fit either, and the lane's overflow is the reference's.
+            dup_bits = words[:, layout.dup_off : layout.dup_off + m.MAX_MSGS]
+            dup_lat_bits = words[:, layout.dup_off + m.MAX_MSGS : layout.dup_off + 2 * m.MAX_MSGS]
+            dup_want = msg_want & (dup_bits < DUP_PROB_U32)
+            dup_time = new_now[:, None] + cfg.latency_min_us + (dup_lat_bits % lat_span).to(torch.int32)
+
+            def pair(x, y):
+                return torch.stack([x, y], dim=2).flatten(1, 2)
+
+            msg_want, msg_time = pair(msg_want, dup_want), pair(msg_time, dup_time)
+            msg_dst, msg_src = pair(msg_dst, msg_dst), pair(msg_src, msg_src)
+            msg_pay = pair(msg_pay, msg_pay)
+        timer_delay = outbox.timer_delay_us
+        if fp.allow_skew:
+            # a skew window scales every timer the handling node arms by
+            # its factor (pre-step: handler events never change skew, and
+            # fault events arm no timers)
+            node_skew = take(s.skew_q10, ev_node)[:, None]
+            timer_delay = torch.where(node_skew > 0, skew_scale_us(timer_delay, node_skew), timer_delay)
         timer_pay = torch.zeros((lanes, m.MAX_TIMERS, payload.shape[1]), dtype=torch.int32, device=dev)
         timer_pay[:, :, 0] = outbox.timer_id
+        n_msg_cols = msg_want.shape[1]
         pushes = {
-            "want": torch.cat([msg_valid & ~blocked, timer_valid, (effective & (boot_node >= 0))[:, None]], 1),
-            "time": torch.cat([new_now[:, None] + latency, new_now[:, None] + outbox.timer_delay_us,
-                               new_now[:, None]], 1),
+            "want": torch.cat([msg_want, timer_valid, (effective & (boot_node >= 0))[:, None]], 1),
+            "time": torch.cat([msg_time, new_now[:, None] + timer_delay, new_now[:, None]], 1),
             "kind": self._push_kinds,
-            "node": torch.cat([outbox.msg_dst, node_col.expand(-1, m.MAX_TIMERS), boot_node[:, None]], 1),
-            "src": torch.cat([node_col.expand(-1, m.MAX_MSGS),
-                              torch.full((lanes, m.MAX_TIMERS + 1), -1, dtype=torch.int32, device=dev)], 1),
-            "payload": torch.cat([outbox.msg_payload, timer_pay, torch.zeros_like(timer_pay[:, :1])], 1),
+            "node": torch.cat([msg_dst, node_col.expand(-1, m.MAX_TIMERS), boot_node[:, None]], 1),
+            "src": torch.cat([msg_src, torch.full((lanes, m.MAX_TIMERS + 1), -1, dtype=torch.int32, device=dev)], 1),
+            "payload": torch.cat([msg_pay, timer_pay, torch.zeros_like(timer_pay[:, :1])], 1),
         }
+        eq_time = s.eq_time
+        if defer is not None:
+            # the deferred slot stays valid with its seq; its time becomes
+            # the node's resume time, where it races the resume event only
+            # by (time, seq), as in the reference. It takes no free slot.
+            eq_time = torch.where(at_idx & defer[:, None], node_resume_us[:, None], eq_time)
         eq, pushed, overflow = _push_all(
-            {"time": s.eq_time, "seq": s.eq_seq, "kind": s.eq_kind, "node": s.eq_node,
+            {"time": eq_time, "seq": s.eq_seq, "kind": s.eq_kind, "node": s.eq_node,
              "src": s.eq_src, "payload": s.eq_payload, "valid": eq_valid},
             s.next_seq, pushes,
         )
         next_seq = s.next_seq + pushed.sum(dim=1, dtype=torch.int32)
-        msg_count = s.msg_count + pushed[:, : m.MAX_MSGS].sum(dim=1, dtype=torch.int32)
+        msg_count = s.msg_count + pushed[:, :n_msg_cols].sum(dim=1, dtype=torch.int32)
+        n_dups = pushed[:, 1:n_msg_cols:2].sum(dim=1, dtype=torch.int32) if layout.dup_active else None
         failed = s.failed | overflow
         fail_code = torch.where(overflow, OVERFLOW, s.fail_code)
         new_step = s.step + active.to(torch.int32)
@@ -696,7 +801,14 @@ class Engine:
             inj = fr["inj"] + (
                 (torch.arange(len(FAULT_KIND_NAMES), device=dev) == kind_idx[:, None]) & is_inj[:, None]
             ).to(torch.int32)
-            eq_n = fr["eq_n"] - live.to(torch.int32) + (next_seq - s.next_seq)
+            # unscheduled chaos: duplicates pushed, strict restarts processed
+            fr_dup = fr["dup"] + n_dups if n_dups is not None else fr["dup"]
+            fr_amnesia = fr["amnesia"]
+            if fp.strict_restart:
+                fr_amnesia = fr_amnesia + (process & (ev_kind == EV_FAULT) & (op == F_RESTART)).to(torch.int32)
+            # occupancy: a deferred pop leaves its slot valid
+            popped_one = live if defer is None else live & ~defer
+            eq_n = fr["eq_n"] - popped_one.to(torch.int32) + (next_seq - s.next_seq)
             n_clog = u32.popcount(clogged).sum(dim=(1, 2), dtype=torch.int32)
             fr = {
                 "d0": d0,
@@ -706,8 +818,8 @@ class Engine:
                 "ck_d0": torch.where(ck_slot, d0[:, None], fr["ck_d0"]),
                 "ck_d1": torch.where(ck_slot, d1[:, None], fr["ck_d1"]),
                 "inj": inj,
-                "dup": fr["dup"],
-                "amnesia": fr["amnesia"],
+                "dup": fr_dup,
+                "amnesia": fr_amnesia,
                 "q_hwm": torch.maximum(fr["q_hwm"], eq_n),
                 "clog_hwm": torch.maximum(fr["clog_hwm"], n_clog),
                 "kill_hwm": torch.maximum(fr["kill_hwm"], killed.sum(dim=1, dtype=torch.int32)),
@@ -723,11 +835,24 @@ class Engine:
                 | ((storm_loss > 0).to(torch.int32) << 4)
                 | ((delay_spike > 0).to(torch.int32) << 5)
             )
+            # the window kinds' context bits, only when their kind is on
+            if fp.allow_pause:
+                ctx = ctx | ((paused_until > 0).any(dim=1).to(torch.int32) << 6)
+            if fp.allow_skew:
+                ctx = ctx | ((skew_q10 > 0).any(dim=1).to(torch.int32) << 7)
             op_word = torch.where(ev_kind == EV_TIMER, 0, op)
             band = cov_band(ev_kind, op_word, self.cov_band_bits)
+            if fp.strict_restart:
+                band = torch.where((ev_kind == EV_FAULT) & (op == F_RESTART), COV_BAND_AMNESIA, band)
             slot = cov_slot(abs_word, ev_kind, ev_node, op_word, ctx, cfg.cov_slots_log2,
                             band_bits=self.cov_band_bits, band=band)
             buf, buf_n = cov_push(cov["buf"], cov["buf_n"], slot, live, write=running)
+            if n_dups is not None:
+                # the synthetic dup band: a step that pushed a duplicate
+                dup_slot = cov_slot(abs_word, ev_kind, ev_node, n_dups, ctx, cfg.cov_slots_log2,
+                                    band_bits=self.cov_band_bits,
+                                    band=torch.full_like(band, COV_BAND_DUP))
+                buf, buf_n = cov_push(buf, buf_n, dup_slot, live & (n_dups > 0), write=running)
             cov = dict(cov, buf=buf, buf_n=buf_n)
 
         # -- invariants / termination ---------------------------------------
@@ -758,8 +883,8 @@ class Engine:
             eq_valid=eq["valid"],
             clogged=clogged,
             killed=killed,
-            paused_until=s.paused_until,
-            skew_q10=s.skew_q10,
+            paused_until=paused_until,
+            skew_q10=skew_q10,
             node_prov=s.node_prov,
             eq_prov=s.eq_prov,
             fail_prov=s.fail_prov,
@@ -771,10 +896,12 @@ class Engine:
 
     def _fault_branch(self, s: LaneState, payload, k_restart):
         """The fault ops on the packed clog rows (pair, directional and
-        group clogs and their undos), kill and restart, the loss storm
-        and the delay-spike window, for every lane (the caller selects
-        fault lanes). Returns (nodes, clogged, killed, storm_loss,
-        delay_spike, boot_node)."""
+        group clogs and their undos), kill and restart (strict under
+        `strict_restart`), the loss storm, the delay-spike window and
+        the pause and skew windows of node `a`, for every lane (the
+        caller selects fault lanes). Returns (nodes, clogged, killed,
+        storm_loss, delay_spike, paused_until, skew_q10, boot_node)."""
+        fp = self.config.faults
         n = self.machine.NUM_NODES
         op, a, b = payload[:, 0], payload[:, 1], payload[:, 2]
         col = lambda x: x[:, None]  # noqa: E731
@@ -827,9 +954,18 @@ class Engine:
         delay = s.delay_spike
         if self._rng_layout.spike_active:
             delay = torch.where(op == F_DELAY_SPIKE, 1, torch.where(op == F_DELAY_END, 0, delay)).to(torch.int32)
-        nodes = self.machine.restart_node_if(s.nodes, a, restart_op, k_restart)
+        # pause window: arg2 (`b`) is the resume time; skew: the factor
+        paused = s.paused_until
+        if fp.allow_pause:
+            paused = torch.where(col(op == F_PAUSE) & a_row, col(b),
+                                 torch.where(col(op == F_RESUME) & a_row, 0, paused))
+        skew = s.skew_q10
+        if fp.allow_skew:
+            skew = torch.where(col(op == F_SKEW) & a_row, col(b),
+                               torch.where(col(op == F_SKEW_END) & a_row, 0, skew))
+        nodes = self.machine.restart_node_if(s.nodes, a, restart_op, k_restart, strict=fp.strict_restart)
         boot_node = torch.where(restart_op, a, -1)
-        return nodes, clogged, killed, storm.to(torch.int32), delay, boot_node
+        return nodes, clogged, killed, storm.to(torch.int32), delay, paused, skew, boot_node
 
     # -- batch runners -------------------------------------------------------
 

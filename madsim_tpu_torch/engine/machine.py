@@ -202,12 +202,40 @@ class Machine:
         fresh = self.init_node(nodes, i, rng_key)
         return tree_where(cond, fresh, nodes)
 
+    def durable_spec(self) -> Any:
+        """Optional durable-state contract for crash-with-amnesia faults
+        (`FaultPlan.strict_restart`): a `state_type` instance whose every
+        field is a python bool, True for a leaf that survives a restart
+        (stable storage), False for one a restarted node must lose. The
+        strict restart wipes the volatile leaves from a fresh `init()`,
+        bypassing the model's own restart hook. Default None: no
+        contract, and the engine refuses `strict_restart`."""
+        return None
+
+    def amnesia_restart_if(self, nodes: Any, i, cond, rng_key) -> Any:
+        """Crash-with-amnesia restart: where cond[l], every leaf
+        `durable_spec()` marks volatile takes row i[l] of a fresh
+        `init(rng_key)`; durable leaves are kept as they are."""
+        spec = self.durable_spec()
+        if spec is None:
+            raise ValueError(
+                f"{type(self).__name__} declares no durable_spec(); "
+                f"strict_restart (crash-with-amnesia) needs the durable-"
+                f"state contract to know which leaves to wipe"
+            )
+        fresh = self.init(rng_key)
+        return dataclasses.replace(nodes, **{
+            f.name: set_at(getattr(nodes, f.name), i, take(getattr(fresh, f.name), i), cond)
+            for f in dataclasses.fields(spec) if not getattr(spec, f.name)
+        })
+
     def restart_node_if(self, nodes: Any, i, cond, rng_key, strict: bool = False) -> Any:
-        """Engine-facing restart dispatch; do NOT override. Picks the
-        restart hook by MRO position as the reference does. The strict
-        (crash-with-amnesia) restart is not in this slice of the port."""
+        """Engine-facing restart dispatch; do NOT override. With `strict`
+        (`FaultPlan.strict_restart`) the amnesia wipe runs instead of the
+        model's restart hook; otherwise the hook is picked by MRO
+        position as the reference does."""
         if strict:
-            raise NotImplementedError("strict_restart is not ported yet")
+            return self.amnesia_restart_if(nodes, i, cond, rng_key)
         mro = type(self).__mro__
 
         def hook_owner(name):

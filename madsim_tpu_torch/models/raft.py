@@ -116,6 +116,18 @@ class RaftMachine(Machine):
         """Restart: persistent state survives, volatile resets."""
         return self.restart_if(nodes, i, torch.ones_like(i, dtype=torch.bool), rng_key)
 
+    def durable_spec(self) -> RaftState:
+        """Crash-with-amnesia contract: term, votedFor and the log are
+        stable storage, the timer epoch survives, the rest is volatile;
+        under it the strict wipe equals `restart_if`. The
+        PERSIST_COMMIT_NOT_LOG bug swaps the log and commitIndex."""
+        log_durable = not self.PERSIST_COMMIT_NOT_LOG
+        return RaftState(
+            term=True, voted_for=True, log_term=log_durable, log_len=log_durable, epoch=True,
+            role=False, votes=False, elec_deadline=False, commit=bool(self.PERSIST_COMMIT_NOT_LOG),
+            next_idx=False, match_idx=False,
+        )
+
     def restart_if(self, nodes: RaftState, i, cond, rng_key) -> RaftState:
         """Masked restart: cond folds into the row mask."""
         row = (torch.arange(self.NUM_NODES, device=i.device)[None, :] == i[:, None]) & cond[:, None]

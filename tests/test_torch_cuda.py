@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card, and
 short engine runs on the card against the CPU (both streams, delay
-spikes, the single-lane replay and the corpus). These need an NVIDIA card with nvcc (they build the
+spikes, the chaos palette at Q = 96, the single-lane replay and the
+corpus). These need an NVIDIA card with nvcc (they build the
 kernels); without one they skip. On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -28,8 +29,10 @@ def _flat(r):
     return [idx, any_v, *popped, payload, words, *digest]
 
 
-# (8192, 32, 6, 18): the flagship Raft with delay spikes on rng_stream=3
+# (8192, 32, 6, 18): the flagship Raft with delay spikes on rng_stream=3;
+# (8192, 96, 6, 18): the dup-vote hunt under the chaos palette
 @pytest.mark.parametrize("lanes,q,p,w,digest", [(8192, 32, 6, 10, True), (8192, 32, 6, 18, True),
+                                                 (8192, 96, 6, 18, True), (256, 96, 6, 18, True),
                                                  (1000, 64, 4, 7, True), (37, 32, 6, 7, False),
                                                  (5, 40, 3, 1, True)])
 def test_step_megakernel_matches_twin(dev, lanes, q, p, w, digest):
@@ -100,9 +103,11 @@ def _replay_state_planes(dev):
     return [s.eq_time, s.eq_seq, s.eq_valid, s.eq_kind, s.eq_node, s.eq_src, s.eq_payload]
 
 
-# Q = 48 (P = 5): the mvcc and s3 hunts and replays; Q = 256 (P = 4): gossip's
+# Q = 48 (P = 5): the mvcc and s3 hunts and replays; Q = 256 (P = 4): gossip's;
+# Q = 96 (P = 6): the chaos palette's batches and the dup-vote replay
 @pytest.mark.parametrize("lanes,q,p", [(8192, 32, 6), (8191, 96, 6), (1, 32, 6), (13, 40, 4), ("replay", 32, 6),
-                                       (8192, 48, 5), (8192, 256, 4), (1, 48, 5), (1, 256, 4)])
+                                       (8192, 48, 5), (8192, 256, 4), (1, 48, 5), (1, 256, 4), (256, 96, 6),
+                                       (1, 96, 6)])
 def test_pop_kernels_match_twins(dev, lanes, q, p):
     from madsim_tpu_torch.ops import kernels
 
@@ -268,3 +273,25 @@ def test_corpus_reproduces_on_the_card(dev):
         out = corpus.check(entry, build_machine)
         assert out.ok and out.fail_code == entry.fail_code, out.verdict
         assert audit.audit_entry(entry, build_machine).trail.to_lists() == (entry.digests, entry.digest_final)
+
+
+def test_chaos_palette_on_the_card_matches_the_cpu(dev):
+    """The flagship Raft at Q = 96 under pause, skew, dup and strict
+    restarts, on both streams: the megakernel at W = 18 (v3) and pop +
+    gather (v2) launch, and the card's results equal the CPU's."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import RaftMachine
+    from madsim_tpu_torch.ops import kernels
+
+    faults = FaultPlan(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000, allow_pause=True,
+                       allow_skew=True, allow_dup=True, strict_restart=True)
+    for stream, kernel in ((3, "step_megakernel"), (2, "pop_gather")):
+        cfg = EngineConfig(horizon_us=5_000_000, queue_capacity=96, rng_stream=stream, flight_recorder=True,
+                           coverage=True, faults=faults)
+        seeds = np.arange(64, dtype=np.uint32)
+        before = kernels.launches[kernel]
+        on_card = tree_to_numpy(Engine(RaftMachine(5, 8), cfg).run_batch(seeds, 256))
+        assert kernels.launches[kernel] > before
+        on_cpu = tree_to_numpy(Engine(RaftMachine(5, 8), cfg, device="cpu").run_batch(seeds, 256))
+        assert _same(on_card, on_cpu) and on_card["fr"]["dup"].sum() > 0

@@ -17,7 +17,10 @@ import torch_port_util  # noqa: F401  (pins the partitionable lowering)
 from madsim_tpu.ops import step_rng as jax_rng
 from madsim_tpu_torch.ops import step_rng, threefry
 
-from test_golden_streams import V1_FAULTS, V1_SCHED, V2_FAULTS, V2_K_RESTART, V2_SCHED, V2_WORDS, V3_WORDS
+from test_golden_streams import (
+    PAUSE_ONLY_ROWS_7, SKEW_ONLY_ROWS_7, V1_FAULTS, V1_SCHED, V2_DUP_TAIL_7, V2_FAULTS, V2_K_RESTART, V2_SCHED,
+    V2_WORDS, V3_DUP_WORDS, V3_WORDS, WINDOW_FAULTS, WINDOW_SCHED,
+)
 
 SEEDS = np.array([0, 1, 7, 123, 66531, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1], dtype=np.uint32)
 
@@ -206,3 +209,72 @@ def test_v2_fault_derivation_matches_jax(nodes):
     assert {6, 7} <= set(ops.ravel().tolist())  # group faults drawn
     if nodes > 30:
         assert (want["eq_payload"][:, nodes : nodes + 6, 2][ops == 6] != 0).any()  # high mask bits
+
+
+def _dup_layout(version):
+    return step_rng.layout_for(
+        version, 4, 4, loss_possible=False, spike_possible=False, delay_enabled=False, restart_possible=True,
+        dup_possible=True,
+    )
+
+
+def _lane_key(seed):
+    return threefry.split(threefry.prng_key(_t([seed])), 3)[:, 0]
+
+
+def test_dup_words_match_pinned_literals():
+    """The dup section rides the block's tail on both streams, as
+    tests/test_golden_streams.py pins it: the v3 (4, 4, kill, dup) block
+    of 18 words, whose restart key still reads words 8-9; and v2's step
+    0 of seed 7, whose first 12 words are the legacy block."""
+    layout = _dup_layout(3)
+    assert (layout.total_words, layout.dup_off, layout.restart_off) == (18, 10, 8)
+    for seed, expect in V3_DUP_WORDS.items():
+        for step in range(2):
+            _, words, k_restart = step_rng.step_words_v3(_lane_key(seed), torch.tensor([step]), layout)
+            assert words[0].tolist() == expect[step], (seed, step)
+            assert torch.equal(k_restart, words[:, 8:10])
+    layout = _dup_layout(2)
+    assert (layout.total_words, layout.dup_off) == (20, 12)
+    _, words, k_restart = step_rng.step_words(_lane_key(7), torch.tensor([0]), layout)
+    assert words[0, :12].tolist() == V2_WORDS[7][0]
+    assert words[0, 12:].tolist() == V2_DUP_TAIL_7
+    assert k_restart[0].tolist() == V2_K_RESTART[7][0]
+
+
+def _window_engine(faults, rng_stream, horizon_us):
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+
+    if not isinstance(faults, dict):  # the JAX package's FaultPlan
+        faults = {f.name: getattr(faults, f.name) for f in dataclasses.fields(FaultPlan)}
+    return Engine(RaftMachine(num_nodes=5, log_capacity=8),
+                  EngineConfig(horizon_us=horizon_us, queue_capacity=32, faults=FaultPlan(**faults),
+                               rng_stream=rng_stream),
+                  device="cpu")
+
+
+@pytest.mark.parametrize("rng_stream", [2, 3])
+def test_window_schedules_match_pinned_literals(rng_stream):
+    """The pause / skew derivation (one more split a fault, for the skew
+    factor) as tests/test_golden_streams.py pins it: the mixed schedule,
+    and pause-only rows (arg2 the resume time) and skew-only rows (arg2
+    the q10 factor) of seed 7. The schedule does not depend on the
+    stream."""
+    eng = _window_engine(WINDOW_FAULTS, rng_stream, 5_000_000)
+    s = eng.init_batch(np.array(list(WINDOW_SCHED), dtype=np.uint32))
+    for lane, expect in enumerate(WINDOW_SCHED.values()):
+        rows = slice(5, 9)
+        assert s.eq_time[lane, rows].tolist() == expect["time"]
+        assert s.eq_seq[lane, rows].tolist() == expect["seq"]
+        assert s.eq_node[lane, rows].tolist() == expect["node"]
+        assert s.eq_payload[lane, rows].tolist() == expect["pay"]
+    window = dict(n_faults=1, allow_partition=False, allow_kill=False, t_min_us=200_000, t_max_us=600_000,
+                  dur_min_us=200_000, dur_max_us=400_000)
+    for kind_flags, expect in ((dict(allow_pause=True), PAUSE_ONLY_ROWS_7), (dict(allow_skew=True), SKEW_ONLY_ROWS_7)):
+        s = _window_engine({**window, **kind_flags}, rng_stream, 2_000_000).init_batch(np.array([7], np.uint32))
+        assert s.eq_time[0, 5:7].tolist() == expect["time"], kind_flags
+        assert s.eq_node[0, 5:7].tolist() == expect["node"], kind_flags
+        assert s.eq_payload[0, 5:7].tolist() == expect["pay"], kind_flags
+        assert s.paused_until.shape == (1, 5 if "allow_pause" in kind_flags else 0)
+        assert s.skew_q10.shape == (1, 5 if "allow_skew" in kind_flags else 0)
