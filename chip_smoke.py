@@ -66,7 +66,21 @@ last line):
      CPU, and whose seeds failing with another code are replayed on the
      CPU and listed; the megakernel at Q = 96, W = 18 and the flush at two
      entries a step in `kernels`, the pops at Q = 96 in `pop_kernels`;
-  9. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+  9. the storage kinds (torn restarts, asymmetric heals) and the models
+     raft-compact, paxos, etcd and group: run_batch on the card against
+     the CPU on both streams (card_vs_cpu_storage): the torn-snapshot
+     plan on TornSnapshotRaftCompact (LOG_MATCHING only), heal-asym on
+     honest Raft at Q = 48, and honest raft-compact under every kind at
+     once with 1% loss (no failure; the megakernel at W = 31); the
+     torn-snapshot hunt at 8192 lanes (stream_torn), failing 102 only,
+     whose first find replays equal on the card and the CPU; then the
+     megakernel at W = 11 / Q = 64 (8192 lanes and the replay's L = 1),
+     W = 31 / Q = 96 and L = 1 / Q = 96 and the flush on the torn hunt,
+     each against its twin and timed (storage_kernels); the pop kernels
+     against their twins and timed, pop_earliest at the torn replay's
+     L = 1 / Q = 64 among them (pop_kernels); card_vs_cpu_models runs
+     paxos, etcd and group with their demos too;
+ 10. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
@@ -106,7 +120,7 @@ FLAGSHIP_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_m
 LANES, SEGMENT_STEPS = 8192, 384
 # phases 4 and 6: lanes and run_batch's step budget (flagship lanes run
 # it out); small enough that the script fits half its time limit
-CHECK_LANES, CHECK_STEPS = 256, 512
+CHECK_LANES, CHECK_STEPS = 256, 384
 # phase 4b: OvercommitRaft fails these seeds with LOG_MATCHING under the
 # flagship config (the first at step 364, the last two by step 533)
 OVERCOMMIT_SEEDS, OVERCOMMIT_STEPS = [232949, 134519, 143336], 640
@@ -123,11 +137,11 @@ REPLAY_STATE_STEPS = 300  # the replay state the pop is timed on: seed 66531 thi
 # the delay kind and the etcd-MVCC, S3 and gossip models
 # card_vs_cpu_delay: lanes, run_batch's step budget, and the steps over
 # which the sends that took a spike are counted
-DELAY_LANES, DELAY_STEPS, DELAY_SPIKE_STEPS = 256, 384, 256
+DELAY_LANES, DELAY_STEPS, DELAY_SPIKE_STEPS = 256, 256, 128
 # card_vs_cpu_models: lanes, and step budgets (mvcc and s3 lanes end in
 # ~70-120 events; gossip's run past the budget)
 MODEL_LANES, GOSSIP_LANES = 256, 64
-MVCC_STEPS, S3_STEPS, GOSSIP_STEPS = 3000, 4000, 300
+MVCC_STEPS, S3_STEPS, GOSSIP_STEPS = 3000, 4000, 200
 # the delay-only plan of tests/test_engine_mvcc.py, and the full vocabularies
 # of tests/test_engine_s3.py (with delay) and tests/test_engine_gossip.py
 MVCC = dict(horizon_us=8_000_000, queue_capacity=48)
@@ -150,7 +164,7 @@ CORPUS_STATE_STEPS = {"demo-giveup-mvcc": 36, "demo-dupack-gossip": 300}  # pop_
 # the chaos palette: pause, skew, dup and strict restarts on the flagship
 # plan, with the queue headroom a pause's parked deliveries need
 PALETTE_FAULTS = dict(FLAGSHIP_FAULTS, allow_pause=True, allow_skew=True, allow_dup=True, strict_restart=True)
-PALETTE_Q, PALETTE_LANES, PALETTE_STEPS = 96, 256, 256
+PALETTE_Q, PALETTE_LANES, PALETTE_STEPS = 96, 256, 192
 # card_vs_cpu_demos: the plans of tests/test_chaos_palette.py:211-231 and
 # :244-262. VolatileCommit fails 10 of seeds 0-31 by step 400 in the JAX
 # package; the dup-vote seeds are those of 0-2047 the JAX package fails
@@ -169,6 +183,39 @@ PALETTE_HUNT = dict(horizon_us=1_000_000, queue_capacity=96, rng_stream=3, clog_
 PALETTE_HUNT_FAULTS = dict(n_faults=2, t_max_us=600_000, dur_min_us=100_000, dur_max_us=800_000,
                            allow_pause=True, allow_skew=True, allow_dup=True, strict_restart=True)
 PALETTE_REPLAY_STEPS = 40  # the hunt replay's state pop_earliest is timed on: this far in
+# card_vs_cpu_models, new in phase 9: single-decree Paxos, etcd and the
+# consumer group with their demos, under the plans of
+# tests/test_engine_paxos.py, tests/test_engine_etcd.py and
+# tests/test_engine_group.py (lanes end in ~40, ~400 and ~220 events;
+# the honest etcd and group lanes are cut at 320 and 256 events)
+PAXOS_PLAN = dict(horizon_us=8_000_000, queue_capacity=96)
+PAXOS_FAULTS = dict(n_faults=2, t_max_us=4_000_000, dur_min_us=200_000, dur_max_us=800_000)
+NOPROMISE_FAULTS = dict(n_faults=3, t_max_us=2_000_000, dur_min_us=150_000, dur_max_us=600_000)
+ETCD_PLAN = dict(horizon_us=8_000_000, queue_capacity=96)
+ETCD_FAULTS = dict(n_faults=2, t_max_us=5_000_000, dur_min_us=200_000, dur_max_us=800_000)
+DOUBLEGRANT_PLAN = dict(horizon_us=9_000_000, queue_capacity=96)
+DOUBLEGRANT_FAULTS = dict(n_faults=3, t_max_us=6_000_000, dur_min_us=150_000, dur_max_us=600_000)
+GROUP_PLAN = dict(horizon_us=8_000_000, queue_capacity=96)
+GROUP_FAULTS = dict(n_faults=3, t_max_us=1_500_000, dur_min_us=250_000, dur_max_us=700_000)
+NOFENCING_PLAN = dict(horizon_us=9_000_000, queue_capacity=96)
+NOFENCING_FAULTS = dict(n_faults=3, t_max_us=5_000_000, dur_min_us=200_000, dur_max_us=800_000, allow_kill=False)
+# phase 9, the storage kinds: the torn-snapshot plan of
+# tests/test_chaos_palette.py:355-382 at the hunt's width, heal-asym on
+# honest Raft at Q = 48, and the 11-kind soak of :430-441
+TORN_HUNT = dict(horizon_us=4_000_000, queue_capacity=64, rng_stream=3, clog_packed=True, flight_recorder=True,
+                 coverage=True, cov_buffer=16)
+TORN_FAULTS = dict(n_faults=3, t_max_us=1_800_000, dur_min_us=100_000, dur_max_us=600_000, allow_partition=False,
+                   allow_kill=False, allow_torn=True, strict_restart=True)
+HASYM_Q = 48
+SOAK = dict(horizon_us=4_000_000, queue_capacity=96, packet_loss_rate=0.01)
+SOAK_FAULTS = dict(n_faults=3, t_max_us=2_400_000, dur_min_us=100_000, dur_max_us=600_000, allow_dir_clog=True,
+                   allow_group=True, allow_storm=True, allow_delay=True, allow_pause=True, allow_skew=True,
+                   allow_dup=True, allow_torn=True, allow_heal_asym=True, strict_restart=True)
+STORAGE_LANES = 256
+# run_batch budgets: torn lanes fail LOG_MATCHING from ~200 events in
+TORN_CHECK_STEPS, HASYM_STEPS, SOAK_STEPS = 256, 160, 160
+TORN_REPLAY_STEPS = 150  # the torn replay's state its kernels are timed on: this far in
+STARTED = time.perf_counter()
 
 
 def card_line():
@@ -184,6 +231,10 @@ def card_line():
 
 
 def emit(obj):
+    """One JSON line; a phase's line also says when it ended, in seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - STARTED, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -392,17 +443,19 @@ def pop_planes(state, gather=True):
     return planes + [state.eq_kind, state.eq_node, state.eq_src, state.eq_payload] if gather else planes
 
 
-def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_states, palette_states):
+def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_states, palette_states, torn_state):
     """The pop + gather and pop kernels against their twins on the main
     paths' inputs (a split-chain flagship batch, the mvcc hunt's batch at
     Q = 48, P = 5, the palette's v2 batch at Q = 96, and single lanes: the
     replay's at Q = 32, the mvcc and gossip corpus replays' at Q = 48 and
-    256, the dup-vote demo's and hunt's replays at Q = 96) and on edge
+    256, the dup-vote demo's and hunt's replays at Q = 96, the torn
+    hunt's replay at Q = 64) and on edge
     shapes: 8191 lanes of Q = 96 with empty lanes, one lane, Q = 40 and
     Q = 256, and the lane-group edge shapes. Times pop + gather at the
     flagship batch, the hunt's batch, the palette's batch and the
     replays' L = 1, and the pop at L = 1 on the four replays (where its
-    launches run) and at the batch."""
+    launches run) and at the batch, and at L = 1 / Q = 64 on the torn
+    replay."""
     import torch
 
     main = pop_planes(state)
@@ -412,7 +465,8 @@ def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_s
                                           ("palette_v2", "dupvote_replay", "palette_replay"))
     cases = [("flagship-v2", main), ("replay-L1", pop_planes(replay_state)), ("mvcc-hunt", hunt),
              ("mvcc-replay-L1", mvcc_l1), ("gossip-replay-L1", gossip_l1), ("palette-v2", palette_v2),
-             ("dupvote-replay-L1", dupvote_l1), ("palette-replay-L1", palette_l1)]
+             ("dupvote-replay-L1", dupvote_l1), ("palette-replay-L1", palette_l1),
+             ("torn-replay-L1", pop_planes(torn_state))]
     shapes = [(8191, 96, 6, False), (1, 32, 6, False), (13, 40, 4, False), (64, 256, 6, False)]
     shapes += [(lanes, q, p, mis) for lanes, q, p, _, mis in EDGE_SHAPES]
     for lanes, q, p, mis in shapes:
@@ -462,6 +516,7 @@ def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_s
         "pop_gather_palette_v2": timed("pop_gather", palette_v2),
         "pop_gather_L1_Q96": timed("pop_gather", dupvote_l1),
         "pop_earliest_L1_Q96": timed("pop_earliest", palette_l1),
+        "pop_earliest_L1_Q64": timed("pop_earliest", pop_planes(torn_state)),
     }
 
 
@@ -821,6 +876,12 @@ def delay_and_model_phases(torch, np, kernels, dev):
         ("demo-abortleak-s3", MVCC, S3_FAULTS, range(64), S3_STEPS, 212),
         ("gossip", GOSSIP, GOSSIP_FAULTS, range(GOSSIP_LANES), GOSSIP_STEPS, None),
         ("demo-dupack-gossip", GOSSIP, DUPACK_FAULTS, DUPACK_SEEDS, DUPACK_STEPS, 160),
+        ("paxos", PAXOS_PLAN, PAXOS_FAULTS, range(64), 600, None),
+        ("demo-nopromise-paxos", PAXOS_PLAN, NOPROMISE_FAULTS, range(128), 64, 140),
+        ("etcd", ETCD_PLAN, ETCD_FAULTS, range(64), 320, None),
+        ("demo-doublegrant-etcd", DOUBLEGRANT_PLAN, DOUBLEGRANT_FAULTS, range(100, 164), 200, 120),
+        ("group", GROUP_PLAN, GROUP_FAULTS, range(64), 256, None),
+        ("demo-nofencing-group", NOFENCING_PLAN, NOFENCING_FAULTS, range(500, 564), 160, 131),
     ):
         cfg = EngineConfig(**base, faults=FaultPlan(**faults))
         machine = build_machine(name)
@@ -1012,10 +1073,11 @@ def palette_phases(torch, np, kernels):
         fail(f"the palette hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: no "
              f"ELECTION_SAFETY seed")
     t1 = time.perf_counter()
-    before = kernels.launches["pop_earliest"]
+    before = dict(kernels.launches)
     on_card = replay(eng, first)
     t_replay = time.perf_counter() - t1
-    pops = kernels.launches["pop_earliest"] - before
+    pops = kernels.launches["pop_earliest"] - before["pop_earliest"]
+    replay_steps = kernels.launches["step_megakernel"] - before["step_megakernel"]
     cpu_eng = palette_hunt_engine("cpu")
     on_cpu = replay(cpu_eng, first)
     bad = tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))
@@ -1040,11 +1102,165 @@ def palette_phases(torch, np, kernels):
           "amnesia_restarts": fr["amnesia_restarts"], "slots_hit": res["stats"]["coverage"]["slots_hit"],
           "by_band": res["stats"]["coverage"]["by_band"], "launches": launches,
           "replay": {"seed": first, "fail_code": on_card.fail_code, "events": len(on_card.trace),
-                     "pop_earliest": pops, "card_s": round(t_replay, 3), "equal": True},
+                     "pop_earliest": pops, "step_megakernel": replay_steps, "card_s": round(t_replay, 3),
+                     "equal": True},
           "other_codes_replayed_on_cpu": others,
           "profile": profile_steps(eng, state, steps=8)})
     states["palette_replay"] = eng.run_segment(eng.init_batch([first]), PALETTE_REPLAY_STEPS)
+    states["palette_replay_launches"] = replay_steps
+    states["palette_words"] = eng._rng_layout.total_words
     return launches, states
+
+
+def torn_hunt_engine(device=None):
+    """The torn-snapshot hunt's engine: demo-tornsnapshot-raft under torn restarts."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import build_machine
+
+    return Engine(build_machine("demo-tornsnapshot-raft"),
+                  EngineConfig(**TORN_HUNT, faults=FaultPlan(**TORN_FAULTS)), device=device)
+
+
+def storage_phases(torch, np, kernels):
+    """Phase 9: the storage kinds. card_vs_cpu_storage (the torn plan on
+    TornSnapshotRaftCompact, heal-asym on honest Raft at Q = 48, honest
+    raft-compact under every kind, each on both streams), then
+    stream_torn (the torn-snapshot hunt at 8192 lanes). Returns the
+    states and launch counts the new kernel shapes are timed at: the
+    hunt's batch (8192 lanes, Q = 64, W = 11) with its buffers a flush
+    period in, the soak's v3 batch (256 lanes, Q = 96, W = 31) and the
+    hunt replay's lane (Q = 64)."""
+    from collections import Counter
+
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.engine.core import K_HEAL_ASYM, K_TORN
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import build_machine
+    from madsim_tpu_torch.models.raft import LOG_MATCHING
+
+    hunt = {k: v for k, v in TORN_HUNT.items() if k != "rng_stream"}
+    flags = {k: FLAGSHIP[k] for k in ("flight_recorder", "coverage")}
+    cases = (
+        ("torn", "demo-tornsnapshot-raft", hunt, TORN_FAULTS, TORN_CHECK_STEPS),
+        ("heal_asym", "raft", {**FLAGSHIP, "queue_capacity": HASYM_Q}, {**FLAGSHIP_FAULTS, "allow_heal_asym": True},
+         HASYM_STEPS),
+        ("soak", "raft-compact", {**SOAK, **flags}, SOAK_FAULTS, SOAK_STEPS),
+    )
+    seeds = np.arange(STORAGE_LANES, dtype=np.uint32) + 60_000
+    out, found = {}, {}
+    for name, machine_name, base, faults, steps in cases:
+        machine = build_machine(machine_name)
+        for stream, kernel in ((3, "step_megakernel"), (2, "pop_gather")):
+            cfg = EngineConfig(**{**base, "rng_stream": stream}, faults=FaultPlan(**faults))
+            card = Engine(machine, cfg)
+            kernels.reset_launches()
+            res, t_card, t_cpu = card_vs_cpu(lambda d: card if d is None else Engine(machine, cfg, device="cpu"),
+                                             seeds, steps, f"{name}, rng_stream={stream}")
+            launches = dict(kernels.launches)
+            if launches[kernel] <= 0:
+                fail(f"{name} on rng_stream={stream} never launched {kernel}")
+            codes = Counter(int(c) for c, f in zip(res["fail_code"], res["failed"]) if f)
+            inj = res["fr"]["inj"].sum(axis=0)
+            counts = {"torn": int(inj[K_TORN]), "heal_asym": int(inj[K_HEAL_ASYM])}
+            if (name == "torn" and set(codes) != {LOG_MATCHING}) or (name == "soak" and codes):
+                fail(f"{name} on rng_stream={stream} failed with {dict(codes)}")
+            kinds = {"torn": ("torn",), "heal_asym": ("heal_asym",), "soak": ("torn", "heal_asym")}[name]
+            if not all(counts[k] for k in kinds):
+                fail(f"{name} on rng_stream={stream}: a storage kind was never injected ({counts})")
+            all_bands = coverage_bands(res, card.cov_band_bits)
+            out[f"{name} rng_stream={stream}"] = {
+                "machine": machine_name, "lanes": STORAGE_LANES, "q": base["queue_capacity"],
+                "words": card._rng_layout.total_words, "equal": True, "card_s": round(t_card, 3),
+                "cpu_s": round(t_cpu, 3), "max_steps": int(res["steps"].max()), "fail_codes": dict(codes),
+                "counts": counts, "bands": {b: all_bands[b] for b in ("torn", "heal_asym", "amnesia")},
+                "launches": launches}
+            if name == "soak" and stream == 3:
+                found["soak_state"] = card.run_segment(card.init_batch(seeds), 96)
+                found["soak_launches"] = launches["step_megakernel"]
+                found["soak_words"] = card._rng_layout.total_words
+    emit({"phase": "card_vs_cpu_storage", **out})
+
+    # stream_torn: the torn-snapshot hunt at full width, through the entry points
+    eng = torn_hunt_engine()
+    state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
+    run(1)  # warm: one segment
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run(2 * LANES, seed_start=LANES)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name in ("step_megakernel", "cov_flush"):
+        if launches[name] <= 0:
+            fail(f"the torn hunt never launched {name}")
+    by_code = Counter(code for _, code in res["failing"])
+    if set(by_code) != {LOG_MATCHING} or res["completed"] < 2 * LANES:
+        fail(f"the torn hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: not "
+             f"LOG_MATCHING alone")
+    first = res["failing"][0][0]
+    t1 = time.perf_counter()
+    before = dict(kernels.launches)
+    on_card = replay(eng, first)
+    t_replay = time.perf_counter() - t1
+    replay_launches = {k: kernels.launches[k] - before[k] for k in ("pop_earliest", "step_megakernel")}
+    on_cpu = replay(torn_hunt_engine("cpu"), first)
+    bad = tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))
+    if on_card.fail_code != LOG_MATCHING or on_cpu.fail_code != LOG_MATCHING or on_card.trace != on_cpu.trace or bad:
+        fail(f"torn hunt seed {first}: the card replay gave {on_card.fail_code}, the CPU's {on_cpu.fail_code}, "
+             f"differing in {bad[:8] or 'the trace'}")
+    segments = res["stats"]["device_segments"]
+    fr = res["stats"]["flight_recorder"]
+    emit({"phase": "stream_torn", "completed": res["completed"], "failing_by_code": dict(by_code),
+          "failing_share": round(len(res["failing"]) / res["completed"], 6), "n_infra": len(res["infra"]),
+          "n_abandoned": len(res["abandoned"]), "seconds": round(elapsed, 3),
+          "seeds_per_s": round(res["completed"] / elapsed, 2), "segments": segments,
+          "ms_per_step": round(elapsed * 1e3 / (segments * SEGMENT_STEPS), 3),
+          "faults_injected": fr["faults_injected"], "amnesia_restarts": fr["amnesia_restarts"],
+          "slots_hit": res["stats"]["coverage"]["slots_hit"], "by_band": res["stats"]["coverage"]["by_band"],
+          "launches": launches,
+          "replay": {"seed": first, "fail_code": on_card.fail_code, "events": len(on_card.trace),
+                     "launches": replay_launches, "card_s": round(t_replay, 3), "equal": True},
+          "profile": profile_steps(eng, state, steps=8)})
+    for _ in range(eng._cov_flush_every):
+        state = eng.step_batch(state)
+    found.update(hunt_state=state, hunt_words=eng._rng_layout.total_words, hunt_launches=launches,
+                 replay_launches=replay_launches,
+                 replay_state=eng.run_segment(eng.init_batch([first]), TORN_REPLAY_STEPS))
+    return found
+
+
+def storage_kernels(kernels, dev, found, palette_states):
+    """Each new megakernel and flush shape of phases 8-9 against its twin
+    on the state of the path that launches it, then timed there with its
+    floor and bound: the megakernel at the torn hunt's W = 11 / Q = 64
+    (8192 lanes) and its replay's L = 1, the soak's W = 31 / Q = 96 (256
+    lanes) and the palette hunt replay's L = 1 / Q = 96; the flush on the
+    torn hunt's buffers. The torn replay's pop_earliest is held and timed
+    in `pop_kernels`."""
+    out = {}
+    for name, state, words, n in (
+        ("step_megakernel_torn", found["hunt_state"], found["hunt_words"], found["hunt_launches"]["step_megakernel"]),
+        ("step_megakernel_L1_Q64", found["replay_state"], found["hunt_words"],
+         found["replay_launches"]["step_megakernel"]),
+        ("step_megakernel_soak", found["soak_state"], found["soak_words"], found["soak_launches"]),
+        ("step_megakernel_L1_Q96", palette_states["palette_replay"], palette_states["palette_words"],
+         palette_states["palette_replay_launches"]),
+    ):
+        err, ms, plain, nbytes, ops, floor = time_step_kernel(kernels, dev, state, words)
+        out[name] = {"lanes": state.eq_time.shape[0], "q": state.eq_time.shape[1], "words": words, "ms": ms,
+                     "plain_ms": plain, "floor_ms": floor, "bytes": nbytes, "ops": ops, "launches": n,
+                     "max_abs_err": err}
+    err, ms, plain, nbytes, ops, live, sectors, floor = time_cov_flush(kernels, dev, found["hunt_state"].cov)
+    out["cov_flush_torn"] = {"lanes": LANES, "ms": ms, "plain_ms": plain, "floor_ms": floor, "bytes": nbytes,
+                             "ops": ops, "live_entries": live, "live_sectors": sectors,
+                             "launches": found["hunt_launches"]["cov_flush"], "max_abs_err": err}
+    for k in out.values():
+        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
+        k["launches_x_excess_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
+    emit({"phase": "storage_kernels", **out})
 
 
 def time_in_turns(kernels, designs, fn):
@@ -1257,11 +1473,18 @@ def main(argv=None):
 
     # 8. the chaos palette: pause, skew, dup and strict restarts
     _, palette_states = palette_phases(torch, np, kernels)
-    pops = check_pop_kernels(kernels, g, dev, v2_state, replay_state, hunt_state, corpus_states, palette_states)
+
+    # 9. the storage kinds and the models raft-compact, paxos, etcd and group
+    storage = storage_phases(torch, np, kernels)
+    storage_kernels(kernels, dev, storage, palette_states)
+    pops = check_pop_kernels(kernels, g, dev, v2_state, replay_state, hunt_state, corpus_states, palette_states,
+                             storage["replay_state"])
+    pops["pop_earliest_L1_Q64"]["launches"] = storage["replay_launches"]["pop_earliest"]
     for name, k in pops.items():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
     emit({"phase": "pop_kernels", "max_abs_err": max(k["err"] for k in pops.values()),
-          **{name: {key: k[key] for key in ("lanes", "q", "ms", "plain_ms", "bound_ms", "floor_ms", "bytes", "ops")}
+          **{name: {key: k[key] for key in ("lanes", "q", "ms", "plain_ms", "bound_ms", "floor_ms", "bytes", "ops",
+                                            "launches") if key in k}
              for name, k in pops.items()}})
     if designs:
         pop_ins = pop_planes(v2_state)

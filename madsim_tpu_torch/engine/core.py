@@ -17,12 +17,14 @@ Design rules shared with the reference (the determinism contract):
   * Threefry RNG under the partitionable lowering (`ops/step_rng.py`);
   * fixed-shape everything; overflow = lane failure (code OVERFLOW).
 
-The chaos palette's window and delivery kinds run too: pause windows
-defer a frozen node's events to its resume time (a time rewrite of the
-popped slot after the prefix kernel, which knows nothing of pauses),
-skew windows scale the node's timers, duplicates ride beside their
-messages in the push order, and strict restarts wipe what the
-machine's `durable_spec` calls volatile.
+The chaos palette's window, delivery and storage kinds run too: pause
+windows defer a frozen node's events to its resume time (a time rewrite
+of the popped slot after the prefix kernel, which knows nothing of
+pauses), skew windows scale the node's timers, duplicates ride beside
+their messages in the push order, strict restarts wipe what the
+machine's `durable_spec` calls volatile, torn restarts damage durable
+leaves as its `torn_spec` allows, and an asymmetric partition heals its
+two directions at two times.
 
 Configurations outside this slice raise NotImplementedError naming the
 gate; nothing is silently ignored. The entry points run under
@@ -58,7 +60,7 @@ from ..ops.step_rng import (
 )
 from ..ops.threefry import bits32, prng_key, split
 from ..utils import take, tree_where
-from .machine import Machine
+from .machine import TORN_CLASSES, Machine, state_leaf_names
 
 # Event kinds
 EV_TIMER = 0
@@ -188,13 +190,15 @@ def _clog_row_bools(row, n):
 @dataclasses.dataclass(frozen=True)
 class FaultPlan:
     """Per-lane randomized fault schedule (drawn from the lane seed); the
-    reference's fields and defaults. The port runs the partition (pair
-    clog), kill/restart, directional clog, group partition, loss storm,
-    delay-spike, pause and skew kinds, under the v1 derivation (pair
-    and kill only) or the v2 one (any other kind enabled; pause or skew
-    take one more draw a fault), and the two unscheduled gates:
-    `allow_dup` (message duplication) and `strict_restart` (restarts
-    wipe what `Machine.durable_spec` calls volatile)."""
+    reference's fields and defaults. The port runs every kind: the
+    partition (pair clog), kill/restart, directional clog, group
+    partition, loss storm, delay-spike, pause, skew, torn-restart and
+    asymmetric-heal kinds, under the v1 derivation (pair and kill only)
+    or the v2 one (any other kind enabled; pause or skew take one more
+    draw a fault, torn or heal_asym one more after it, and heal_asym a
+    third slot a fault), and the two unscheduled gates: `allow_dup`
+    (message duplication) and `strict_restart` (restarts wipe what
+    `Machine.durable_spec` calls volatile)."""
 
     n_faults: int = 0
     allow_partition: bool = True
@@ -346,9 +350,9 @@ class StreamCarry:
 def _unported(gate: str) -> NotImplementedError:
     return NotImplementedError(
         f"{gate} is not ported to madsim_tpu_torch yet (the port runs both "
-        f"RNG streams, packed clogs, the pair, kill, dir, group, storm, "
-        f"delay, pause and skew fault kinds, packet loss, duplication, strict "
-        f"restarts, and the flight recorder and buffered coverage on or off)"
+        f"RNG streams, packed clogs, every fault kind, packet loss, "
+        f"duplication, strict restarts, and the flight recorder and "
+        f"buffered coverage on or off)"
     )
 
 
@@ -395,11 +399,14 @@ class Engine:
                 f"strict_restart (crash-with-amnesia) needs {type(machine).__name__}.durable_spec() "
                 f"to declare the durable-state contract (which leaves survive restart)"
             )
+        if fp.allow_torn:
+            self._check_torn_contract(machine)
         if config.cov_band_bits_min not in (0, 3, 4):
             raise ValueError(f"cov_band_bits_min={config.cov_band_bits_min!r}: 0, 3 or 4")
         # the band field is 4 bits wide whenever a chaos-palette kind can
         # occur (the reference's layout v2), else 3
-        palette = fp.allow_pause or fp.allow_skew or fp.allow_dup or fp.strict_restart
+        palette = (fp.allow_pause or fp.allow_skew or fp.allow_dup or fp.strict_restart
+                   or fp.allow_torn or fp.allow_heal_asym)
         self.cov_band_bits = max(config.cov_band_bits_min, 4 if palette else 3)
         if config.coverage and not self.cov_band_bits + 4 <= config.cov_slots_log2 <= 20:
             raise ValueError(f"coverage needs {self.cov_band_bits + 4} <= cov_slots_log2 <= 20")
@@ -420,8 +427,11 @@ class Engine:
             loss_possible=config.packet_loss_rate > 0 or fp.allow_storm,
             spike_possible=fp.allow_delay,
             delay_enabled=fp.allow_delay,
-            restart_possible=fp.allow_kill,
+            # a torn restart re-inits through the machine as a kill
+            # restart does, so it needs the restart key too
+            restart_possible=fp.allow_kill or fp.allow_torn,
             dup_possible=fp.allow_dup,
+            torn_possible=fp.allow_torn,
         )
         # a step appends the popped event's slot, and under dup the
         # synthetic dup-band slot, so flushing every cov_buffer //
@@ -447,8 +457,27 @@ class Engine:
         self._fault_kinds = torch.tensor(fp.enabled_kinds(), dtype=torch.int32, device=self.device)
 
     @staticmethod
+    def _check_torn_contract(machine: Machine) -> None:
+        """allow_torn needs the durable-state contract, and a torn_spec,
+        when declared, of the same shape with a known class per leaf."""
+        spec = machine.durable_spec()
+        if spec is None:
+            raise ValueError(
+                f"allow_torn (torn/lost-write storage faults) needs {type(machine).__name__}.durable_spec() "
+                f"to declare the durable-state contract the torn restart damages"
+            )
+        tspec = machine.torn_spec()
+        if tspec is not None and (
+            type(tspec) is not type(spec)
+            or any(getattr(tspec, name) not in TORN_CLASSES for name in state_leaf_names(tspec))
+        ):
+            raise ValueError(
+                f"{type(machine).__name__}.torn_spec() must be congruent to durable_spec() with every "
+                f"leaf in {{TORN_ATOMIC, TORN_LOSE, TORN_PREFIX}}"
+            )
+
+    @staticmethod
     def _check_slice(cfg: EngineConfig) -> None:
-        fp = cfg.faults
         if cfg.rng_stream not in RNG_STREAM_VERSIONS:
             raise ValueError(f"rng_stream={cfg.rng_stream!r} unknown; supported: {RNG_STREAM_VERSIONS}")
         gates = [
@@ -458,8 +487,6 @@ class Engine:
             ("cov_buffer=0", cfg.cov_buffer == 0),
             ("compile_cache_dir (a JAX compile cache)", cfg.compile_cache_dir is not None),
         ]
-        for name in ("allow_torn", "allow_heal_asym"):
-            gates.append((f"FaultPlan.{name}", getattr(fp, name)))
         for gate, hit in gates:
             if hit:
                 raise _unported(gate)
@@ -479,7 +506,10 @@ class Engine:
         (v1 or v2 fault derivation), batched. With pause or skew on, each
         v2 fault takes one more split, after the high-mask split, for
         the skew factor: a pause's arg2 is its resume time, a skew's the
-        factor."""
+        factor. With torn or heal_asym on, one more split follows: a torn
+        fault's arg2 is its damage mask, and under heal_asym every fault
+        takes a third slot, the one-way heal b -> a at t + dur2, valid
+        only for heal_asym faults."""
         m, cfg, dev = self.machine, self.config, self.device
         seeds = self._seed_values(seeds)
         lanes = seeds.shape[0]
@@ -546,16 +576,28 @@ class Engine:
                     k_faults = ks[:, 0]
                     skew_q10 = (SKEW_Q10_MIN + bits32(ks[:, 1]) % SKEW_Q10_SPAN).to(torch.int32)
                     arg2 = torch.where(kind == K_PAUSE, t + dur, torch.where(kind == K_SKEW, skew_q10, arg2))
-            for slot_off, (tt, op) in enumerate(((t, op_apply), (t + dur, op_undo))):
-                msk = (slots == n + 2 * f + slot_off).expand(lanes, q)
+                if fp.uses_storage_kinds:
+                    # one word: a torn fault's damage mask (31 bits), and
+                    # the second heal's duration of a heal_asym fault
+                    ks = split(k_faults, 2)
+                    k_faults = ks[:, 0]
+                    storage_word = bits32(ks[:, 1])
+                    arg2 = torch.where(kind == K_TORN, (storage_word & 0x7FFFFFFF).to(torch.int32), arg2)
+                    dur2 = (fp.dur_min_us + storage_word % (fp.dur_max_us - fp.dur_min_us)).to(torch.int32)
+            slot_events = [(t, op_apply, arg1, arg2, None), (t + dur, op_undo, arg1, arg2, None)]
+            if fp.allow_heal_asym:
+                heal = torch.full_like(a, F_HASYM_HEAL)
+                slot_events.append((t + dur2, heal, b, a, kind == K_HEAL_ASYM))
+            for slot_off, (tt, op, p1, p2, valid) in enumerate(slot_events):
+                msk = (slots == n + fp.slots_per_fault * f + slot_off).expand(lanes, q)
                 eq_time = torch.where(msk, tt[:, None], eq_time)
                 eq_seq = torch.where(msk, next_seq + slot_off, eq_seq)
                 eq_kind = torch.where(msk, EV_FAULT, eq_kind)
                 eq_node = torch.where(msk, a[:, None], eq_node)
-                pay = torch.stack([op, arg1, arg2] + [torch.zeros_like(a)] * (p - 3), dim=1)
+                pay = torch.stack([op, p1, p2] + [torch.zeros_like(a)] * (p - 3), dim=1)
                 eq_payload = torch.where(msk[:, :, None], pay[:, None, :], eq_payload)
-                eq_valid = eq_valid | msk
-            next_seq += 2
+                eq_valid = eq_valid | (msk if valid is None else msk & valid[:, None])
+            next_seq += fp.slots_per_fault
 
         def full(value, dtype=torch.int32):
             return torch.full((lanes,), value, dtype=dtype, device=dev)
@@ -682,7 +724,7 @@ class Engine:
         t_nodes, t_out = m.on_timer(s.nodes, ev_node, op, new_now, rand_u32)
         m_nodes, m_out = m.on_message(s.nodes, ev_node, ev_src, payload, new_now, rand_u32)
         f_nodes, f_clogged, f_killed, f_storm, f_delay, f_paused, f_skew, f_boot = self._fault_branch(
-            s, payload, k_restart)
+            s, payload, words, k_restart)
         branch = ev_kind.clamp(0, 2)
         is_fault = branch == EV_FAULT
         nodes = tree_where(branch == EV_TIMER, t_nodes, tree_where(is_fault, f_nodes, m_nodes))
@@ -894,13 +936,15 @@ class Engine:
             cov=cov,
         )
 
-    def _fault_branch(self, s: LaneState, payload, k_restart):
+    def _fault_branch(self, s: LaneState, payload, words, k_restart):
         """The fault ops on the packed clog rows (pair, directional and
-        group clogs and their undos), kill and restart (strict under
-        `strict_restart`), the loss storm, the delay-spike window and
-        the pause and skew windows of node `a`, for every lane (the
-        caller selects fault lanes). Returns (nodes, clogged, killed,
-        storm_loss, delay_spike, paused_until, skew_q10, boot_node)."""
+        group clogs and their undos, the asymmetric partition's clog and
+        its two one-way heals), kill and restart (strict under
+        `strict_restart`), the torn kill and restart, the loss storm, the
+        delay-spike window and the pause and skew windows of node `a`,
+        for every lane (the caller selects fault lanes). Returns (nodes,
+        clogged, killed, storm_loss, delay_spike, paused_until, skew_q10,
+        boot_node)."""
         fp = self.config.faults
         n = self.machine.NUM_NODES
         op, a, b = payload[:, 0], payload[:, 1], payload[:, 2]
@@ -920,11 +964,18 @@ class Engine:
         # pair partition: both directions
         pair_val = op == F_CLOG_PAIR
         touch_pair = pair_val | (op == F_UNCLOG_PAIR)
+        dir_val = op == F_CLOG_DIR
+        touch_dir = dir_val | (op == F_UNCLOG_DIR)
+        if fp.allow_heal_asym:
+            # the asymmetric partition clogs the pair both ways; each heal
+            # unclogs the one direction a -> b as a directional undo
+            pair_val = pair_val | (op == F_HASYM)
+            touch_pair = touch_pair | (op == F_HASYM)
+            touch_dir = touch_dir | (op == F_HASYM_HEAL)
         w0, w1 = apply_bit(w0, w1, a_row, b_lo, b_hi, pair_val, touch_pair)
         w0, w1 = apply_bit(w0, w1, b_row, a_lo, a_hi, pair_val, touch_pair)
         # directional clog: a -> b only
-        dir_val = op == F_CLOG_DIR
-        w0, w1 = apply_bit(w0, w1, a_row, b_lo, b_hi, dir_val, dir_val | (op == F_UNCLOG_DIR))
+        w0, w1 = apply_bit(w0, w1, a_row, b_lo, b_hi, dir_val, touch_dir)
         # group partition: `a` holds member bits [0, 30), `b` bits [30, 60);
         # a member's cross links are the group's complement, an outsider's
         # the group (a node's own bit lands on neither side)
@@ -943,6 +994,10 @@ class Engine:
         w1 = torch.where(touch_group, torch.where(g_on, w1 | cross_hi, w1 & ~cross_hi), w1)
         clogged = torch.stack([w0, w1], dim=2)
         kill_op, restart_op = op == F_KILL, op == F_RESTART
+        if fp.allow_torn:
+            # a torn fault is a kill whose restart damages storage
+            kill_op = kill_op | (op == F_TORN)
+            restart_op = restart_op | (op == F_TORN_RESTART)
         killed = torch.where(
             col(kill_op), s.killed | a_row,
             torch.where(col(restart_op), s.killed & ~a_row, s.killed),
@@ -963,7 +1018,11 @@ class Engine:
         if fp.allow_skew:
             skew = torch.where(col(op == F_SKEW) & a_row, col(b),
                                torch.where(col(op == F_SKEW_END) & a_row, 0, skew))
-        nodes = self.machine.restart_node_if(s.nodes, a, restart_op, k_restart, strict=fp.strict_restart)
+        nodes = self.machine.restart_node_if(s.nodes, a, op == F_RESTART, k_restart, strict=fp.strict_restart)
+        if fp.allow_torn:
+            # the damage seed: the schedule's mask salted by the step's torn word
+            torn_seed = u32.from_i32(b) ^ words[:, self._rng_layout.torn_off]
+            nodes = self.machine.torn_restart_if(nodes, a, op == F_TORN_RESTART, k_restart, torn_seed)
         boot_node = torch.where(restart_op, a, -1)
         return nodes, clogged, killed, storm.to(torch.int32), delay, paused, skew, boot_node
 

@@ -14,6 +14,13 @@ batch:
 
 Timer id 0 (`BOOT`) is reserved: the engine delivers it to every node at
 t=0 and after every restart.
+
+Storage faults (`FaultPlan.allow_torn`): `durable_spec()` says which
+leaves survive a restart and `torn_spec()` what a torn restart may do to
+each durable leaf. `torn_restart_if` walks the state's leaves in the
+order `state_leaf_names` gives, which is the JAX package's flatten
+order (a dataclass's field order), and salts each leaf's damage word
+with its position there.
 """
 
 from __future__ import annotations
@@ -23,9 +30,40 @@ from typing import Any, Tuple
 
 import torch
 
+from ..ops import u32
 from ..utils import gather_at, norm_index, take, tree_where
 
 BOOT = 0  # reserved timer id
+
+# Storage-atomicity classes of a durable leaf under a torn restart
+# (`Machine.torn_spec`); volatile leaves ignore their class and wipe.
+TORN_ATOMIC = 1  # the write is atomic and fsynced: the row survives
+TORN_LOSE = 2  # all-or-nothing lost write: the row may revert whole
+TORN_PREFIX = 3  # torn multi-element write: the row keeps a seeded prefix
+#                  of its trailing axis (rows of one value degrade to LOSE)
+TORN_CLASSES = (TORN_ATOMIC, TORN_LOSE, TORN_PREFIX)
+
+# the damage hash: murmur3's fmix over (seed ^ golden * (leaf + 1))
+_TORN_GOLDEN = 0x9E3779B9
+_TORN_M1 = 0x85EBCA6B
+_TORN_M2 = 0xC2B2AE35
+
+
+def torn_hash(seed, leaf_idx: int) -> torch.Tensor:
+    """The uint32 damage word (int64) of durable leaf `leaf_idx` under
+    the torn seed words `seed` [L] (int32 bit patterns or uint32 values);
+    every multiply wraps at 32 bits."""
+    h = u32.from_i32(seed) ^ ((_TORN_GOLDEN * (leaf_idx + 1)) & u32.MASK)
+    h = u32.mul(h ^ (h >> 16), _TORN_M1)
+    h = u32.mul(h ^ (h >> 13), _TORN_M2)
+    return h ^ (h >> 16)
+
+
+def state_leaf_names(state) -> list:
+    """The leaves of a node-state dataclass in the JAX package's flatten
+    order (field-declaration order): a leaf's index here salts its torn
+    damage."""
+    return [f.name for f in dataclasses.fields(state)]
 
 
 @dataclasses.dataclass
@@ -228,6 +266,59 @@ class Machine:
             f.name: set_at(getattr(nodes, f.name), i, take(getattr(fresh, f.name), i), cond)
             for f in dataclasses.fields(spec) if not getattr(spec, f.name)
         })
+
+    def torn_spec(self) -> Any:
+        """Optional storage-atomicity contract for torn restarts
+        (`FaultPlan.allow_torn`): a `state_type` instance congruent to
+        `durable_spec()` whose every field is TORN_ATOMIC, TORN_LOSE or
+        TORN_PREFIX. Default None: every durable write is atomic, so a
+        torn restart is the amnesia wipe."""
+        return None
+
+    def torn_restart_if(self, nodes: Any, i, cond, rng_key, torn_seed) -> Any:
+        """Torn restart of node i[l] where cond[l]: volatile leaves wipe
+        as `amnesia_restart_if` does; a durable TORN_LOSE leaf (or any
+        non-atomic leaf of one value a node) reverts to its fresh row
+        when bit 0 of its damage word is set; a TORN_PREFIX leaf keeps
+        its first `(h >> 1) % (size + 1)` entries along the trailing axis
+        and takes the fresh values past them. `torn_seed` [L] is the
+        fault's damage mask xor the step's torn word; the damage word is
+        `torn_hash(torn_seed, leaf position)`."""
+        spec = self.durable_spec()
+        if spec is None:
+            raise ValueError(
+                f"{type(self).__name__} declares no durable_spec(); "
+                f"allow_torn (torn/lost-write storage faults) needs the "
+                f"durable-state contract to know which leaves exist"
+            )
+        tspec = self.torn_spec()
+        fresh = self.init(rng_key)
+        out = {}
+        for li, name in enumerate(state_leaf_names(spec)):
+            cur, f = getattr(nodes, name), getattr(fresh, name)
+            cls = TORN_ATOMIC if tspec is None else getattr(tspec, name)
+            if not getattr(spec, name):
+                out[name] = set_at(cur, i, take(f, i), cond)  # amnesia wipe
+                continue
+            if cls == TORN_ATOMIC:
+                continue
+            h = torn_hash(torn_seed, li)
+            if cls == TORN_LOSE or cur.dim() < 3:
+                out[name] = set_at(cur, i, take(f, i), cond & ((h & 1) == 1))
+            elif cls == TORN_PREFIX:
+                size = cur.shape[-1]
+                cut = (h >> 1) % (size + 1)
+                torn_tail = torch.arange(size, device=cur.device)[None, :] >= cut[:, None]  # [L, size]
+                row = (torch.arange(cur.shape[1], device=cur.device)[None, :] == i[:, None]) & cond[:, None]
+                mid = (1,) * (cur.dim() - 3)
+                mask = row.reshape(row.shape + mid + (1,)) & torn_tail.reshape((-1, 1) + mid + (size,))
+                out[name] = torch.where(mask, f, cur)
+            else:
+                raise ValueError(
+                    f"{type(self).__name__}.torn_spec() leaf {li} has unknown atomicity "
+                    f"class {cls!r} (expected TORN_ATOMIC/TORN_LOSE/TORN_PREFIX)"
+                )
+        return dataclasses.replace(nodes, **out)
 
     def restart_node_if(self, nodes: Any, i, cond, rng_key, strict: bool = False) -> Any:
         """Engine-facing restart dispatch; do NOT override. With `strict`

@@ -1,18 +1,29 @@
 """Protocol models of the port (lane-batched Machines) and the registry
 that rebuilds a machine from its CLI name, as corpus entries name it."""
 
+from .echo import EchoMachine, EchoState
+from .etcd import EtcdMachine, EtcdState
 from .etcd_mvcc import EtcdMvccMachine, MvccState, NoDedupMvcc, PrematureGiveupMvcc
 from .gossip import DupAckGossip, GossipMachine, GossipState
+from .kafka_group import GroupState, KafkaGroupMachine, NoFencingGroupMachine
 from .multipaxos import MultiPaxosMachine, MultiPaxosState, NoPromiseCheckMultiPaxos
+from .paxos import NoPromiseCheckPaxos, PaxosMachine, PaxosState
 from .raft import RaftMachine, RaftState
+from .raft_compact import RaftCompactMachine, RaftCompactState, TornSnapshotRaftCompact
 from .s3 import AbortLeakS3, ArrivalOrderS3, EarlyExpiryS3, NoDedupS3, S3Machine, S3State, TombstoneLeakS3
 
 __all__ = [
-    "AbortLeakS3", "ArrivalOrderS3", "DupAckGossip", "EarlyExpiryS3", "EtcdMvccMachine", "GossipMachine",
-    "GossipState", "MultiPaxosMachine", "MultiPaxosState", "MvccState", "NoDedupMvcc", "NoDedupS3",
-    "NoPromiseCheckMultiPaxos", "PrematureGiveupMvcc", "RaftMachine", "RaftState", "S3Machine", "S3State",
-    "TombstoneLeakS3", "build_machine",
+    "AbortLeakS3", "ArrivalOrderS3", "DoubleGrantEtcd", "DupAckGossip", "EarlyExpiryS3", "EchoMachine",
+    "EchoState", "EtcdMachine", "EtcdMvccMachine", "EtcdState", "GossipMachine", "GossipState", "GroupState",
+    "KafkaGroupMachine", "MultiPaxosMachine", "MultiPaxosState", "MvccState", "NoDedupMvcc", "NoDedupS3",
+    "NoFencingGroupMachine", "NoPromiseCheckMultiPaxos", "NoPromiseCheckPaxos", "PaxosMachine", "PaxosState",
+    "PrematureGiveupMvcc", "RaftCompactMachine", "RaftCompactState", "RaftMachine", "RaftState", "S3Machine",
+    "S3State", "TombstoneLeakS3", "TornSnapshotRaftCompact", "build_machine",
 ]
+
+
+class DoubleGrantEtcd(EtcdMachine):
+    CHECK_OWNER_ON_CAMPAIGN = False  # non-atomic election txn
 
 
 class OvercommitRaft(RaftMachine):
@@ -32,11 +43,20 @@ class DupVoteRaft(RaftMachine):
 
 
 _MACHINES = {
+    "echo": lambda n: EchoMachine(rounds=10),
     "raft": lambda n: RaftMachine(num_nodes=n or 5, log_capacity=8),
     "demo-overcommit-raft": lambda n: OvercommitRaft(num_nodes=n or 5, log_capacity=8),
     "demo-quorumoffbyone-raft": lambda n: QuorumOffByOneRaft(num_nodes=n or 5, log_capacity=8),
     "demo-volatilecommit-raft": lambda n: VolatileCommitRaft(num_nodes=n or 5, log_capacity=8),
     "demo-dupvote-raft": lambda n: DupVoteRaft(num_nodes=n or 5, log_capacity=8),
+    "raft-compact": lambda n: RaftCompactMachine(num_nodes=n or 5, log_capacity=8),
+    "demo-tornsnapshot-raft": lambda n: TornSnapshotRaftCompact(num_nodes=n or 5, log_capacity=8),
+    "paxos": lambda n: PaxosMachine(num_nodes=n or 5),
+    "demo-nopromise-paxos": lambda n: NoPromiseCheckPaxos(num_nodes=n or 5),
+    "etcd": lambda n: EtcdMachine(num_nodes=n or 4),
+    "demo-doublegrant-etcd": lambda n: DoubleGrantEtcd(num_nodes=n or 4, target_gens=99, target_writes=9999),
+    "group": lambda n: KafkaGroupMachine(num_nodes=n or 4),
+    "demo-nofencing-group": lambda n: NoFencingGroupMachine(num_nodes=n or 4),
     "multipaxos": lambda n: MultiPaxosMachine(num_nodes=n or 5),
     "demo-nopromise-multipaxos": lambda n: NoPromiseCheckMultiPaxos(num_nodes=n or 5),
     "etcd-mvcc": lambda n: EtcdMvccMachine(num_nodes=n or 4),

@@ -134,16 +134,14 @@ def test_overcommit_bug_found_on_the_same_seeds(overcommit_streams):
     assert got["failing"] == want["failing"]
 
 
-# the gates still closed; those lifted since run in test_torch_gates.py
+# the gates still closed; those lifted since (every FaultPlan kind among
+# them) run in test_torch_gates.py
 GATES = [
     ("clog_packed=False", dict(clog_packed=False)),
     ("trace_ring>0", dict(trace_ring=16)),
     ("provenance", dict(provenance=True)),
     ("cov_buffer=0", dict(cov_buffer=0)),
     ("compile_cache_dir", dict(compile_cache_dir="cache")),
-] + [
-    (f"FaultPlan.{flag}", dict(faults=FaultPlan(n_faults=1, **{flag: True})))
-    for flag in ("allow_torn", "allow_heal_asym")
 ]
 
 

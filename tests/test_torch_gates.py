@@ -1,8 +1,8 @@
 """The configuration gates the port has lifted, each held against the
 JAX package: `run_batch` of the flagship hunt with one override (the
 split-chain stream, packet loss, the recorder or coverage off, the step
-megakernel off, the dir, group, storm, delay, pause and skew fault kinds,
-message duplication and strict restarts) must give the reference's whole
+megakernel off, the dir, group, storm, delay, pause, skew, torn and
+heal-asym fault kinds, message duplication and strict restarts) must give the reference's whole
 `BatchResult`. The ids are the gates' names, as
 `test_unported_gates_raise` named them while they were closed. Then the
 chaos palette's own checks (tests/test_step_gates.py): strict restarts
@@ -32,13 +32,14 @@ LIFTED = [
 ] + [
     (f"FaultPlan.{flag}", dict(faults={**FLAGSHIP_FAULTS, flag: True}))
     for flag in ("allow_dir_clog", "allow_group", "allow_storm", "allow_delay", "allow_pause", "allow_skew",
-                 "allow_dup")
+                 "allow_dup", "allow_torn", "allow_heal_asym")
 ]
 # the recorder counter each chaos gate must move: a kind's injections
 # (its index in `fr["inj"]`), or the dup / amnesia counter
 MOVES = {"FaultPlan.allow_dir_clog": 2, "FaultPlan.allow_group": 3, "FaultPlan.allow_storm": 4,
          "FaultPlan.allow_delay": 5, "FaultPlan.allow_pause": 6, "FaultPlan.allow_skew": 7,
-         "FaultPlan.allow_dup": "dup", "strict_restart": "amnesia"}
+         "FaultPlan.allow_dup": "dup", "strict_restart": "amnesia", "FaultPlan.allow_torn": 8,
+         "FaultPlan.allow_heal_asym": 9}
 
 
 @pytest.mark.parametrize("gate,overrides", LIFTED, ids=[g for g, _ in LIFTED])
@@ -53,7 +54,7 @@ def test_lifted_gates_match_jax(gate, overrides):
         moved = MOVES[gate]
         count = np.asarray(want.fr["inj"])[:, moved] if isinstance(moved, int) else np.asarray(want.fr[moved])
         assert count.sum() > 0, gate  # the chaos happened
-        assert port.cov_band_bits == (4 if moved in (6, 7, "dup", "amnesia") else 3)
+        assert port.cov_band_bits == (4 if moved in (6, 7, 8, 9, "dup", "amnesia") else 3)
     assert port.use_megakernel == (gate not in ("rng_stream=2", "pallas_megakernel=False"))
 
 
@@ -143,7 +144,7 @@ def test_coverage_band4_needs_one_more_slot_bit():
     from madsim_tpu.runtime.coverage import band_names as jax_band_names
     from madsim_tpu_torch.runtime.coverage import band_names
 
-    for gate in ("allow_pause", "allow_skew", "allow_dup", "strict_restart"):
+    for gate in ("allow_pause", "allow_skew", "allow_dup", "strict_restart", "allow_torn", "allow_heal_asym"):
         faults = {**FLAGSHIP_FAULTS, gate: True}
         with pytest.raises(ValueError, match="cov_slots_log2"):
             _port(cov_slots_log2=7, faults=faults)

@@ -18,8 +18,9 @@ from madsim_tpu.ops import step_rng as jax_rng
 from madsim_tpu_torch.ops import step_rng, threefry
 
 from test_golden_streams import (
-    PAUSE_ONLY_ROWS_7, SKEW_ONLY_ROWS_7, V1_FAULTS, V1_SCHED, V2_DUP_TAIL_7, V2_FAULTS, V2_K_RESTART, V2_SCHED,
-    V2_WORDS, V3_DUP_WORDS, V3_WORDS, WINDOW_FAULTS, WINDOW_SCHED,
+    HASYM_ONLY_ROWS_7, PAUSE_ONLY_ROWS_7, SKEW_ONLY_ROWS_7, STORAGE_FAULTS, STORAGE_SCHED, TORN_ONLY_ROWS_7,
+    V1_FAULTS, V1_SCHED, V2_DUP_TAIL_7, V2_FAULTS, V2_K_RESTART, V2_SCHED, V2_TORN_TAIL, V2_WORDS, V3_DUP_WORDS,
+    V3_TORN_WORDS, V3_WORDS, WINDOW_FAULTS, WINDOW_SCHED,
 )
 
 SEEDS = np.array([0, 1, 7, 123, 66531, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1], dtype=np.uint32)
@@ -278,3 +279,59 @@ def test_window_schedules_match_pinned_literals(rng_stream):
         assert s.eq_payload[0, 5:7].tolist() == expect["pay"], kind_flags
         assert s.paused_until.shape == (1, 5 if "allow_pause" in kind_flags else 0)
         assert s.skew_q10.shape == (1, 5 if "allow_skew" in kind_flags else 0)
+
+
+def test_torn_words_match_pinned_literals():
+    """The torn salt word rides the block's tail on both streams, as
+    tests/test_golden_streams.py pins it: the v3 (4, 4, kill, torn)
+    block of 11 words, whose restart key still reads words 8-9; and v2's
+    steps 0-1, whose first 12 words are the legacy block and whose
+    thirteenth is the pinned tail word, the restart key untouched."""
+    kw = dict(loss_possible=False, spike_possible=False, delay_enabled=False, restart_possible=True,
+              torn_possible=True)
+    layout = step_rng.layout_for(3, 4, 4, **kw)
+    assert (layout.total_words, layout.torn_off, layout.restart_off) == (11, 10, 8)
+    for seed, expect in V3_TORN_WORDS.items():
+        for step in range(2):
+            _, words, k_restart = step_rng.step_words_v3(_lane_key(seed), torch.tensor([step]), layout)
+            assert words[0].tolist() == expect[step], (seed, step)
+            assert torch.equal(k_restart, words[:, 8:10])
+    layout = step_rng.layout_for(2, 4, 4, **kw)
+    assert (layout.total_words, layout.torn_off) == (13, 12)
+    for seed, tails in V2_TORN_TAIL.items():
+        key = _lane_key(seed)
+        for step in range(2):
+            key, words, k_restart = step_rng.step_words(key, torch.tensor([step]), layout)
+            assert words[0, :12].tolist() == V2_WORDS[seed][step], (seed, step)
+            assert int(words[0, 12]) == tails[step], (seed, step)
+            assert k_restart[0].tolist() == V2_K_RESTART[seed][step], (seed, step)
+
+
+@pytest.mark.parametrize("rng_stream", [2, 3])
+def test_storage_schedules_match_pinned_literals(rng_stream):
+    """The torn / heal-asym derivation (one more split a fault, after the
+    window kinds', and a third slot a fault under heal-asym, valid only
+    for heal-asym faults) as tests/test_golden_streams.py pins it: the
+    mixed schedule, torn-only rows (arg2 the damage mask) and heal-asym
+    rows (the both-way clog, then two one-way heals). The window and
+    older schedules above pass unchanged: the draw is taken only with a
+    storage kind on."""
+    eng = _window_engine(STORAGE_FAULTS, rng_stream, 5_000_000)
+    s = eng.init_batch(np.array(list(STORAGE_SCHED), dtype=np.uint32))
+    rows = slice(5, 5 + 3 * STORAGE_FAULTS.n_faults)
+    for lane, expect in enumerate(STORAGE_SCHED.values()):
+        assert s.eq_time[lane, rows].tolist() == expect["time"]
+        assert s.eq_seq[lane, rows].tolist() == expect["seq"]
+        assert s.eq_node[lane, rows].tolist() == expect["node"]
+        assert s.eq_valid[lane, rows].tolist() == expect["valid"]
+        assert s.eq_payload[lane, rows].tolist() == expect["pay"]
+    single = dict(n_faults=1, allow_partition=False, allow_kill=False, t_min_us=200_000, t_max_us=600_000,
+                  dur_min_us=200_000, dur_max_us=400_000)
+    for kind_flags, nrows, expect in ((dict(allow_torn=True), 2, TORN_ONLY_ROWS_7),
+                                      (dict(allow_heal_asym=True), 3, HASYM_ONLY_ROWS_7)):
+        s = _window_engine({**single, **kind_flags}, rng_stream, 2_000_000).init_batch(np.array([7], np.uint32))
+        rows = slice(5, 5 + nrows)
+        assert s.eq_time[0, rows].tolist() == expect["time"], kind_flags
+        assert s.eq_node[0, rows].tolist() == expect["node"], kind_flags
+        assert s.eq_valid[0, rows].tolist() == expect["valid"], kind_flags
+        assert s.eq_payload[0, rows].tolist() == expect["pay"], kind_flags
