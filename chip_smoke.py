@@ -80,7 +80,24 @@ last line):
      against their twins and timed, pop_earliest at the torn replay's
      L = 1 / Q = 64 among them (pop_kernels); card_vs_cpu_models runs
      paxos, etcd and group with their demos too;
- 10. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+ 10. the triage path a found bug takes, and the kv, mq and twopc models:
+     card_vs_cpu_models holds kv and twopc (counter stream) and mq (split
+     chain) with the bug variants DurabilityBugKv, NoDedupBroker and
+     EagerCommitTwoPc, each failing with its code only; `triage` hunts
+     the double-grant etcd demo at 8192 lanes through make_runner with
+     the trace ring (at least 1,024 lanes failing, 8 steps profiled with
+     the ring on and off), holds the first failing lanes' rings against
+     the tails of their replays on the card and those replays against
+     the CPU's, shrinks the first seed on the card and on the CPU (equal
+     results), records the shrunk entry on the card, adds it to a corpus
+     file and checks and audits it on the CPU (and audits one recorded
+     on the CPU on the card), and exports the card's and the CPU's traces
+     byte for byte; `triage_kernels` holds and times the megakernel at
+     the hunt's Q = 96 / W = 10 (8192 lanes and the replays' L = 1) and
+     at the model leg's shapes, and the flush on the hunt's buffers;
+     pop_kernels adds pop_gather at the model leg's batch and
+     pop_earliest at the triage replays' L = 1;
+ 11. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
@@ -215,6 +232,32 @@ STORAGE_LANES = 256
 # run_batch budgets: torn lanes fail LOG_MATCHING from ~200 events in
 TORN_CHECK_STEPS, HASYM_STEPS, SOAK_STEPS = 256, 160, 160
 TORN_REPLAY_STEPS = 150  # the torn replay's state its kernels are timed on: this far in
+# card_vs_cpu_models, new in phase 10: kv, mq and twopc with the three bug
+# variants of tests/test_engine.py, under its plans (Q = 64); kv on the
+# counter stream (the megakernel at W = 7), mq on the split chain
+# (pop_gather at P = 5) and twopc on the counter stream (W = 12 honest,
+# W = 9 eager). Budgets: kv lanes run past 160 events, the durability bug
+# fails from ~45 events in; mq lanes end in 180-330, the no-dedup broker
+# fails by ~50; twopc lanes end in ~105-126, the eager commit fails by ~25
+KV_PLAN = dict(horizon_us=3_000_000, queue_capacity=64)
+KV_FAULTS = dict(n_faults=2, t_max_us=2_000_000, dur_min_us=100_000, dur_max_us=400_000)
+KV_KILL_FAULTS = dict(n_faults=3, allow_partition=False, t_max_us=2_000_000, dur_min_us=50_000, dur_max_us=200_000)
+MQ_PLAN = dict(horizon_us=6_000_000, queue_capacity=64, packet_loss_rate=0.1)
+MQ_FAULTS = dict(n_faults=1, t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=400_000)
+NODEDUP_PLAN = dict(horizon_us=6_000_000, queue_capacity=64, packet_loss_rate=0.3)
+TWOPC_PLAN = dict(horizon_us=5_000_000, queue_capacity=64, packet_loss_rate=0.1)
+TWOPC_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=400_000)
+EAGER_PLAN = dict(horizon_us=5_000_000, queue_capacity=64)
+# phase 10, triage: the double-grant etcd hunt of tests/test_engine_etcd.py:
+# 132-177 on the counter stream (the megakernel at Q = 96, W = 10), with
+# the trace ring, the recorder and buffered coverage; its lanes fail
+# LEASE_SAFETY 16-60 events in, so a budget of 32 events fails ~98% of them
+TRIAGE = dict(horizon_us=8_000_000, queue_capacity=96, rng_stream=3, packet_loss_rate=0.05, trace_ring=32,
+              clog_packed=True, flight_recorder=True, coverage=True)
+TRIAGE_FAULTS = dict(n_faults=2, t_max_us=5_000_000, dur_min_us=200_000, dur_max_us=800_000)
+TRIAGE_STEPS, TRIAGE_MIN_FAILING, POSTMORTEM_LANES = 32, 1024, 8
+TRIAGE_STATE_STEPS = 8  # the hunt's state its kernels are timed and profiled on: this far in (lanes live)
+TRIAGE_DIGEST_EVERY = 4  # the recorded entry's checkpoint cadence (a shrunk entry runs ~20 events)
 STARTED = time.perf_counter()
 
 
@@ -366,9 +409,10 @@ def flat_prefix(r):
 
 def step_kernel_ins(state):
     """A state's megakernel inputs: the queue planes, key and step, and
-    the digest halves."""
+    the digest halves (None, None with the recorder off)."""
+    digest = (state.fr["d0"], state.fr["d1"]) if state.fr else (None, None)
     return ([state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node, state.eq_src,
-             state.eq_payload, state.rng_key, state.step], (state.fr["d0"], state.fr["d1"]))
+             state.eq_payload, state.rng_key, state.step], digest)
 
 
 def time_step_kernel(kernels, dev, state, total_words):
@@ -387,7 +431,7 @@ def time_step_kernel(kernels, dev, state, total_words):
     lanes, q = state.eq_time.shape
     ms = device_time_ms(lambda: kernels.step_megakernel(*ins, total_words, d0=d0, d1=d1))
     plain_ms = wall_time_ms(lambda: kernels.step_prefix_plain(*ins, total_words, d0, d1))
-    return (err, ms, plain_ms, *step_kernel_cost(lanes, q, state.eq_payload.shape[2], total_words),
+    return (err, ms, plain_ms, *step_kernel_cost(lanes, q, state.eq_payload.shape[2], total_words, d0 is not None),
             floor_ms(kernels, "step_megakernel", lanes, dev))
 
 
@@ -417,17 +461,19 @@ def check_step_kernel(kernels, g, dev, state, total_words):
     return time_step_kernel(kernels, dev, state, total_words)
 
 
-def step_kernel_cost(lanes, q, p, total_words):
+def step_kernel_cost(lanes, q, p, total_words, digest=True):
     """(bytes, operations) of the megakernel's work at one shape. Bytes:
     the time, seq and valid planes whole; one 32-byte sector for each
     gathered field (kind, node, src, the payload row); key, step and
     digest in; idx, any, the tuple, payload, words and digest out.
     Operations: per Threefry pair 20 rounds of 3 + 5 injections of 3, per
-    digest word ~11; the argmin ~3 compares a slot per stage."""
-    bytes_in = lanes * (q * (4 + 4 + 1) + 4 * 32 + 8 + 4 + 8)
-    bytes_out = lanes * (4 + 1 + 4 * 4 + 4 * p + 4 * total_words + 8)
+    digest word ~11; the argmin ~3 compares a slot per stage. Without
+    the digest (the recorder off) its bytes and operations drop out."""
+    d = 1 if digest else 0
+    bytes_in = lanes * (q * (4 + 4 + 1) + 4 * 32 + 8 + 4 + 8 * d)
+    bytes_out = lanes * (4 + 1 + 4 * 4 + 4 * p + 4 * total_words + 8 * d)
     half = (total_words + 1) // 2
-    ops = lanes * (half * (20 * 3 + 5 * 3 + 2) + (4 + p + total_words) * 11 + 9 * q)
+    ops = lanes * (half * (20 * 3 + 5 * 3 + 2) + d * (4 + p + total_words) * 11 + 9 * q)
     return bytes_in + bytes_out, ops
 
 
@@ -443,19 +489,20 @@ def pop_planes(state, gather=True):
     return planes + [state.eq_kind, state.eq_node, state.eq_src, state.eq_payload] if gather else planes
 
 
-def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_states, palette_states, torn_state):
+def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_states, palette_states, torn_state,
+                      models_state, triage_replay_state):
     """The pop + gather and pop kernels against their twins on the main
     paths' inputs (a split-chain flagship batch, the mvcc hunt's batch at
-    Q = 48, P = 5, the palette's v2 batch at Q = 96, and single lanes: the
-    replay's at Q = 32, the mvcc and gossip corpus replays' at Q = 48 and
-    256, the dup-vote demo's and hunt's replays at Q = 96, the torn
-    hunt's replay at Q = 64) and on edge
+    Q = 48, P = 5, the palette's v2 batch at Q = 96, the model leg's mq
+    batch at Q = 64, and single lanes: the replay's at Q = 32, the mvcc
+    and gossip corpus replays' at Q = 48 and 256, the dup-vote demo's and
+    hunt's replays at Q = 96, the torn hunt's replay at Q = 64, the
+    triage replays' at Q = 96) and on edge
     shapes: 8191 lanes of Q = 96 with empty lanes, one lane, Q = 40 and
     Q = 256, and the lane-group edge shapes. Times pop + gather at the
-    flagship batch, the hunt's batch, the palette's batch and the
-    replays' L = 1, and the pop at L = 1 on the four replays (where its
-    launches run) and at the batch, and at L = 1 / Q = 64 on the torn
-    replay."""
+    flagship batch, the hunt's batch, the palette's batch, the model
+    leg's batch and the replays' L = 1, and the pop at L = 1 on the
+    replays (where its launches run) and at the batch."""
     import torch
 
     main = pop_planes(state)
@@ -466,7 +513,8 @@ def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_s
     cases = [("flagship-v2", main), ("replay-L1", pop_planes(replay_state)), ("mvcc-hunt", hunt),
              ("mvcc-replay-L1", mvcc_l1), ("gossip-replay-L1", gossip_l1), ("palette-v2", palette_v2),
              ("dupvote-replay-L1", dupvote_l1), ("palette-replay-L1", palette_l1),
-             ("torn-replay-L1", pop_planes(torn_state))]
+             ("torn-replay-L1", pop_planes(torn_state)), ("models-v2", pop_planes(models_state)),
+             ("triage-replay-L1", pop_planes(triage_replay_state))]
     shapes = [(8191, 96, 6, False), (1, 32, 6, False), (13, 40, 4, False), (64, 256, 6, False)]
     shapes += [(lanes, q, p, mis) for lanes, q, p, _, mis in EDGE_SHAPES]
     for lanes, q, p, mis in shapes:
@@ -517,6 +565,8 @@ def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_s
         "pop_gather_L1_Q96": timed("pop_gather", dupvote_l1),
         "pop_earliest_L1_Q96": timed("pop_earliest", palette_l1),
         "pop_earliest_L1_Q64": timed("pop_earliest", pop_planes(torn_state)),
+        "pop_gather_models_v2": timed("pop_gather", pop_planes(models_state)),
+        "pop_earliest_L1_Q96_triage": timed("pop_earliest", pop_planes(triage_replay_state)),
     }
 
 
@@ -866,39 +916,7 @@ def delay_and_model_phases(torch, np, kernels, dev):
             "launches": launches, "words": w, kernel: {"max_abs_err": err, **timing}}
     emit({"phase": "card_vs_cpu_delay", **out})
 
-    # card_vs_cpu_models: each model and its corpus demo; a demo must fail
-    #   with its code on the CPU on some seed
-    out = {}
-    for name, base, faults, model_seeds, steps, code in (
-        ("etcd-mvcc", MVCC, MVCC_DELAY_FAULTS, range(MODEL_LANES), MVCC_STEPS, None),
-        ("demo-giveup-mvcc", MVCC, MVCC_DELAY_FAULTS, range(64), MVCC_STEPS, ABANDONED_WRITE),
-        ("s3", MVCC, S3_FAULTS, range(MODEL_LANES), S3_STEPS, None),
-        ("demo-abortleak-s3", MVCC, S3_FAULTS, range(64), S3_STEPS, 212),
-        ("gossip", GOSSIP, GOSSIP_FAULTS, range(GOSSIP_LANES), GOSSIP_STEPS, None),
-        ("demo-dupack-gossip", GOSSIP, DUPACK_FAULTS, DUPACK_SEEDS, DUPACK_STEPS, 160),
-        ("paxos", PAXOS_PLAN, PAXOS_FAULTS, range(64), 600, None),
-        ("demo-nopromise-paxos", PAXOS_PLAN, NOPROMISE_FAULTS, range(128), 64, 140),
-        ("etcd", ETCD_PLAN, ETCD_FAULTS, range(64), 320, None),
-        ("demo-doublegrant-etcd", DOUBLEGRANT_PLAN, DOUBLEGRANT_FAULTS, range(100, 164), 200, 120),
-        ("group", GROUP_PLAN, GROUP_FAULTS, range(64), 256, None),
-        ("demo-nofencing-group", NOFENCING_PLAN, NOFENCING_FAULTS, range(500, 564), 160, 131),
-    ):
-        cfg = EngineConfig(**base, faults=FaultPlan(**faults))
-        machine = build_machine(name)
-        kernels.reset_launches()
-        res, t_card, t_cpu = card_vs_cpu(lambda d: Engine(machine, cfg, device=d),
-                                         np.array(model_seeds, dtype=np.uint32), steps, name)
-        launches = dict(kernels.launches)
-        if launches["pop_gather"] <= 0:
-            fail(f"{name} on the card never launched pop_gather")
-        codes = Counter(int(c) for c, f in zip(res["fail_code"], res["failed"]) if f)
-        if code is not None and not codes[code]:
-            fail(f"{name}: no seed failed with code {code} ({dict(codes)})")
-        out[name] = {"lanes": len(model_seeds), "q": base["queue_capacity"], "equal": True,
-                     "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3), "max_steps": int(res["steps"].max()),
-                     "n_done": int(res["done"].sum()), "fail_codes": dict(codes),
-                     "pop_gather": launches["pop_gather"]}
-    emit({"phase": "card_vs_cpu_models", **out})
+    model_states = card_vs_cpu_models(torch, np, kernels)
 
     # stream_mvcc: the give-up hunt at full width, through the entry points
     machine = build_machine("demo-giveup-mvcc")
@@ -941,7 +959,89 @@ def delay_and_model_phases(torch, np, kernels, dev):
           "replay": {"seed": first, "fail_code": on_card.fail_code, "events": len(on_card.trace),
                      "pop_earliest": pops, "card_s": round(t_replay, 3), "equal": True},
           "profile": profile_steps(eng, state, steps=8)})
-    return launches, state
+    return launches, state, model_states
+
+
+def card_vs_cpu_models(torch, np, kernels):
+    """card_vs_cpu_models: run_batch of each model and its corpus demo or
+    bug variant on the card against the CPU. Returns the states the model
+    leg's prefix kernels are timed on: the counter-stream models' (with
+    their word blocks and launches) and mq's on the split chain."""
+    from collections import Counter
+
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import KvMachine, MqMachine, TwoPcMachine, build_machine
+    from madsim_tpu_torch.models.etcd_mvcc import ABANDONED_WRITE
+    from madsim_tpu_torch.models.kv import STALE_READ
+    from madsim_tpu_torch.models.mq import DUP_OR_GAP
+    from madsim_tpu_torch.models.twopc import ATOMICITY
+
+    # a demo must fail with its code on some seed. The bug variants of
+    # tests/test_engine.py are subclasses, as there, in no registry
+    class DurabilityBugKv(KvMachine):
+        def restart_if(self, nodes, i, cond, rng_key):
+            return self._wipe_node_if(nodes, i, cond, rng_key)  # the server's store too
+
+    class NoDedupBroker(MqMachine):
+        def _accepts(self, nodes, producer, seq):
+            return torch.ones_like(seq, dtype=torch.bool)  # retried duplicates append
+
+    class EagerCommitTwoPc(TwoPcMachine):
+        def _all_votes_in(self, votes_recv):
+            return votes_recv != 0  # decide at the first vote
+
+    bugs = {"DurabilityBugKv": DurabilityBugKv(4), "NoDedupBroker": NoDedupBroker(4),
+            "EagerCommitTwoPc": EagerCommitTwoPc(4)}
+    out, model_states = {}, {"v3": [], "v2": None}
+    lanes = range(MODEL_LANES)
+    for name, base, faults, model_seeds, steps, code in (
+        ("kv", {**KV_PLAN, "rng_stream": 3}, KV_FAULTS, lanes, 160, None),
+        ("DurabilityBugKv", {**KV_PLAN, "rng_stream": 3}, KV_KILL_FAULTS, lanes, 160, STALE_READ),
+        ("mq", MQ_PLAN, MQ_FAULTS, lanes, 256, None),
+        ("NoDedupBroker", NODEDUP_PLAN, {}, lanes, 64, DUP_OR_GAP),
+        ("twopc", {**TWOPC_PLAN, "rng_stream": 3}, TWOPC_FAULTS, lanes, 128, None),
+        ("EagerCommitTwoPc", {**EAGER_PLAN, "rng_stream": 3}, {}, lanes, 48, ATOMICITY),
+        ("etcd-mvcc", MVCC, MVCC_DELAY_FAULTS, range(MODEL_LANES), MVCC_STEPS, None),
+        ("demo-giveup-mvcc", MVCC, MVCC_DELAY_FAULTS, range(64), MVCC_STEPS, ABANDONED_WRITE),
+        ("s3", MVCC, S3_FAULTS, range(MODEL_LANES), S3_STEPS, None),
+        ("demo-abortleak-s3", MVCC, S3_FAULTS, range(64), S3_STEPS, 212),
+        ("gossip", GOSSIP, GOSSIP_FAULTS, range(GOSSIP_LANES), GOSSIP_STEPS, None),
+        ("demo-dupack-gossip", GOSSIP, DUPACK_FAULTS, DUPACK_SEEDS, DUPACK_STEPS, 160),
+        ("paxos", PAXOS_PLAN, PAXOS_FAULTS, range(64), 600, None),
+        ("demo-nopromise-paxos", PAXOS_PLAN, NOPROMISE_FAULTS, range(128), 64, 140),
+        ("etcd", ETCD_PLAN, ETCD_FAULTS, range(64), 320, None),
+        ("demo-doublegrant-etcd", DOUBLEGRANT_PLAN, DOUBLEGRANT_FAULTS, range(100, 164), 200, 120),
+        ("group", GROUP_PLAN, GROUP_FAULTS, range(64), 256, None),
+        ("demo-nofencing-group", NOFENCING_PLAN, NOFENCING_FAULTS, range(500, 564), 160, 131),
+    ):
+        cfg = EngineConfig(**base, faults=FaultPlan(**faults))
+        machine = bugs[name] if name in bugs else build_machine(name)
+        kernel = "step_megakernel" if cfg.rng_stream == 3 else "pop_gather"
+        kernels.reset_launches()
+        res, t_card, t_cpu = card_vs_cpu(lambda d: Engine(machine, cfg, device=d),
+                                         np.array(model_seeds, dtype=np.uint32), steps, name)
+        launches = dict(kernels.launches)
+        if launches[kernel] <= 0:
+            fail(f"{name} on the card never launched {kernel}")
+        codes = Counter(int(c) for c, f in zip(res["fail_code"], res["failed"]) if f)
+        # kv, mq and twopc run clean, their bugs fail with their code only
+        strict = name in bugs or name in ("kv", "mq", "twopc")
+        if (code is not None and not codes[code]) or (strict and set(codes) != ({code} if code else set())):
+            fail(f"{name}: no seed failed with code {code}, or another code came up ({dict(codes)})")
+        out[name] = {"lanes": len(model_seeds), "q": base["queue_capacity"], "rng_stream": cfg.rng_stream,
+                     "equal": True, "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3),
+                     "max_steps": int(res["steps"].max()), "n_done": int(res["done"].sum()),
+                     "fail_codes": dict(codes), kernel: launches[kernel]}
+        if name in ("kv", "mq", "twopc"):
+            # the state its prefix kernel is held and timed on, a third of its budget in
+            card = Engine(machine, cfg)
+            state = card.run_segment(card.init_batch(np.array(model_seeds, dtype=np.uint32)), steps // 3)
+            if kernel == "pop_gather":
+                model_states["v2"] = (state, launches[kernel])
+            else:
+                model_states["v3"].append((name, state, card._rng_layout.total_words, launches[kernel]))
+    emit({"phase": "card_vs_cpu_models", **out})
+    return model_states
 
 
 def coverage_bands(res, band_bits):
@@ -1232,35 +1332,228 @@ def storage_phases(torch, np, kernels):
     return found
 
 
+def triage_engine(device=None):
+    """The triage hunt's engine: demo-doublegrant-etcd with the trace ring."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import build_machine
+
+    return Engine(build_machine("demo-doublegrant-etcd"), EngineConfig(**TRIAGE, faults=FaultPlan(**TRIAGE_FAULTS)),
+                  device=device)
+
+
+def trace_keys(events):
+    return [(e.step, e.time_us, e.kind, e.node, e.src, e.payload) for e in events]
+
+
+def triage_phase(torch, np, kernels, eng):
+    """Phase 10: what a user does with a found bug, on the card. The hunt
+    (make_runner at 8192 lanes, TRIAGE_STEPS events, with 8 steps profiled
+    with the ring on and off), the post-mortem (the first failing lanes'
+    rings against the tails of their replays on the card, those replays
+    against the CPU's), the shrink of the first failing seed on the card
+    and on the CPU, the shrunk entry recorded on the card, added to a
+    corpus file and checked and audited on the CPU (and one recorded on
+    the CPU audited on the card), and the exports of the card's and the
+    CPU's traces, byte for byte. Returns what `triage_kernels` and
+    `pop_kernels` time: the hunt's state and launches, a replay's state
+    and the post-mortem's launches."""
+    import dataclasses
+    import tempfile
+    from collections import Counter
+
+    from madsim_tpu_torch.engine import Engine, audit, corpus, trace_export
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.engine.shrink import shrink
+    from madsim_tpu_torch.models import build_machine
+    from madsim_tpu_torch.models.etcd import LEASE_SAFETY
+
+    cpu = triage_engine("cpu")
+    seeds = np.arange(LANES, dtype=np.uint32)
+
+    # 1. the hunt, through the entry points: make_runner, failing_seeds
+    run = eng.make_runner(max_steps=TRIAGE_STEPS)
+    run(seeds[:256])  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run(seeds)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    hunt_launches = dict(kernels.launches)
+    for name in ("step_megakernel", "cov_flush"):
+        if hunt_launches[name] <= 0:
+            fail(f"the triage hunt never launched {name}")
+    failing = eng.failing_seeds(res).tolist()
+    by_code = Counter(res.fail_code[res.failed].tolist())
+    if len(failing) < TRIAGE_MIN_FAILING or set(by_code) != {LEASE_SAFETY}:
+        fail(f"the triage hunt failed {len(failing)} lanes by code {dict(by_code)}: not >= {TRIAGE_MIN_FAILING} "
+             f"LEASE_SAFETY alone")
+    ring_bytes = sum(v.numel() * v.element_size() for v in res.ring.values())
+    # the ring's price: 8 steps of the same batch with the ring on and off
+    state = eng.run_segment(eng.init_batch(seeds), TRIAGE_STATE_STEPS)
+    no_ring = Engine(eng.machine, dataclasses.replace(eng.config, trace_ring=0))
+    profiles = {"ring_on": profile_steps(eng, state, steps=8),
+                "ring_off": profile_steps(no_ring, no_ring.run_segment(no_ring.init_batch(seeds), TRIAGE_STATE_STEPS),
+                                          steps=8)}
+    hunt = {"lanes": LANES, "max_steps": TRIAGE_STEPS, "seconds": round(elapsed, 3),
+            "ms_per_step": round(elapsed * 1e3 / TRIAGE_STEPS, 3), "n_failing": len(failing),
+            "failing_by_code": dict(by_code), "ring_bytes": ring_bytes, "launches": hunt_launches, **profiles}
+
+    # 2. the post-mortem: the first failing lanes' rings are the tails of
+    #    their replays on the card, and those replays are the CPU's
+    lanes = np.nonzero(res.failed.cpu().numpy())[0][:POSTMORTEM_LANES].tolist()
+    kernels.reset_launches()
+    t_card = t_cpu = 0.0
+    traces = {}
+    for lane in lanes:
+        seed = int(res.seeds[lane])
+        ring = eng.ring_trace(res, lane)
+        t0 = time.perf_counter()
+        on_card = replay(eng, seed, max_steps=TRIAGE_STEPS)
+        t_card += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = replay(cpu, seed, max_steps=TRIAGE_STEPS)
+        t_cpu += time.perf_counter() - t0
+        if not ring or trace_keys(ring) != trace_keys(on_card.trace[-len(ring):]):
+            fail(f"triage lane {lane} (seed {seed}): its ring differs from the tail of its replay on the card")
+        if on_card.trace != on_cpu.trace or {on_card.fail_code, on_cpu.fail_code} != {LEASE_SAFETY}:
+            fail(f"triage seed {seed}: the card's replay ({on_card.fail_code}) differs from the CPU's "
+                 f"({on_cpu.fail_code})")
+        traces[seed] = (on_card.trace, on_cpu.trace)
+    postmortem_launches = dict(kernels.launches)
+    if min(postmortem_launches["pop_earliest"], postmortem_launches["step_megakernel"]) <= 0:
+        fail(f"the post-mortem replays on the card launched {postmortem_launches}")
+    postmortem = {"lanes": lanes, "events": [len(t[0]) for t in traces.values()], "equal": True,
+                  "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3), "launches": postmortem_launches}
+
+    # 3. the shrink of the first failing seed, on the card and on the CPU
+    seed = int(res.seeds[lanes[0]])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sr = shrink(eng, seed, max_steps=TRIAGE_STEPS)
+    t_card = time.perf_counter() - t0
+    shrink_launches = dict(kernels.launches)
+    t0 = time.perf_counter()
+    sr_cpu = shrink(cpu, seed, max_steps=TRIAGE_STEPS)
+    t_cpu = time.perf_counter() - t0
+    fields = ("steps", "fail_time_us", "attempts", "kinds_removed")
+    if corpus.config_to_dict(sr.shrunk) != corpus.config_to_dict(sr_cpu.shrunk) or \
+            any(getattr(sr, f) != getattr(sr_cpu, f) for f in fields) or sr.fail_code != LEASE_SAFETY:
+        fail(f"the shrink of seed {seed} on the card ({sr.summary()}) differs from the CPU's ({sr_cpu.summary()})")
+    shrunk = {"seed": seed, "summary": sr.summary(), "replays": sr.attempts, "card_s": round(t_card, 3),
+              "cpu_s": round(t_cpu, 3), "equal": True, "launches": shrink_launches}
+
+    # 4. the corpus: recorded on the card, added, checked and audited on the
+    #    CPU; recorded on the CPU, audited on the card
+    entry = corpus.CorpusEntry(machine="demo-doublegrant-etcd", seed=seed, fail_code=sr.fail_code, status="open",
+                               config=sr.shrunk, max_steps=sr.steps, note="the triage phase's shrunk find")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    card_entry, trail = audit.record_entry(entry, build_machine, every=TRIAGE_DIGEST_EVERY)
+    t_record = time.perf_counter() - t0
+    corpus_launches = kernels.launches["step_megakernel"]
+    cpu_entry, _ = audit.record_entry(entry, build_machine, every=TRIAGE_DIGEST_EVERY, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        card_file, cpu_file = f"{tmp}/card.json", f"{tmp}/cpu.json"
+        if not corpus.add(card_file, card_entry) or corpus.add(card_file, card_entry):
+            fail("corpus.add did not add the entry once and refuse it the second time")
+        (from_card,) = corpus.load(card_file)
+        check = corpus.check(from_card, build_machine, device="cpu")
+        on_cpu = audit.audit_entry(from_card, build_machine, device="cpu")
+        corpus.add(cpu_file, cpu_entry)
+        (from_cpu,) = corpus.load(cpu_file)
+        before = kernels.launches["step_megakernel"]
+        on_card = audit.audit_entry(from_cpu, build_machine)
+        corpus_launches += kernels.launches["step_megakernel"] - before
+    if not check.verdict.startswith("still open") or on_cpu.status != "match" or on_card.status != "match" or \
+            card_entry.digests != cpu_entry.digests or card_entry.digest_final != cpu_entry.digest_final:
+        fail(f"the recorded entry: check '{check.verdict}', audits {on_cpu.status} (CPU) / {on_card.status} (card)")
+    corpus_line = {"checkpoints": len(card_entry.digests), "digest_final": card_entry.digest_final,
+                   "check": check.verdict, "audit_cpu": on_cpu.status, "audit_card": on_card.status,
+                   "record_card_s": round(t_record, 3), "step_megakernel": corpus_launches, "meta": card_entry.meta}
+
+    # 5. the exports of the card's and the CPU's traces, byte for byte
+    seed, (card_trace, cpu_trace) = next(iter(traces.items()))
+    sizes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, write in (("perfetto", trace_export.write_perfetto), ("jsonl", trace_export.write_jsonl)):
+            blobs = []
+            for who, trace in (("card", card_trace), ("cpu", cpu_trace)):
+                path = f"{tmp}/{who}.{name}"
+                write(path, trace, machine="demo-doublegrant-etcd", seed=seed)
+                blobs.append(pathlib.Path(path).read_bytes())
+            if blobs[0] != blobs[1]:
+                fail(f"the {name} export of seed {seed}'s card trace differs from the CPU's")
+            sizes[name] = len(blobs[0])
+    emit({"phase": "triage", "hunt": hunt, "postmortem": postmortem, "shrink": shrunk, "corpus": corpus_line,
+          "export": {"seed": seed, "bytes": sizes, "equal": True}})
+    for _ in range(eng._cov_flush_every):
+        state = eng.step_batch(state)  # a flush period of entries in the buffers
+    shrunk_eng = Engine(eng.machine, dataclasses.replace(sr.shrunk, trace_ring=0, flight_recorder=True,
+                                                         fr_digest_every=TRIAGE_DIGEST_EVERY))
+    return {"hunt_state": state, "hunt_launches": hunt_launches, "words": eng._rng_layout.total_words,
+            "replay_state": eng.run_segment(eng.init_batch([seed]), TRIAGE_STATE_STEPS),
+            "replay_launches": postmortem_launches,
+            # the corpus replays' shape: the shrunk config's lane, the recorder on
+            "entry_state": shrunk_eng.run_segment(shrunk_eng.init_batch([seed]), TRIAGE_STATE_STEPS),
+            "entry_words": shrunk_eng._rng_layout.total_words, "entry_launches": corpus_launches}
+
+
+def triage_kernels(kernels, dev, found, model_states):
+    """Each new shape of phase 10, held and timed where it runs: the
+    megakernel at the triage hunt's 8192 lanes, Q = 96, W = 10, its
+    replays' L = 1, the recorded entry's L = 1 (the shrunk config's
+    narrower word block), and at the model leg's counter-stream shapes
+    (256 lanes, Q = 64); the flush on the hunt's buffers. pop_gather at the
+    model leg's split chain and pop_earliest at the replays' L = 1 are in
+    `pop_kernels`."""
+    time_kernel_shapes(kernels, dev, "triage_kernels", (
+        ("step_megakernel_triage", found["hunt_state"], found["words"], found["hunt_launches"]["step_megakernel"]),
+        ("step_megakernel_L1_Q96_W10", found["replay_state"], found["words"],
+         found["replay_launches"]["step_megakernel"]),
+        (f"step_megakernel_L1_Q96_W{found['entry_words']}", found["entry_state"], found["entry_words"],
+         found["entry_launches"]),
+        *((f"step_megakernel_{name}", state, words, n) for name, state, words, n in model_states["v3"]),
+    ), (("cov_flush_triage", found["hunt_state"].cov, found["hunt_launches"]["cov_flush"]),))
+
+
+def time_kernel_shapes(kernels, dev, phase, steps, flushes):
+    """Each megakernel shape (name, state, words, launches) and each
+    flush (name, the coverage leaves, launches) against its twin on the
+    state of the path that launches it, then timed there with its floor
+    and bound; one `phase` line."""
+    out = {}
+    for name, state, words, n in steps:
+        err, ms, plain, nbytes, ops, floor = time_step_kernel(kernels, dev, state, words)
+        out[name] = {"lanes": state.eq_time.shape[0], "q": state.eq_time.shape[1], "words": words,
+                     "digest": bool(state.fr), "ms": ms, "plain_ms": plain, "floor_ms": floor, "bytes": nbytes,
+                     "ops": ops, "launches": n, "max_abs_err": err}
+    for name, cov, n in flushes:
+        err, ms, plain, nbytes, ops, live, sectors, floor = time_cov_flush(kernels, dev, cov)
+        out[name] = {"lanes": cov["buf"].shape[0], "ms": ms, "plain_ms": plain, "floor_ms": floor,
+                     "bytes": nbytes, "ops": ops, "live_entries": live, "live_sectors": sectors, "launches": n,
+                     "max_abs_err": err}
+    for k in out.values():
+        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
+        k["launches_x_excess_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
+    emit({"phase": phase, **out})
+
+
 def storage_kernels(kernels, dev, found, palette_states):
-    """Each new megakernel and flush shape of phases 8-9 against its twin
-    on the state of the path that launches it, then timed there with its
-    floor and bound: the megakernel at the torn hunt's W = 11 / Q = 64
+    """Each new megakernel and flush shape of phases 8-9, held and timed
+    where it runs: the megakernel at the torn hunt's W = 11 / Q = 64
     (8192 lanes) and its replay's L = 1, the soak's W = 31 / Q = 96 (256
     lanes) and the palette hunt replay's L = 1 / Q = 96; the flush on the
     torn hunt's buffers. The torn replay's pop_earliest is held and timed
     in `pop_kernels`."""
-    out = {}
-    for name, state, words, n in (
+    time_kernel_shapes(kernels, dev, "storage_kernels", (
         ("step_megakernel_torn", found["hunt_state"], found["hunt_words"], found["hunt_launches"]["step_megakernel"]),
         ("step_megakernel_L1_Q64", found["replay_state"], found["hunt_words"],
          found["replay_launches"]["step_megakernel"]),
         ("step_megakernel_soak", found["soak_state"], found["soak_words"], found["soak_launches"]),
         ("step_megakernel_L1_Q96", palette_states["palette_replay"], palette_states["palette_words"],
          palette_states["palette_replay_launches"]),
-    ):
-        err, ms, plain, nbytes, ops, floor = time_step_kernel(kernels, dev, state, words)
-        out[name] = {"lanes": state.eq_time.shape[0], "q": state.eq_time.shape[1], "words": words, "ms": ms,
-                     "plain_ms": plain, "floor_ms": floor, "bytes": nbytes, "ops": ops, "launches": n,
-                     "max_abs_err": err}
-    err, ms, plain, nbytes, ops, live, sectors, floor = time_cov_flush(kernels, dev, found["hunt_state"].cov)
-    out["cov_flush_torn"] = {"lanes": LANES, "ms": ms, "plain_ms": plain, "floor_ms": floor, "bytes": nbytes,
-                             "ops": ops, "live_entries": live, "live_sectors": sectors,
-                             "launches": found["hunt_launches"]["cov_flush"], "max_abs_err": err}
-    for k in out.values():
-        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
-        k["launches_x_excess_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
-    emit({"phase": "storage_kernels", **out})
+    ), (("cov_flush_torn", found["hunt_state"].cov, found["hunt_launches"]["cov_flush"]),))
 
 
 def time_in_turns(kernels, designs, fn):
@@ -1317,6 +1610,9 @@ def main(argv=None):
     from madsim_tpu_torch.models import RaftMachine
     from madsim_tpu_torch.models.raft import LOG_MATCHING
     from madsim_tpu_torch.ops import build, kernels
+
+    # the triage phase's engine, built before any phase runs
+    triage_eng = triage_engine()
 
     # 1. device
     started = time.perf_counter()
@@ -1469,7 +1765,7 @@ def main(argv=None):
         torch, np, kernels)
 
     # 7. the delay-spike kind and the MVCC, S3 and gossip models
-    _, hunt_state = delay_and_model_phases(torch, np, kernels, dev)
+    _, hunt_state, model_states = delay_and_model_phases(torch, np, kernels, dev)
 
     # 8. the chaos palette: pause, skew, dup and strict restarts
     _, palette_states = palette_phases(torch, np, kernels)
@@ -1477,9 +1773,17 @@ def main(argv=None):
     # 9. the storage kinds and the models raft-compact, paxos, etcd and group
     storage = storage_phases(torch, np, kernels)
     storage_kernels(kernels, dev, storage, palette_states)
+
+    # 10. the triage path: the double-grant hunt, its post-mortem, shrink,
+    #     corpus entry and export
+    triage = triage_phase(torch, np, kernels, triage_eng)
+    triage_kernels(kernels, dev, triage, model_states)
+    models_v2_state, models_v2_launches = model_states["v2"]
     pops = check_pop_kernels(kernels, g, dev, v2_state, replay_state, hunt_state, corpus_states, palette_states,
-                             storage["replay_state"])
+                             storage["replay_state"], models_v2_state, triage["replay_state"])
     pops["pop_earliest_L1_Q64"]["launches"] = storage["replay_launches"]["pop_earliest"]
+    pops["pop_gather_models_v2"]["launches"] = models_v2_launches
+    pops["pop_earliest_L1_Q96_triage"]["launches"] = triage["replay_launches"]["pop_earliest"]
     for name, k in pops.items():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
     emit({"phase": "pop_kernels", "max_abs_err": max(k["err"] for k in pops.values()),

@@ -7,8 +7,10 @@ of one (machine, config, seed) agree on a checkpoint exactly as far as
 their event streams agree, and once apart they stay apart, so the first
 divergent checkpoint, found by bisection, puts a determinism break in
 one `fr_digest_every`-step segment. Corpus entries carry the trail they
-were recorded with (`CorpusEntry.digests`, `digest_final`); `audit_entry`
-replays an entry with the recorder on and bisects against it.
+were recorded with (`CorpusEntry.digests`, `digest_final`, and the
+environment `engine_meta` in `meta`); `record_entry` records them, and
+`audit_entry` replays an entry with the recorder on and bisects against
+them.
 """
 
 from __future__ import annotations
@@ -164,6 +166,27 @@ def first_divergence(
     return None
 
 
+def engine_meta(config) -> dict:
+    """The environment a digest trail was recorded under, kept beside it:
+    when an audit later reports a divergence, this says what the trail
+    was recorded with. `digest` names the trail format, which the JAX
+    package shares."""
+    import platform
+
+    import torch
+
+    import madsim_tpu_torch
+
+    return {
+        "madsim_tpu_torch": getattr(madsim_tpu_torch, "__version__", "?"),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "python": platform.python_version(),
+        "rng_stream": config.rng_stream,
+        "digest": "fr-v1",
+    }
+
+
 @dataclasses.dataclass
 class AuditOutcome:
     entry: object  # CorpusEntry
@@ -198,3 +221,18 @@ def audit_entry(entry, build_machine: Callable[[str, int], object], device=None)
             f"digest trail matches ({len(entry.digests)} checkpoints); {behavior}",
         )
     return AuditOutcome(entry, "diverged", div, trail, f"{div}; {behavior}")
+
+
+def record_entry(entry, build_machine: Callable[[str, int], object], every: int = DEFAULT_DIGEST_EVERY, device=None):
+    """Record one corpus entry's digest trail and environment. Returns
+    (updated entry, trail); the trail carries the outcome (failed,
+    fail_code), so a caller can check the entry's status contract before
+    saving. The entry's `meta` is merged into, not replaced: keys a
+    caller filed survive, and the environment wins on a collision.
+    `device` as `Engine`'s."""
+    eng = Engine(build_machine(entry.machine, entry.nodes), entry.config, device=device)
+    trail = collect_trail(eng, entry.seed, entry.max_steps, every=every)
+    digests, final = trail.to_lists()
+    new = dataclasses.replace(entry, digest_every=every, digests=digests, digest_final=final,
+                              meta={**entry.meta, **engine_meta(entry.config)})
+    return new, trail

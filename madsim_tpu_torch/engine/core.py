@@ -26,6 +26,9 @@ machine's `durable_spec` calls volatile, torn restarts damage durable
 leaves as its `torn_spec` allows, and an asymmetric partition heals its
 two directions at two times.
 
+With `trace_ring > 0` each lane also keeps its last R popped events on
+the device, for a post-mortem with no replay (`Engine.ring_trace`).
+
 Configurations outside this slice raise NotImplementedError naming the
 gate; nothing is silently ignored. The entry points run under
 `torch.inference_mode()`: the engine is integer code with no gradients,
@@ -305,7 +308,7 @@ class LaneState:
     eq_prov: torch.Tensor  # [L, 0]
     fail_prov: torch.Tensor  # [L, 0]
     nodes: Any
-    ring: Any  # {} (trace ring off)
+    ring: Any  # the trace ring: step, time, kind, node, src [L, R], payload [L, R, P] ({} when off)
     fr: Any  # flight recorder: digest, checkpoint ring, metrics ({} when off)
     cov: Any  # coverage: {"map", "buf", "buf_n"} ({} when off)
 
@@ -351,8 +354,8 @@ def _unported(gate: str) -> NotImplementedError:
     return NotImplementedError(
         f"{gate} is not ported to madsim_tpu_torch yet (the port runs both "
         f"RNG streams, packed clogs, every fault kind, packet loss, "
-        f"duplication, strict restarts, and the flight recorder and "
-        f"buffered coverage on or off)"
+        f"duplication, strict restarts, the trace ring, and the flight "
+        f"recorder and buffered coverage on or off)"
     )
 
 
@@ -482,7 +485,6 @@ class Engine:
             raise ValueError(f"rng_stream={cfg.rng_stream!r} unknown; supported: {RNG_STREAM_VERSIONS}")
         gates = [
             ("clog_packed=False", not cfg.clog_packed),
-            ("trace_ring>0", cfg.trace_ring > 0),
             ("provenance", cfg.provenance),
             ("cov_buffer=0", cfg.cov_buffer == 0),
             ("compile_cache_dir (a JAX compile cache)", cfg.compile_cache_dir is not None),
@@ -631,7 +633,7 @@ class Engine:
             eq_prov=empty,
             fail_prov=empty,
             nodes=nodes,
-            ring={},
+            ring=self._empty_ring(lanes),
             fr=self._empty_fr(eq_valid),
             cov=self._empty_cov(lanes),
         )
@@ -662,6 +664,23 @@ class Engine:
             "q_hwm": zero,
             "clog_hwm": zero,
             "kill_hwm": zero,
+        }
+
+    def _empty_ring(self, lanes: int):
+        """The on-device trace ring of the last `trace_ring` popped events
+        (step -1 marks an unused slot); {} with the ring off."""
+        r = self.config.trace_ring
+        if not r:
+            return {}
+        i32 = {"dtype": torch.int32, "device": self.device}
+        zero = torch.zeros((lanes, r), **i32)
+        return {
+            "step": torch.full((lanes, r), -1, **i32),
+            "time": zero,
+            "kind": zero,
+            "node": zero,
+            "src": zero,
+            "payload": torch.zeros((lanes, r, self.machine.PAYLOAD_WIDTH), **i32),
         }
 
     def _empty_cov(self, lanes: int):
@@ -714,6 +733,21 @@ class Engine:
             defer = process & (ev_kind != EV_FAULT) & node_alive & (node_resume_us > new_now)
             popped_slot = popped_slot & ~defer[:, None]
         eq_valid = s.eq_valid & ~popped_slot
+
+        # the on-device trace ring: every popped event, processed or not
+        # (the replay trace's condition), at slot step % R. It takes the
+        # gathered time: a pause deferral rewrites only the queue slot.
+        ring = s.ring
+        if cfg.trace_ring:
+            at = (torch.arange(cfg.trace_ring, device=dev) == (s.step % cfg.trace_ring)[:, None]) & live[:, None]
+            ring = {
+                "step": torch.where(at, s.step[:, None], ring["step"]),
+                "time": torch.where(at, ev_time[:, None], ring["time"]),
+                "kind": torch.where(at, ev_kind[:, None], ring["kind"]),
+                "node": torch.where(at, ev_node[:, None], ring["node"]),
+                "src": torch.where(at, ev_src[:, None], ring["src"]),
+                "payload": torch.where(at[:, :, None], payload[:, None, :], ring["payload"]),
+            }
         rand_u32 = words[:, : layout.handler_words]
         rng_key = s.rng_key
         if layout.version == RNG_STREAM_LEGACY:
@@ -931,7 +965,7 @@ class Engine:
             eq_prov=s.eq_prov,
             fail_prov=s.fail_prov,
             nodes=nodes,
-            ring=s.ring,
+            ring=ring,
             fr=fr,
             cov=cov,
         )
@@ -1317,6 +1351,74 @@ class Engine:
             )
 
         return run
+
+    # -- triage: what a user does with a found bug ---------------------------
+
+    def make_runner(self, max_steps: int = 10_000, mesh=None):
+        """A `seeds -> BatchResult` callable over `run_batch`."""
+        if mesh is not None:
+            raise _unported("make_runner(mesh=...)")
+
+        def run(seeds):
+            return self.run_batch(seeds, max_steps=max_steps)
+
+        return run
+
+    @staticmethod
+    def failing_seeds(result: BatchResult) -> torch.Tensor:
+        """The failing lanes' seeds, as uint32 values (int64)."""
+        return u32.from_i32(result.seeds[result.failed])
+
+    def ring_trace(self, result: BatchResult, lane: int):
+        """Lane `lane`'s on-device event ring as TraceEvents, oldest first
+        (its last `config.trace_ring` popped events): a post-mortem with
+        no replay. Needs `trace_ring > 0`."""
+        from .replay import decode_ring
+
+        if not self.config.trace_ring:
+            raise ValueError("engine built with trace_ring=0: no ring recorded")
+        return decode_ring({k: v[lane] for k, v in result.ring.items()})
+
+    def digest_checkpoints(self, result: BatchResult, lane: int):
+        """Lane `lane`'s digest checkpoint ring as (step, d0, d1) tuples,
+        oldest first. Needs `flight_recorder=True`."""
+        from .audit import decode_checkpoint_ring
+
+        if not self.config.flight_recorder:
+            raise ValueError("engine built with flight_recorder=False: no digests recorded")
+        return decode_checkpoint_ring({k: v[lane] for k, v in result.fr.items()})
+
+    def check_determinism(self, seeds, max_steps: int = 10_000) -> BatchResult:
+        """Run the batch twice and require equal results leaf by leaf:
+        the engine's counterpart of `Runtime.check_determinism`
+        (madsim/src/sim/runtime/mod.rs:178-203). It catches a machine
+        that smuggles host state (a Python counter, a host RNG) into its
+        handlers. Raises NonDeterminism naming the leaves that differ."""
+        from ..errors import NonDeterminism
+
+        r1 = self.run_batch(seeds, max_steps=max_steps)
+        r2 = self.run_batch(seeds, max_steps=max_steps)
+        mismatches = [path for (path, a), (_, b) in zip(_leaves(r1), _leaves(r2))
+                      if a.shape != b.shape or not bool((a == b).all())]
+        if mismatches:
+            raise NonDeterminism(
+                f"the engine gave different results for identical seed batches; "
+                f"diverging leaves: {mismatches}"
+            )
+        return r1
+
+
+def _leaves(tree, path=""):
+    """(path, tensor) of every leaf of a result tree, the path written as
+    `jax.tree_util.keystr` writes it (`.field`, `['key']`)."""
+    if dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name), f"{path}.{f.name}")
+    elif isinstance(tree, dict):
+        for k, v in sorted(tree.items()):
+            yield from _leaves(v, f"{path}[{k!r}]")
+    else:
+        yield path, tree
 
 
 def _push_all(eq, next_seq, pushes):

@@ -99,6 +99,15 @@ def _slot(n: int, slot: int, cond: torch.Tensor) -> torch.Tensor:
     return (torch.arange(n, device=cond.device) == slot)[None, :] & cond[:, None]
 
 
+def _always(outbox: Outbox) -> torch.Tensor:
+    return torch.ones(outbox.msg_dst.shape[0], dtype=torch.bool, device=outbox.msg_dst.device)
+
+
+def send(outbox: Outbox, slot: int, dst, payload) -> Outbox:
+    """Set message slot `slot` of every lane."""
+    return send_if(outbox, slot, _always(outbox), dst, payload)
+
+
 def send_if(outbox: Outbox, slot: int, cond, dst, payload) -> Outbox:
     """Where `cond` [L], set message slot `slot` to (dst [L], payload [L, P])."""
     m = _slot(outbox.msg_dst.shape[1], slot, cond)
@@ -125,6 +134,11 @@ def send_all_if(outbox: Outbox, cond, dst, payload) -> Outbox:
         msg_payload=torch.where(m[:, :, None], payload.to(torch.int32), outbox.msg_payload),
         msg_valid=outbox.msg_valid | m,
     )
+
+
+def set_timer(outbox: Outbox, slot: int, delay_us, timer_id) -> Outbox:
+    """Arm timer slot `slot` of every lane."""
+    return set_timer_if(outbox, slot, _always(outbox), delay_us, timer_id)
 
 
 def set_timer_if(outbox: Outbox, slot: int, cond, delay_us, timer_id) -> Outbox:

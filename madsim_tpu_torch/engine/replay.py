@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from ..ops.kernels import pop_earliest_batch
@@ -99,6 +100,22 @@ def replay_diff(
     else:
         print(f"seeds {seed_a} and {seed_b} produced identical {la}-event traces")
     return None
+
+
+def decode_ring(lane_ring) -> List[TraceEvent]:
+    """One lane's on-device event ring (`Engine.ring_trace`; leaves [R]
+    and payload [R, P]) as TraceEvents, oldest first. Slots with step < 0
+    are unused."""
+    cols = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in lane_ring.items()}
+    step = cols["step"]
+    order = np.argsort(step, kind="stable")
+    order = order[step[order] >= 0]
+    return [
+        TraceEvent(step=int(step[i]), time_us=int(cols["time"][i]), kind=_KIND_NAMES.get(int(cols["kind"][i]), "?"),
+                   node=int(cols["node"][i]), src=int(cols["src"][i]),
+                   payload=tuple(int(x) for x in cols["payload"][i]))
+        for i in order
+    ]
 
 
 def _frozen(state: LaneState) -> torch.Tensor:

@@ -18,6 +18,27 @@ FAULT_KIND_NAMES = (
 # Non-scheduled chaos channels (flight-recorder extra counters).
 FR_EXTRA_NAMES = ("dup", "amnesia")
 
+# kind name -> FaultPlan field, in K_* index order.
+KIND_TO_FLAG = (
+    ("pair", "allow_partition"),
+    ("kill", "allow_kill"),
+    ("dir", "allow_dir_clog"),
+    ("group", "allow_group"),
+    ("storm", "allow_storm"),
+    ("delay", "allow_delay"),
+    ("pause", "allow_pause"),
+    ("skew", "allow_skew"),
+    ("torn", "allow_torn"),
+    ("heal-asym", "allow_heal_asym"),
+)
+
+# The two chaos gates that are FaultPlan flags but not scheduled kinds
+# (shrink ablates them too).
+EXTRA_FLAGS = (
+    ("dup", "allow_dup"),
+    ("strict-restart", "strict_restart"),
+)
+
 # Coverage band names: bands 0/1 are the event classes, bands 2..7 the
 # first six scheduled kinds; the 4-bit layout appends the rest.
 COV_BAND_NAMES = ("timer", "msg", "pair", "kill", "dir", "group", "storm", "delay")
@@ -25,3 +46,6 @@ COV_BAND_NAMES_V2 = COV_BAND_NAMES + (
     "pause", "skew", "dup", "amnesia",
     "torn", "heal_asym", "reserved14", "reserved15",
 )
+
+FLAG_BY_KIND = dict(KIND_TO_FLAG + EXTRA_FLAGS)
+KIND_BY_FLAG = {field: name for name, field in KIND_TO_FLAG + EXTRA_FLAGS}

@@ -6,19 +6,23 @@ from .etcd import EtcdMachine, EtcdState
 from .etcd_mvcc import EtcdMvccMachine, MvccState, NoDedupMvcc, PrematureGiveupMvcc
 from .gossip import DupAckGossip, GossipMachine, GossipState
 from .kafka_group import GroupState, KafkaGroupMachine, NoFencingGroupMachine
+from .kv import KvMachine, KvState
+from .mq import MqMachine, MqState
 from .multipaxos import MultiPaxosMachine, MultiPaxosState, NoPromiseCheckMultiPaxos
 from .paxos import NoPromiseCheckPaxos, PaxosMachine, PaxosState
 from .raft import RaftMachine, RaftState
 from .raft_compact import RaftCompactMachine, RaftCompactState, TornSnapshotRaftCompact
 from .s3 import AbortLeakS3, ArrivalOrderS3, EarlyExpiryS3, NoDedupS3, S3Machine, S3State, TombstoneLeakS3
+from .twopc import TwoPcMachine, TwoPcState
 
 __all__ = [
     "AbortLeakS3", "ArrivalOrderS3", "DoubleGrantEtcd", "DupAckGossip", "EarlyExpiryS3", "EchoMachine",
     "EchoState", "EtcdMachine", "EtcdMvccMachine", "EtcdState", "GossipMachine", "GossipState", "GroupState",
-    "KafkaGroupMachine", "MultiPaxosMachine", "MultiPaxosState", "MvccState", "NoDedupMvcc", "NoDedupS3",
-    "NoFencingGroupMachine", "NoPromiseCheckMultiPaxos", "NoPromiseCheckPaxos", "PaxosMachine", "PaxosState",
-    "PrematureGiveupMvcc", "RaftCompactMachine", "RaftCompactState", "RaftMachine", "RaftState", "S3Machine",
-    "S3State", "TombstoneLeakS3", "TornSnapshotRaftCompact", "build_machine",
+    "KafkaGroupMachine", "KvMachine", "KvState", "MqMachine", "MqState", "MultiPaxosMachine", "MultiPaxosState",
+    "MvccState", "NoDedupMvcc", "NoDedupS3", "NoFencingGroupMachine", "NoPromiseCheckMultiPaxos",
+    "NoPromiseCheckPaxos", "PaxosMachine", "PaxosState", "PrematureGiveupMvcc", "RaftCompactMachine",
+    "RaftCompactState", "RaftMachine", "RaftState", "S3Machine", "S3State", "TombstoneLeakS3",
+    "TornSnapshotRaftCompact", "TwoPcMachine", "TwoPcState", "build_machine",
 ]
 
 
@@ -45,6 +49,9 @@ class DupVoteRaft(RaftMachine):
 _MACHINES = {
     "echo": lambda n: EchoMachine(rounds=10),
     "raft": lambda n: RaftMachine(num_nodes=n or 5, log_capacity=8),
+    "kv": lambda n: KvMachine(num_nodes=n or 4),
+    "mq": lambda n: MqMachine(num_nodes=n or 4),
+    "twopc": lambda n: TwoPcMachine(num_nodes=n or 4),
     "demo-overcommit-raft": lambda n: OvercommitRaft(num_nodes=n or 5, log_capacity=8),
     "demo-quorumoffbyone-raft": lambda n: QuorumOffByOneRaft(num_nodes=n or 5, log_capacity=8),
     "demo-volatilecommit-raft": lambda n: VolatileCommitRaft(num_nodes=n or 5, log_capacity=8),
@@ -75,12 +82,8 @@ _MACHINES = {
 
 def build_machine(name: str, nodes: int = 0):
     """The machine of a registry name (the names of the reference's CLI
-    registry), with `nodes` nodes, or the machine's default when 0.
-    Names the reference knows but the port has no model for raise
-    NotImplementedError."""
+    registry, every one of them), with `nodes` nodes, or the machine's
+    default when 0. An unknown name raises ValueError naming it."""
     if name not in _MACHINES:
-        raise NotImplementedError(
-            f"machine {name!r} is not ported to madsim_tpu_torch yet; the port has "
-            f"{sorted(_MACHINES)}"
-        )
+        raise ValueError(f"unknown machine {name!r}; choose from {sorted(_MACHINES)}")
     return _MACHINES[name](nodes)

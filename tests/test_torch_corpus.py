@@ -2,8 +2,8 @@
 entry (five demo-nopromise-multipaxos, demo-giveup-mvcc under delay
 spikes, the 33-node demo-dupack-gossip and demo-abortleak-s3, all
 recorded on the default v2 stream) reproduces its fail code and its
-recorded digest trail on the port; a machine the port lacks raises
-NotImplementedError naming it, never skips."""
+recorded digest trail on the port; a machine neither registry knows
+raises naming it, never skips."""
 
 import dataclasses
 import pathlib
@@ -37,10 +37,17 @@ def test_entry_reproduces_with_its_digest_trail(entry):
 
 
 def test_unported_machine_raises_naming_it():
-    entry = dataclasses.replace(ENTRIES[0], machine="kv")
-    with pytest.raises(NotImplementedError, match="'kv'"):
+    """Every name of the reference's registry is ported, so the entry
+    names a machine neither registry knows: the check and the audit
+    raise naming it, never skip."""
+    from madsim_tpu.__main__ import build_machine as jax_build
+
+    entry = dataclasses.replace(ENTRIES[0], machine="demo-nosuch-raft")
+    with pytest.raises(SystemExit, match="'demo-nosuch-raft'"):
+        jax_build(entry.machine)
+    with pytest.raises(ValueError, match="unknown machine 'demo-nosuch-raft'"):
         corpus.check(entry, build_machine, device="cpu")
-    with pytest.raises(NotImplementedError, match="'kv'"):
+    with pytest.raises(ValueError, match="unknown machine 'demo-nosuch-raft'"):
         audit.audit_entry(entry, build_machine, device="cpu")
 
 

@@ -52,7 +52,8 @@ def flagship():
 
 
 def test_kinds_tables_match_the_reference():
-    for name in ("FAULT_KIND_NAMES", "FR_EXTRA_NAMES", "COV_BAND_NAMES", "COV_BAND_NAMES_V2"):
+    for name in ("FAULT_KIND_NAMES", "FR_EXTRA_NAMES", "COV_BAND_NAMES", "COV_BAND_NAMES_V2", "KIND_TO_FLAG",
+                 "EXTRA_FLAGS", "FLAG_BY_KIND", "KIND_BY_FLAG"):
         assert getattr(kinds, name) == getattr(jax_kinds, name), name
 
 
@@ -138,7 +139,6 @@ def test_overcommit_bug_found_on_the_same_seeds(overcommit_streams):
 # them) run in test_torch_gates.py
 GATES = [
     ("clog_packed=False", dict(clog_packed=False)),
-    ("trace_ring>0", dict(trace_ring=16)),
     ("provenance", dict(provenance=True)),
     ("cov_buffer=0", dict(cov_buffer=0)),
     ("compile_cache_dir", dict(compile_cache_dir="cache")),

@@ -1,7 +1,7 @@
 """The configuration gates the port has lifted, each held against the
 JAX package: `run_batch` of the flagship hunt with one override (the
 split-chain stream, packet loss, the recorder or coverage off, the step
-megakernel off, the dir, group, storm, delay, pause, skew, torn and
+megakernel off, the on-device trace ring, the dir, group, storm, delay, pause, skew, torn and
 heal-asym fault kinds, message duplication and strict restarts) must give the reference's whole
 `BatchResult`. The ids are the gates' names, as
 `test_unported_gates_raise` named them while they were closed. Then the
@@ -28,6 +28,7 @@ LIFTED = [
     ("coverage=False", dict(coverage=False)),
     ("flight_recorder=False", dict(flight_recorder=False)),
     ("pallas_megakernel=False", dict(pallas_megakernel=False)),
+    ("trace_ring>0", dict(trace_ring=16)),
     ("strict_restart", dict(faults={**FLAGSHIP_FAULTS, "strict_restart": True})),
 ] + [
     (f"FaultPlan.{flag}", dict(faults={**FLAGSHIP_FAULTS, flag: True}))

@@ -22,7 +22,7 @@ from madsim_tpu.models import kafka_group as jax_group
 from madsim_tpu.models import paxos as jax_paxos
 from madsim_tpu_torch.models import build_machine, echo, etcd, kafka_group, paxos
 
-from torch_port_util import check_handlers, check_hooks, engines, jax_snapshots, same, torch_nodes
+from torch_port_util import check_handlers, check_hooks, check_projection, engines, jax_snapshots, same, torch_nodes
 
 PAXOS = dict(horizon_us=8_000_000, queue_capacity=96)
 PAXOS_FAULTS = dict(n_faults=2, t_max_us=4_000_000, dur_min_us=200_000, dur_max_us=800_000)
@@ -90,7 +90,7 @@ def test_paxos_hooks_match_jax(paxos_snapshots):
     bad.bad[0::4, 0] = True  # AGREEMENT
     bad.decided[1::4, :2] = True  # both proposers decided
     check_hooks(jax_m, port_m, [np_nodes, bad], now)
-    _check_projection(jax_m, port_m, [s for s, _ in paxos_snapshots] + [bad], now)
+    check_projection(jax_m, port_m, [s for s, _ in paxos_snapshots] + [bad], now)
     _, code = port_m.invariant(torch_nodes(port_m.state_type, bad), torch.from_numpy(now.copy()))
     assert paxos.AGREEMENT in code.tolist()
 
@@ -143,7 +143,7 @@ def test_etcd_hooks_match_jax(etcd_snapshots):
     bad.cl_leader[1::4, 2], bad.cl_deadline[1::4, 2] = True, now[1::4] + 10  # a believer the server disowns
     bad.srv_gen[2::4, 0], bad.cl_writes[2::4, 1] = 3, 6  # done
     check_hooks(jax_m, port_m, [np_nodes, bad], now)
-    _check_projection(jax_m, port_m, [s for s, _ in etcd_snapshots] + [bad], now)
+    check_projection(jax_m, port_m, [s for s, _ in etcd_snapshots] + [bad], now)
     _, code = port_m.invariant(torch_nodes(port_m.state_type, bad), torch.from_numpy(now.copy()))
     assert etcd.LEASE_SAFETY in code.tolist()
 
@@ -203,14 +203,6 @@ def test_group_hooks_match_jax(group_snapshots):
     check_hooks(jax_m, port_m, [np_nodes, bad], now)
     _, code = port_m.invariant(torch_nodes(port_m.state_type, bad), torch.from_numpy(now.copy()))
     assert {kafka_group.LOST_RECORD, kafka_group.COMMIT_REGRESS} <= set(code.tolist())
-
-
-def _check_projection(jax_m, port_m, states, now):
-    proj = jax.jit(jax.vmap(jax_m.coverage_projection))
-    t_now = torch.from_numpy(now.copy())
-    for k, s in enumerate(states):
-        got = port_m.coverage_projection(torch_nodes(port_m.state_type, s), t_now)
-        assert np.array_equal(got.numpy(), np.asarray(proj(s, now))), k
 
 
 # -- run_batch -----------------------------------------------------------------

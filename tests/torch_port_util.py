@@ -140,3 +140,15 @@ def check_hooks(jax_m, port_m, states, now, seed=0):
         same(restart(s, node, cond, keys),
              port_m.restart_node_if(t_nodes, torch.from_numpy(node), torch.from_numpy(cond),
                                     torch.from_numpy(keys.astype(np.int64))), ("restart", k))
+
+
+def check_projection(jax_m, port_m, states, now):
+    """The port's `coverage_projection` against the reference's, vmapped,
+    on each node state of `states`."""
+    import jax
+
+    proj = jax.jit(jax.vmap(jax_m.coverage_projection))
+    t_now = torch.from_numpy(now.copy())
+    for k, s in enumerate(states):
+        got = port_m.coverage_projection(torch_nodes(port_m.state_type, s), t_now)
+        assert np.array_equal(got.numpy(), np.asarray(proj(s, now))), k
