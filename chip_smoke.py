@@ -27,8 +27,10 @@ last line):
      short stream, must fail the same lanes with the same codes, digest
      trails and fail ring on both;
   5. flagship stream: the MadRaft-5 hunt at 8192 lanes through
-     make_stream_runner(batch=8192, segment_steps=384), one warm run
-     and one timed run of 2*8192 seeds, with each kernel's launch count
+     make_stream_runner(batch=8192, segment_steps=384, pipelined=False)
+     (the per-segment executor in every stream phase, so their seeds/s
+     read as before), one timed run of 2*8192 seeds after the 96-step
+     state run that warms the batch, with each kernel's launch count
      from the timed run (it must be > 0); failing seeds found on the
      card are re-run on the CPU and must fail with the same code;
   6. the default split-chain stream (rng_stream=2), whose step prefix is
@@ -39,8 +41,10 @@ last line):
      replay of seed 66531 (replay_66531: OvercommitRaft fails
      LOG_MATCHING, RaftMachine passes, trace and state equal to the
      CPU's), which pops with the pop kernel; all eight entries of
-     corpus.json (corpus: codes 150 x5, 206, 160, 212 and the recorded
-     digest trails, the pop kernel launched); and the 8192-lane flagship
+     corpus.json (corpus: codes 150 x5, 206, 160, 212; the traced
+     replays of the non-multi-Paxos entries against the CPU; each
+     entry's code and digest trail on the card in phase 11's `regress`
+     and `audit`); and the 8192-lane flagship
      stream under rng_stream=2 (stream_v2);
   7. the delay-spike kind and the etcd-MVCC, S3 and gossip models:
      run_batch of 256 flagship seeds with delay faults on both streams
@@ -97,7 +101,25 @@ last line):
      at the model leg's shapes, and the flush on the hunt's buffers;
      pop_kernels adds pop_gather at the model leg's batch and
      pop_earliest at the triage replays' L = 1;
- 11. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+ 11. the command line, `python -m madsim_tpu_torch`, in subprocesses on
+     the card (`cli`): a `hunt --stream` of 2 x 8192 lanes (the
+     flagship's shape, rng_stream 3, strict restarts, on the
+     volatile-commit Raft demo) finds, shrinks and records, with
+     `--coverage-out` and `--checkpoint`, while `regress` and `audit` of
+     a copy of corpus.json (all eight entries), `check` of 256 seeds and a
+     64-lane explore on the card and the CPU (equal stdout) run beside
+     it; its first four finds replay on the CPU engine to the same codes;
+     `regress` and `audit` of the found corpus on the card and with
+     `--device cpu`, `replay`, `replay --diff-seed`, `trace --perfetto
+     --jsonl` (message flows), `shrink` and `coverage` run on what it
+     wrote; `explore --stream` of the flagship at 2 x 8192 lanes,
+     pipelined and with `--no-pipeline` side by side, prints the same
+     lines, with each one's seeds/s, host syncs, dispatches, and the
+     segments issued (megakernel launches over 384) against those
+     executed; `cli_kernels` holds and times the megakernel at the
+     replays' L = 1, `check`'s 256 lanes and the small explore's 64, and
+     the flush at 64 lanes;
+ 12. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
@@ -112,7 +134,8 @@ Each path's launch counts are set to 0 just before it runs and read
 just after; a kernel of the path that never launched fails the run.
 
 It needs a CUDA card and the repository beside it; with neither it
-exits non-zero and prints no result.
+exits non-zero and prints no result. `--only cli` builds the kernels and
+runs phase 11 alone (a short check; it prints no result line).
 """
 
 import argparse
@@ -697,7 +720,7 @@ def split_chain_phases(torch, np, kernels):
     seed 66531 REPLAY_STATE_STEPS events in, where the pop is timed, and
     the mvcc and gossip corpus replays' states (CORPUS_STATE_STEPS)."""
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
-    from madsim_tpu_torch.engine import audit, corpus
+    from madsim_tpu_torch.engine import corpus
     from madsim_tpu_torch.engine.replay import replay
     from madsim_tpu_torch.interop import tree_to_numpy
     from madsim_tpu_torch.models import MultiPaxosMachine, RaftMachine, build_machine
@@ -757,29 +780,17 @@ def split_chain_phases(torch, np, kernels):
     rp_eng = Engine(build_machine("raft"), rp_cfg)
     replay_state = rp_eng.run_segment(rp_eng.init_batch([REPLAY_SEED]), REPLAY_STATE_STEPS)
 
-    # corpus: every entry, with its code and digest trail, replayed on the
-    #   card (multi-Paxos, the MVCC give-up under delay spikes, 33-node
-    #   gossip at Q = 256, the S3 abort leak); then the single-lane states
-    #   pop_earliest is timed at, Q = 48 and 256
+    # corpus: the traced replay a user prints of each entry but the
+    #   multi-Paxos ones, on the card against the CPU; then the
+    #   single-lane states pop_earliest is timed at, Q = 48 and 256. Every
+    #   entry's code and digest trail on the card: the `cli` phase's
+    #   `regress` and `audit` of corpus.json.
     entries = corpus.load(str(pathlib.Path(__file__).resolve().parent / "corpus.json"))
-    kernels.reset_launches()
     t0 = time.perf_counter()
-    found = []
-    for entry in entries:
-        out = corpus.check(entry, build_machine)
-        trail = audit.audit_entry(entry, build_machine).trail
-        digests, final = trail.to_lists()
-        if not (out.ok and out.fail_code == entry.fail_code) or digests != entry.digests \
-                or final != entry.digest_final:
-            fail(f"corpus entry {entry.machine} seed {entry.seed}: {out.verdict}; trail {digests} {final} vs "
-                 f"{entry.digests} {entry.digest_final}")
-        found.append([entry.machine, entry.seed, out.fail_code, final[0], entry.config.queue_capacity])
-    corpus_launches = dict(kernels.launches)
+    found = [[e.machine, e.seed, e.fail_code, e.digest_final[0], e.config.queue_capacity] for e in entries]
     if len(found) != 8 or sorted({f[2] for f in found}) != [AGREEMENT_MULTI, 160, 206, 212]:
         fail(f"corpus.json holds {len(found)} entries with codes {sorted({f[2] for f in found})}, not the 8 "
              f"with codes 150, 160, 206 and 212")
-    if corpus_launches["pop_gather"] <= 0:
-        fail("the corpus replays never launched pop_gather")
     # the traced replay a user prints of each new entry (pop_earliest at
     # Q = 48 and 256), equal to the CPU's
     kernels.reset_launches()
@@ -800,8 +811,7 @@ def split_chain_phases(torch, np, kernels):
     trace_launches = dict(kernels.launches)
     if trace_launches["pop_earliest"] <= 0:
         fail("the corpus's traced replays never launched pop_earliest")
-    emit({"phase": "corpus", "entries": found, "digest_trails_equal": True,
-          "seconds": round(time.perf_counter() - t0, 3), "launches": corpus_launches,
+    emit({"phase": "corpus", "entries": found, "seconds": round(time.perf_counter() - t0, 3),
           "traced": traced, "traces_equal": True, "traced_launches": trace_launches})
     corpus_states = {}
     for entry in entries:
@@ -813,8 +823,8 @@ def split_chain_phases(torch, np, kernels):
     # stream_v2: the flagship hunt on the split-chain stream
     eng = v2(True)
     state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
-    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
-    run(1)  # warm: one segment
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS, pipelined=False)
+    # no warm stream run: the state run above warmed the batch's shapes
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -923,8 +933,8 @@ def delay_and_model_phases(torch, np, kernels, dev):
     cfg = EngineConfig(**MVCC_HUNT, faults=FaultPlan(**MVCC_HUNT_FAULTS))
     eng = Engine(machine, cfg)
     state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 24)
-    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
-    run(1)  # warm: one segment
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS, pipelined=False)
+    # no warm stream run: the state run above warmed the batch's shapes
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1155,8 +1165,8 @@ def palette_phases(torch, np, kernels):
     eng = palette_hunt_engine()
     machine = eng.machine
     state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
-    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
-    run(1)  # warm: one segment
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS, pipelined=False)
+    # no warm stream run: the state run above warmed the batch's shapes
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1284,8 +1294,8 @@ def storage_phases(torch, np, kernels):
     # stream_torn: the torn-snapshot hunt at full width, through the entry points
     eng = torn_hunt_engine()
     state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
-    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
-    run(1)  # warm: one segment
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS, pipelined=False)
+    # no warm stream run: the state run above warmed the batch's shapes
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1594,12 +1604,277 @@ def ptxas_line(build, libs):
     return report
 
 
+# phase 11, the command line: `python -m madsim_tpu_torch` in
+# subprocesses on the card. The hunt is the flagship's shape under the
+# command line's own plan (100-800 ms faults) with strict restarts, on
+# the volatile-commit Raft demo, whose bug this shape finds in ~11% of
+# seeds (the port on the CPU: 31 of the first 279 seeds, all 102).
+CLI_LANES = 8192
+CLI_SHAPE = ["--rng-stream", "3", "--queue", "32", "--horizon", "5", "--faults", "2", "--fault-tmax", "3000000"]
+CLI_HUNT = ["--machine", "demo-volatilecommit-raft", "--strict-restart", *CLI_SHAPE]
+CLI_EXPLORE = ["explore", "--stream", "--machine", "raft", "--seeds", str(2 * CLI_LANES), "--batch",
+               str(CLI_LANES), *CLI_SHAPE, "--flight-recorder", "--coverage", "--log-level", "INFO"]
+CLI_SMALL = ["explore", "--stream", "--machine", "raft", "--seeds", "64", "--batch", "64", "--max-steps", "768",
+             *CLI_SHAPE, "--flight-recorder", "--coverage"]
+CLI_JOBS = 6  # commands run at once where nothing is timed (8 host cores)
+# runs the module as `python -m` does, then writes to the path given
+# first the wrappers' launch counts of that process and the executor
+# statistics of each of its run_stream calls
+CLI_LAUNCHER = (
+    "import atexit, json, runpy, sys\n"
+    "out = sys.argv.pop(1)\n"
+    "from madsim_tpu_torch.engine.core import Engine\n"
+    "from madsim_tpu_torch.ops import kernels\n"
+    "streams, run_stream = [], Engine.run_stream\n"
+    "def counted(self, *args, **kwargs):\n"
+    "    res = run_stream(self, *args, **kwargs)\n"
+    "    streams.append({k: v for k, v in res['stats'].items() if isinstance(v, (bool, int))})\n"
+    "    return res\n"
+    "Engine.run_stream = counted\n"
+    "atexit.register(lambda: json.dump({'launches': kernels.launches, 'streams': streams}, open(out, 'w')))\n"
+    "sys.argv[0] = 'madsim_tpu_torch'\n"
+    "runpy.run_module('madsim_tpu_torch', run_name='__main__', alter_sys=True)\n"
+)
+
+
+def run_cli(tmp, name, argv, rc=0, cpu_threads=None, timeout=900):
+    """One `python -m madsim_tpu_torch` run in a subprocess, in `tmp`:
+    {"rc", "out", "err", "s", "launches", "streams"}; fails unless it
+    exits `rc`."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(pathlib.Path(__file__).resolve().parent))
+    if cpu_threads:
+        env["OMP_NUM_THREADS"] = str(cpu_threads)
+    counts = pathlib.Path(tmp) / f"{name}.launches.json"
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", CLI_LAUNCHER, str(counts), *argv], cwd=tmp, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    res = {"rc": done.returncode, "out": done.stdout, "err": done.stderr, "s": round(time.perf_counter() - t0, 3),
+           **(json.loads(counts.read_text()) if counts.exists() else {"launches": {}, "streams": []})}
+    if done.returncode != rc:
+        fail(f"cli {name}: `{' '.join(argv)}` exited {done.returncode}, expected {rc}:\n"
+             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    return res
+
+
+def run_cli_jobs(tmp, jobs):
+    """Several run_cli jobs at once: {name: result}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(CLI_JOBS) as pool:
+        futures = {name: pool.submit(run_cli, tmp, name, *job) for name, job in jobs.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def cli_wall_free(out):
+    """A command line's stdout with its wall-clock figures masked."""
+    import re
+
+    return re.sub(r" in \d+\.\ds \(\d+ seeds/s\)", " in <wall>", out)
+
+
+def cli_rates(err):
+    """Seconds and seeds/s of each streamed batch, from the heartbeat log
+    lines (`--log-level INFO`), and the warm-up's seconds."""
+    import re
+
+    batches = [(float(s), int(r)) for s, r in re.findall(r"batch \d+/\d+: \d+ seeds in ([0-9.]+)s \((\d+) seeds/s\)", err)]
+    warm = re.findall(r"warm-up run_stream\(1, batch=\d+\): ([0-9.]+)s", err)
+    return {"batch_s": [b[0] for b in batches], "batch_seeds_per_s": [b[1] for b in batches],
+            "warm_s": float(warm[0]) if warm else None}
+
+
+def cli_phase(torch, np):
+    """Phase 11: the command line as a user runs it, in subprocesses on
+    the card (`cli` line), in three stages. (1) A full-width `hunt
+    --stream` (2 x 8192 lanes, rng_stream 3) finds, shrinks and records,
+    while the commands that need nothing of it run beside it: `regress`
+    and `audit` of a copy of corpus.json, `check`, and the 64-lane
+    explore on the card and on the CPU (equal stdout). (2) On what the
+    hunt wrote, at once: its first four failing seeds replay on the CPU
+    engine to the same codes; `regress` and `audit` of the found corpus
+    on the card and with `--device cpu`; `replay`, `replay --diff-seed`,
+    `trace --perfetto --jsonl` (message flows), `shrink` and `coverage`.
+    (3) `explore --stream` of the flagship at 2 x 8192 lanes, pipelined
+    and with `--no-pipeline`, the two at once and nothing else beside
+    them, so both see the same host: the same lines, and each one's
+    seeds/s, host syncs and steps issued."""
+    import re
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+
+    with tempfile.TemporaryDirectory(prefix="madsim_cli_") as tmp:
+        files = {k: str(pathlib.Path(tmp) / f) for k, f in (
+            ("corpus", "found.json"), ("ckpt", "hunt.ckpt.json"), ("cov", "hunt.cov.json"),
+            ("perfetto", "trace.json"), ("jsonl", "trace.jsonl"), ("repo_corpus", "corpus.json"))}
+        shutil.copy(pathlib.Path(__file__).resolve().parent / "corpus.json", files["repo_corpus"])
+
+        # 1. the hunt, and beside it what needs nothing of it
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            hunt_job = pool.submit(run_cli, tmp, "hunt", [
+                "hunt", "--stream", *CLI_HUNT, "--seeds", str(2 * CLI_LANES), "--batch", str(CLI_LANES),
+                "--flight-recorder", "--coverage", "--coverage-out", files["cov"], "--checkpoint", files["ckpt"],
+                "--corpus", files["corpus"], "--log-level", "INFO"], 1)
+            res = run_cli_jobs(tmp, {  # name: (argv, exit code, CPU threads)
+                "corpus_regress": (["regress", "--corpus", files["repo_corpus"]], 0),
+                "corpus_audit": (["audit", "--corpus", files["repo_corpus"]], 0),
+                "check": (["check", *CLI_HUNT, "--seeds", "256", "--max-steps", "384"], 0),
+                "small_card": (CLI_SMALL, 0),
+                "small_cpu": ([*CLI_SMALL, "--device", "cpu"], 0, 2),
+            })
+            hunt = hunt_job.result()
+        stage1_s = round(time.perf_counter() - t0, 3)
+        m = re.search(r"hunted (\d+) seeds: (\d+) failing", hunt["out"])
+        added = re.search(r"(\d+) new entries in", hunt["out"])
+        if not m or not added or int(added.group(1)) < 1 or "+ corpus: " not in hunt["out"]:
+            fail(f"cli hunt found, shrank or recorded nothing:\n{hunt['out']}")
+        for name in ("step_megakernel", "cov_flush"):
+            if hunt["launches"].get(name, 0) <= 0:
+                fail(f"cli hunt never launched {name}: {hunt['launches']}")
+        ckpt = json.loads(pathlib.Path(files["ckpt"]).read_text())
+        failing = [tuple(x) for x in ckpt["failing"]]
+        if not ckpt["done"] or len(failing) != int(m.group(2)):
+            fail(f"cli hunt's checkpoint: done={ckpt['done']}, {len(failing)} failing, printed {m.group(2)}")
+        seed, code = failing[0]
+        for name in ("corpus_regress", "corpus_audit"):
+            if "8/8 entries satisfied" not in res[name]["out"]:
+                fail(f"cli {name} of corpus.json:\n{res[name]['out']}")
+        if "determinism check passed for 256 seeds" not in res["check"]["out"]:
+            fail(f"cli check:\n{res['check']['out']}")
+        if cli_wall_free(res["small_card"]["out"]) != cli_wall_free(res["small_cpu"]["out"]):
+            fail(f"cli 64-lane explore: the card and the CPU differ:\n{res['small_card']['out']}\n"
+                 f"{res['small_cpu']['out']}")
+
+        # 2. on what the hunt wrote
+        one = [*CLI_HUNT, "--seed", str(seed)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            jobs = pool.submit(run_cli_jobs, tmp, {
+                "regress": (["regress", "--corpus", files["corpus"]], 0),
+                "audit": (["audit", "--corpus", files["corpus"]], 0),
+                "regress_cpu": (["regress", "--corpus", files["corpus"], "--device", "cpu"], 0, 2),
+                "audit_cpu": (["audit", "--corpus", files["corpus"], "--device", "cpu"], 0, 2),
+                "replay": (["replay", *one, "--tail", "5"], 1),
+                "replay_diff": (["replay", *one, "--diff-seed", str(seed + 1)], 0),
+                "trace": (["trace", *one, "--perfetto", files["perfetto"], "--jsonl", files["jsonl"]], 1),
+                "shrink": (["shrink", *one], 0),
+                "coverage": (["coverage", files["cov"]], 0),
+            })
+            # the first four finds on the CPU engine, meanwhile
+            cpu_eng = _build_engine(_parser().parse_args(["explore", *CLI_HUNT, "--device", "cpu"]))
+            threads = torch.get_num_threads()
+            torch.set_num_threads(2)
+            replay = cpu_eng.run_batch(np.array([s for s, _ in failing[:4]], dtype=np.uint32), 3000)
+            torch.set_num_threads(threads)
+            res.update(jobs.result())
+        stage2_s = round(time.perf_counter() - t0, 3)
+        codes = [int(c) if f else 0 for f, c in zip(replay.failed.tolist(), replay.fail_code.tolist())]
+        if codes != [c for _, c in failing[:4]]:
+            fail(f"cli hunt's finds {failing[:4]} replayed on the CPU with codes {codes}")
+        n_found = len(json.loads(pathlib.Path(files["corpus"]).read_text())["entries"])
+        for name in ("regress", "audit", "regress_cpu", "audit_cpu"):
+            if f"{n_found}/{n_found} entries satisfied" not in res[name]["out"]:
+                fail(f"cli {name} of the found corpus:\n{res[name]['out']}")
+        if f"seed {seed}: FAILED (code {code})" not in res["replay"]["out"]:
+            fail(f"cli replay of seed {seed}:\n{res['replay']['out']}")
+        if not re.search(r"diverge|identical|prefix-match", res["replay_diff"]["out"]):
+            fail(f"cli replay --diff-seed:\n{res['replay_diff']['out']}")
+        flows = re.search(r"wrote (\d+) events \((\d+) message flows\)", res["trace"]["out"])
+        if not flows or int(flows.group(2)) < 1 or not pathlib.Path(files["jsonl"]).exists():
+            fail(f"cli trace:\n{res['trace']['out']}")
+        if f"seed {seed} fails with code {code}" not in res["shrink"]["out"] or "minimal repro:" not in \
+                res["shrink"]["out"]:
+            fail(f"cli shrink:\n{res['shrink']['out']}")
+        if "demo-volatilecommit-raft:" not in res["coverage"]["out"]:
+            fail(f"cli coverage:\n{res['coverage']['out']}")
+        for name in ("regress", "audit", "replay", "shrink", "check", "corpus_regress", "small_card"):
+            if sum(res[name]["launches"].values()) <= 0:
+                fail(f"cli {name} on the card launched no kernel: {res[name]['launches']}")
+
+        # 3. pipelined against per-segment, the two at once
+        t0 = time.perf_counter()
+        pair = run_cli_jobs(tmp, {"pipelined": (CLI_EXPLORE, 0), "per_segment": ([*CLI_EXPLORE, "--no-pipeline"], 0)})
+        stage3_s = round(time.perf_counter() - t0, 3)
+        lines = {name: [ln for ln in cli_wall_free(r["out"]).splitlines() if not ln.startswith("executor: ")]
+                 for name, r in pair.items()}
+        if lines["pipelined"] != lines["per_segment"]:
+            fail(f"cli explore: pipelined and per-segment differ:\n{pair['pipelined']['out']}\n"
+                 f"{pair['per_segment']['out']}")
+        explore = {}
+        for name, r in pair.items():
+            st = re.search(r"streamed (\d+) seeds in ([0-9.]+)s \((\d+) seeds/s\)", r["out"])
+            ex = re.search(r"executor: (\d+) segments, (\d+) host syncs, (\d+) drains", r["out"])
+            explore[name] = {"completed": int(st.group(1)), "seconds": float(st.group(2)),
+                             "seeds_per_s": int(st.group(3)), "last_batch_segments": int(ex.group(1)),
+                             "last_batch_host_syncs": int(ex.group(2)), "last_batch_drains": int(ex.group(3)),
+                             "subprocess_s": r["s"], **cli_rates(r["err"]),
+                             # every run_stream call, the warm-up's first
+                             **{key: [c[key] for c in r["streams"]]
+                                for key in ("device_segments", "dispatches", "host_syncs", "drains")},
+                             "steps_issued": r["launches"].get("step_megakernel", 0)}
+            # the segments issued (the megakernel launches a step) against
+            # those executed, over the warm-up and the batches
+            explore[name]["segments_issued"] = round(explore[name]["steps_issued"] / 384, 3)
+            if explore[name]["segments_issued"] < sum(explore[name]["device_segments"]):
+                fail(f"cli explore {name}: fewer segments issued than executed: {explore[name]}")
+        out = {
+            "hunt": {"machine": "demo-volatilecommit-raft", "seeds": int(m.group(1)), "failing": int(m.group(2)),
+                     "codes": sorted({c for _, c in failing}), "recorded": int(added.group(1)),
+                     "first_finds": failing[:4], "subprocess_s": hunt["s"], "launches": hunt["launches"],
+                     **cli_rates(hunt["err"]), **{key: [c[key] for c in hunt["streams"]] for key in (
+                         "device_segments", "dispatches", "host_syncs", "drains")}},
+            "stage_s": [stage1_s, stage2_s, stage3_s],
+            "commands": {k: {"s": r["s"], "rc": r["rc"]} for k, r in res.items()},
+            "found_entries": n_found, "trace_flows": int(flows.group(2)), "small_equal": True,
+            "explore": explore,
+        }
+    emit({"phase": "cli", **out})
+    out["launches"] = {k: r["launches"] for k, r in res.items()}
+    return out
+
+
+def cli_kernels(kernels, np, dev, cli):
+    """Each new kernel shape of phase 11, held against its twin and timed
+    on a state of the engine the command line builds (`cli_kernels`
+    line): the megakernel at the found seed's single-lane replays (L = 1,
+    Q = 32; `shrink`'s launches), at `check`'s 256 lanes and at the small
+    explore's 64 lanes; the flush on the small explore's buffers."""
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+
+    def state_of(argv, lanes, seed0=0):
+        eng = _build_engine(_parser().parse_args(argv))
+        state = eng.run_segment(eng.init_batch(np.arange(seed0, seed0 + lanes, dtype=np.uint32)), 64)
+        for _ in range(eng._cov_flush_every):  # coverage buffers a flush period in
+            state = eng.step_batch(state)
+        return state, eng._rng_layout.total_words
+
+    seed = cli["hunt"]["first_finds"][0][0]
+    hunt_argv = ["explore", *CLI_HUNT]
+    replay_state, words = state_of(hunt_argv, 1, seed)
+    check_state, _ = state_of(hunt_argv, 256)
+    small_state, small_words = state_of(CLI_SMALL, 64)
+    launches = cli["launches"]
+    time_kernel_shapes(kernels, dev, "cli_kernels", (
+        (f"step_megakernel_L1_Q32_W{words}", replay_state, words, launches["shrink"].get("step_megakernel", 0)),
+        (f"step_megakernel_L256_Q32_W{words}", check_state, words, launches["check"].get("step_megakernel", 0)),
+        (f"step_megakernel_L64_Q32_W{small_words}", small_state, small_words,
+         launches["small_card"].get("step_megakernel", 0)),
+    ), (("cov_flush_L64", small_state.cov, launches["small_card"].get("cov_flush", 0)),))
+
+
 def main(argv=None):
     import torch
 
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
+    args.add_argument("--only", choices=("cli",), default=None,
+                      help="build, then run this phase alone (a short check; prints no result line)")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -1627,6 +1902,10 @@ def main(argv=None):
     build.load()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs),
           "ptxas": ptxas_line(build, libs)})
+    if args.only == "cli":
+        cli_kernels(kernels, np, torch.device("cuda"), cli_phase(torch, np))
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
     designs = [(f"against {d}", build.load(pathlib.Path(d).resolve())) for d in args.against]
     if designs:
         designs.append(("this checkout", build.load()))
@@ -1715,7 +1994,7 @@ def main(argv=None):
     codes = on_card["fail_code"][: len(OVERCOMMIT_SEEDS)].tolist()
     if not on_card["failed"][: len(OVERCOMMIT_SEEDS)].all() or set(codes) != {LOG_MATCHING}:
         fail(f"the known overcommit seeds {OVERCOMMIT_SEEDS} did not all fail LOG_MATCHING: {codes}")
-    kw = dict(batch=32, segment_steps=64, seed_start=OVERCOMMIT_SEEDS[0] - 40, max_steps=384)
+    kw = dict(batch=32, segment_steps=64, seed_start=OVERCOMMIT_SEEDS[0] - 40, max_steps=384, pipelined=False)
     s_card, s_cpu = over_card.run_stream(64, **kw), over_cpu.run_stream(64, **kw)
     keys = ("completed", "failing", "infra", "abandoned", "seeds_consumed")
     bad = [k for k in keys if s_card[k] != s_cpu[k]]
@@ -1727,8 +2006,8 @@ def main(argv=None):
           "n_failed": int(on_card["failed"].sum()), "stream_failing": s_card["failing"]})
 
     # 5. the flagship stream, through the entry points a user calls
-    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS)
-    run(1)  # warm: one segment
+    run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS, pipelined=False)
+    # no warm stream run: the state run above warmed the batch's shapes
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1823,6 +2102,9 @@ def main(argv=None):
         emit({"phase": "head_to_head", "order": [n for n, _ in designs + designs[::-1]], "lanes": lanes,
               **head_to_head})
     emit({"phase": "profile_v2", **profile_steps(v2_eng, v2_state, steps=8)})
+
+    # 11. the command line, in subprocesses on the card
+    cli_kernels(kernels, np, dev, cli_phase(torch, np))
 
     emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
 

@@ -1,0 +1,1029 @@
+"""The command line of the port: seed exploration, hunting, replay,
+trace export, shrinking, the corpus, audits and coverage reports.
+
+    python -m madsim_tpu_torch explore --machine raft --seeds 4096 [--stream]
+    python -m madsim_tpu_torch hunt    --machine demo-overcommit-raft --stream --corpus c.json
+    python -m madsim_tpu_torch replay  --machine raft --seed 1234 [--tail 30]
+    python -m madsim_tpu_torch regress --corpus corpus.json
+    python -m madsim_tpu_torch check   --machine kv --seeds 64
+
+The port of `madsim_tpu/__main__.py`: the same subcommands, flags,
+defaults, printed lines and exit codes for explore, hunt, replay, trace,
+shrink, regress, audit, check and coverage, and the same files (corpus,
+checkpoint, coverage doc, exports). Every command runs on the CUDA card
+unless given `--device cpu`; without a card it exits non-zero and never
+falls back to the CPU. What the port does not run yet (provenance and
+`why`, guided search, several devices, the perf tooling, the compile
+cache, bench, serve, fleet, lint) exits with status 2 and one line
+naming the gate, before any engine is built.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+import sys
+
+PROG = "madsim_tpu_torch"
+
+# what the port refuses, and the ROADMAP.md item (queue 1) it waits for
+_ITEM_PROVENANCE = "ROADMAP.md queue 1, item 7"
+_ITEM_GUIDED = "ROADMAP.md queue 1, item 10"
+_ITEM_MESH = "ROADMAP.md queue 1, item 12"
+_ITEM_PERF = "ROADMAP.md queue 1, item 13"
+_GATED_COMMANDS = {
+    "why": ("the `why` command (provenance)", _ITEM_PROVENANCE),
+    "perf": ("the `perf` command", _ITEM_PERF),
+    "prof": ("the `prof` command", _ITEM_PERF),
+    "bench": ("the `bench` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
+    "bench-ab": ("the `bench-ab` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
+    "serve": ("the `serve` command", "ROADMAP.md queue 1, item 9"),
+    "fleet": ("the `fleet` command", "ROADMAP.md queue 1, item 11"),
+    "lint": ("the `lint` command", "ROADMAP.md queue 1, item 14"),
+}
+_GATED_FLAGS = (
+    ("provenance", "--provenance (with hunt's provenance-guided shrink)", _ITEM_PROVENANCE),
+    ("guided", "--guided", _ITEM_GUIDED),
+    ("devices", "--devices N", _ITEM_MESH),
+    ("multihost", "--multihost", _ITEM_MESH),
+    ("perf_timeline", "--perf-timeline", _ITEM_PERF),
+    ("xla_profile", "--xla-profile", _ITEM_PERF),
+    ("compile_cache", "--compile-cache (a JAX compile cache)", "no port item: the port compiles no graph"),
+)
+
+
+def _gate(args) -> str:
+    """The line naming the first gate this command line hits, or ''."""
+    if args.cmd in _GATED_COMMANDS:
+        what, item = _GATED_COMMANDS[args.cmd]
+    else:
+        hits = [(what, item) for attr, what, item in _GATED_FLAGS if getattr(args, attr, None)]
+        if not hits:
+            return ""
+        what, item = hits[0]
+    return f"{PROG}: {what} is not ported yet ({item})"
+
+
+def _device(args):
+    """The engines' device: None (the card) unless `--device cpu`."""
+    return "cpu" if getattr(args, "device", "cuda") == "cpu" else None
+
+
+def _machine(name: str, nodes: int = 0):
+    """The registry's machine; an unknown name exits with its message, as
+    the reference's registry does."""
+    from .models import build_machine
+
+    try:
+        return build_machine(name, nodes)
+    except ValueError as exc:
+        sys.exit(str(exc))
+
+
+def _build_engine(args):
+    from .engine import Engine, EngineConfig, FaultPlan
+
+    machine = _machine(args.machine, args.nodes)
+    cfg = EngineConfig(
+        # round, not truncate: a shrunk repro prints horizon_us/1e6 and
+        # float truncation would shave the failing event off the horizon
+        horizon_us=round(args.horizon * 1e6),
+        queue_capacity=args.queue,
+        packet_loss_rate=args.loss,
+        rng_stream=getattr(args, "rng_stream", 2),
+        flight_recorder=bool(getattr(args, "flight_recorder", False)),
+        coverage=bool(getattr(args, "coverage", False)),
+        # None keeps the engine default (buffered); 0 is the unbuffered
+        # per-event fold; the maps are equal either way
+        **({} if getattr(args, "cov_buffer", None) is None
+           else {"cov_buffer": int(args.cov_buffer)}),
+        faults=FaultPlan(
+            n_faults=args.faults,
+            # an explicit --fault-tmax keeps fault draws stable when a
+            # shrunk repro command passes a smaller --horizon
+            t_max_us=args.fault_tmax or int(args.horizon * 0.6e6) or 1,
+            dur_min_us=100_000,
+            dur_max_us=800_000,
+            strict_restart=bool(getattr(args, "strict_restart", False)),
+            **_fault_kind_flags(args),
+        ),
+    )
+    return Engine(machine, cfg, device=_device(args))
+
+
+def _fault_kind_flags(args) -> dict:
+    from .kinds import CLI_KIND_TO_FLAG
+
+    raw = getattr(args, "fault_kinds", "pair,kill")
+    kinds = {k.strip() for k in raw.split(",") if k.strip()}
+    known = {name for name, _field in CLI_KIND_TO_FLAG}
+    if not kinds <= known:
+        sys.exit(f"unknown fault kinds {sorted(kinds - known)}; choose from {sorted(known)}")
+    if kinds == {"dup"} and args.faults > 0:
+        sys.exit(
+            "dup is per-delivery chaos, not a scheduled fault: with "
+            "--faults > 0 pick at least one scheduled kind too "
+            "(e.g. --fault-kinds pair,kill,dup), or pass --faults 0"
+        )
+    return {field: name in kinds for name, field in CLI_KIND_TO_FLAG}
+
+
+def fault_kinds_str(fp) -> str:
+    """The --fault-kinds value that reproduces a FaultPlan's vocabulary
+    (shrink prints it after kind ablation, so the repro line matches the
+    minimized plan)."""
+    from .kinds import CLI_KIND_TO_FLAG
+
+    return ",".join(name for name, field in CLI_KIND_TO_FLAG if getattr(fp, field)) or "pair"
+
+
+def _repro_line(args, seed) -> str:
+    """A replay command that reproduces `seed` exactly, including the
+    resolved --fault-tmax: without it a replay with another --horizon
+    would draw another fault schedule."""
+    tmax = args.fault_tmax or int(args.horizon * 0.6e6) or 1
+    return (
+        f"reproduce: python -m {PROG} replay --machine {args.machine} "
+        f"--seed {seed} --nodes {args.nodes} --horizon {args.horizon} "
+        f"--queue {args.queue} --faults {args.faults} --loss {args.loss} "
+        f"--fault-tmax {tmax} "
+        f"--fault-kinds {getattr(args, 'fault_kinds', 'pair,kill')} "
+        f"--rng-stream {getattr(args, 'rng_stream', 2)} "
+        + ("--strict-restart " if getattr(args, "strict_restart", False) else "")
+        + f"--max-steps {args.max_steps}"
+    )
+
+
+def _stream_kwargs(args) -> dict:
+    """The executor knobs of explore and hunt (default: pipelined and
+    donated; --no-pipeline runs the per-segment driver)."""
+    return {
+        "pipelined": not getattr(args, "no_pipeline", False),
+        "segments_per_dispatch": getattr(args, "segments_per_dispatch", 8),
+        "dispatch_depth": getattr(args, "dispatch_depth", 4),
+        "donate": not getattr(args, "no_donate", False),
+    }
+
+
+def _print_fr_stats(stats) -> None:
+    """One metrics line when the flight recorder rode the stream."""
+    fr = stats.get("flight_recorder")
+    if not fr:
+        return
+    inj = ", ".join(f"{k}={v}" for k, v in fr["faults_injected"].items() if v)
+    extra = "".join(
+        f", {label} {fr[key]}"
+        for key, label in (("dup_injected", "dups"), ("amnesia_restarts", "amnesia restarts"))
+        if fr.get(key)
+    )
+    print(
+        f"flight recorder: faults injected [{inj or 'none'}]{extra}, "
+        f"queue hwm {fr['queue_hwm']}, clogged-links hwm {fr['clog_links_hwm']}, "
+        f"killed hwm {fr['killed_hwm']}"
+    )
+
+
+def _make_emitter(args):
+    """StatsEmitter bound to --stats BASE (also $MADSIM_TPU_STATS)."""
+    base = getattr(args, "stats", None) or os.environ.get("MADSIM_TPU_STATS")
+    if not base:
+        return None
+    from .tracing import StatsEmitter
+
+    return StatsEmitter(base)
+
+
+def _print_cov_stats(stats) -> None:
+    """One coverage line when the map rode the stream."""
+    cov = stats.get("coverage")
+    if not cov:
+        return
+    bands = ", ".join(f"{k}={v}" for k, v in cov["by_band"].items() if v)
+    print(
+        f"coverage: {cov['slots_hit']}/{cov['slots_total']} slots "
+        f"({100 * cov['fraction']:.2f}%) [{bands or 'none'}]"
+    )
+
+
+def _batch_heartbeat(bi, planned, completed, el, failing, infra, abandoned, cov_txt=""):
+    """The per-batch heartbeat line: batch index, throughput, the one
+    device a port stream spans, failure tallies and the coverage delta."""
+    return (
+        f"batch {bi}/{planned}: {completed} seeds in {el:.1f}s "
+        f"({completed / el:.0f} seeds/s) on 1 device(s), "
+        f"{failing} failing so far, {infra} infra, {abandoned} abandoned"
+        f"{cov_txt}"
+    )
+
+
+def _stream_batches(eng, args, purpose="explore"):
+    """The chunked streaming driver of explore and hunt: the seed budget
+    as batches of `--batch` seeds (one run_stream call each), with a
+    heartbeat log line and a StatsEmitter record per batch, a cumulative
+    coverage map, the `--stop-on-plateau N` early exit and the
+    `--checkpoint` resume. Returns an aggregate shaped like run_stream's
+    result, plus "batches_run", "batches_planned", "plateau" and
+    "elapsed_s" (and "coverage_map" with coverage on)."""
+    import time as wall
+
+    import numpy as np
+
+    log = logging.getLogger(f"madsim_tpu.{purpose}")
+    emitter = _make_emitter(args)
+    plateau_n = int(getattr(args, "stop_on_plateau", 0) or 0)
+    detector = None
+    if plateau_n:
+        if not getattr(args, "coverage", False):
+            sys.exit("--stop-on-plateau needs --coverage: the plateau signal IS the coverage curve")
+        from .runtime.coverage import PlateauDetector
+
+        detector = PlateauDetector(plateau_n)
+
+    sk = _stream_kwargs(args)
+    batch = min(args.seeds, args.batch)
+    planned = -(-args.seeds // batch)  # ceil
+
+    agg = {"completed": 0, "failing": [], "infra": [], "abandoned": [], "seeds_consumed": 0, "stats": {}}
+    cov_map = None
+    cursor = args.seed
+    plateaued = False
+    start_bi = 0
+
+    # --checkpoint PATH: batch i always consumes the same seed range, so
+    # the cursor and the aggregates are the whole resumable state
+    ckpt_path = getattr(args, "checkpoint", None)
+    stop_after = int(getattr(args, "stop_after_batches", 0) or 0)
+    if ckpt_path:
+        from .runtime.checkpoint import check_fingerprint, load_checkpoint
+
+        ck = load_checkpoint(ckpt_path)
+        if ck is not None:
+            err = check_fingerprint(ck, args)
+            if err:
+                sys.exit(f"--checkpoint {ckpt_path}: {err}")
+            agg["completed"] = int(ck["completed"])
+            agg["seeds_consumed"] = int(ck["seeds_consumed"])
+            agg["failing"] = [tuple(x) for x in ck["failing"]]
+            agg["infra"] = [tuple(x) for x in ck["infra"]]
+            agg["abandoned"] = list(ck["abandoned"])
+            cursor = int(ck["cursor"])
+            start_bi = int(ck["batch"])
+            plateaued = bool(ck.get("plateau", False))
+            if ck.get("cov_b64"):
+                from .runtime.coverage import decode_map
+
+                cov_map = decode_map(ck["cov_b64"], eng.config.cov_slots_log2)
+            if detector is not None and ck.get("detector"):
+                d = ck["detector"]
+                detector.best = int(d["best"])
+                detector.streak = int(d["streak"])
+                detector.batches = int(d["batches"])
+            if ck.get("done"):
+                print(
+                    f"checkpoint {ckpt_path}: run already complete "
+                    f"({start_bi}/{planned} batches, "
+                    f"{agg['completed']} seeds) — nothing to resume"
+                )
+            else:
+                print(f"resumed at batch {start_bi + 1}/{planned} "
+                      f"({agg['completed']} seeds already completed)")
+                log.info("checkpoint %s: resumed at batch %d/%d", ckpt_path, start_bi + 1, planned)
+
+    def _save_ckpt(bi_done: int, done_flag: bool) -> None:
+        if not ckpt_path:
+            return
+        from .runtime.checkpoint import fingerprint_from_args, save_checkpoint
+        from .runtime.coverage import encode_map
+
+        save_checkpoint(
+            ckpt_path,
+            {
+                "fingerprint": fingerprint_from_args(args),
+                "batch": bi_done,
+                "planned": planned,
+                "cursor": cursor,
+                "completed": agg["completed"],
+                "seeds_consumed": agg["seeds_consumed"],
+                "failing": [list(x) for x in agg["failing"]],
+                "infra": [list(x) for x in agg["infra"]],
+                "abandoned": list(agg["abandoned"]),
+                # seed -> provenance word in the reference: provenance is
+                # not ported, so the map stays empty
+                "prov": {},
+                "cov_b64": encode_map(cov_map) if cov_map is not None else None,
+                "detector": (
+                    {"best": detector.best, "streak": detector.streak, "batches": detector.batches}
+                    if detector is not None else None
+                ),
+                "plateau": plateaued,
+                "done": done_flag,
+            },
+        )
+
+    # warm outside the timed loop, as the reference does
+    t_warm = wall.perf_counter()
+    eng.run_stream(1, batch=batch, segment_steps=384, max_steps=args.max_steps, **sk)
+    log.info("warm-up run_stream(1, batch=%d): %.1fs", batch, wall.perf_counter() - t_warm)
+
+    t_start = wall.perf_counter()
+    bi = start_bi - 1
+    for bi in range(start_bi, planned):
+        chunk = min(batch, args.seeds - agg["completed"])
+        if chunk <= 0:
+            _save_ckpt(bi, True)  # seed budget already consumed: complete
+            break
+        t0 = wall.perf_counter()
+        out = eng.run_stream(
+            chunk, batch=min(batch, chunk), segment_steps=384,
+            seed_start=cursor, max_steps=args.max_steps, **sk,
+        )
+        el = max(wall.perf_counter() - t0, 1e-9)
+        cursor += out["seeds_consumed"]
+        agg["completed"] += out["completed"]
+        agg["seeds_consumed"] += out["seeds_consumed"]
+        agg["failing"].extend(out["failing"])
+        agg["infra"].extend(out["infra"])
+        agg["abandoned"].extend(out["abandoned"])
+        agg["stats"] = out["stats"]
+        new_slots = 0
+        slots_hit = 0
+        if "coverage_map" in out:
+            m = np.asarray(out["coverage_map"])
+            prev = 0 if cov_map is None else int(cov_map.sum())
+            cov_map = m if cov_map is None else (cov_map | m)
+            slots_hit = int(cov_map.sum())
+            new_slots = slots_hit - prev
+        cov_txt = f", coverage {slots_hit} slots (+{new_slots})" if cov_map is not None else ""
+        log.info("%s", _batch_heartbeat(
+            bi + 1, planned, out["completed"], el,
+            len(agg["failing"]), len(agg["infra"]), len(agg["abandoned"]), cov_txt=cov_txt,
+        ))
+        if emitter is not None:
+            rec = {
+                "kind": f"{purpose}_batch",
+                "machine": args.machine,
+                "batch": bi + 1,
+                "batches": planned,
+                "completed": agg["completed"],
+                "batch_completed": out["completed"],
+                "seeds_per_sec": round(out["completed"] / el, 1),
+                "failing": len(agg["failing"]),
+                "infra": len(agg["infra"]),
+                "abandoned": len(agg["abandoned"]),
+            }
+            if cov_map is not None:
+                rec["coverage"] = {"slots_hit": slots_hit, "new_slots": new_slots}
+            if "flight_recorder" in out["stats"]:
+                rec["flight_recorder"] = out["stats"]["flight_recorder"]
+            emitter.emit(rec)
+        if detector is not None and detector.update(slots_hit):
+            plateaued = True
+        _save_ckpt(bi + 1, plateaued)
+        if plateaued:
+            log.info(
+                "coverage plateau: no new slots for %d consecutive "
+                "batches — stopping after batch %d/%d",
+                plateau_n, bi + 1, planned,
+            )
+            break
+        if stop_after and bi + 1 >= stop_after:
+            # a deliberate early stop: the checkpoint above has
+            # done=False, so the next --checkpoint run resumes
+            log.info(
+                "stopping after batch %d/%d (--stop-after-batches %d; "
+                "resumable via --checkpoint)", bi + 1, planned, stop_after,
+            )
+            break
+    else:
+        _save_ckpt(planned, True)
+
+    agg["elapsed_s"] = wall.perf_counter() - t_start
+    agg["batches_run"] = bi + 1
+    agg["batches_planned"] = planned
+    agg["plateau"] = plateaued
+    if cov_map is not None:
+        agg["coverage_map"] = cov_map
+        from .runtime.coverage import coverage_dict
+
+        agg["stats"] = dict(agg["stats"])
+        agg["stats"]["coverage"] = {
+            **coverage_dict(cov_map, eng.config.cov_slots_log2, band_bits=eng.cov_band_bits),
+            "plateau": plateaued,
+            "plateau_patience": plateau_n,
+        }
+    if emitter is not None:
+        emitter.emit(
+            {
+                "kind": f"{purpose}_summary",
+                "machine": args.machine,
+                "completed": agg["completed"],
+                "failing": len(agg["failing"]),
+                "infra": len(agg["infra"]),
+                "abandoned": len(agg["abandoned"]),
+                "batches_run": agg["batches_run"],
+                "batches_planned": planned,
+                "plateau": plateaued,
+                "elapsed_s": round(agg["elapsed_s"], 2),
+                **({"coverage": agg["stats"]["coverage"]} if cov_map is not None else {}),
+            }
+        )
+        emitter.close()
+    return agg
+
+
+def _write_coverage_out(eng, args, agg) -> None:
+    """`hunt --coverage-out PATH`: persist the cumulative map for
+    cross-run diffing (`coverage PATH --diff OLD`)."""
+    path = getattr(args, "coverage_out", None)
+    if not path:
+        return
+    if "coverage_map" not in agg:
+        sys.exit("--coverage-out needs --coverage and --stream")
+    import time as wall
+
+    from .runtime.coverage import make_coverage_doc, save_coverage_doc
+
+    doc = make_coverage_doc(
+        {args.machine: agg["coverage_map"]},
+        eng.config.cov_slots_log2,
+        band_bits=eng.cov_band_bits,
+        meta={
+            "seeds": args.seeds,
+            "seed_start": args.seed,
+            "completed": agg["completed"],
+            "fault_kinds": getattr(args, "fault_kinds", "pair,kill"),
+            "ts": round(wall.time(), 3),
+        },
+    )
+    save_coverage_doc(path, doc)
+    cov = agg["stats"]["coverage"]
+    print(f"coverage map: {cov['slots_hit']}/{cov['slots_total']} slots -> {path}")
+
+
+def _split_infra(failing):
+    """(findings, infra) of (seed, code) pairs: OVERFLOW is a fixed-shape
+    capacity abort ("rerun with a bigger --queue"), never a finding."""
+    from .engine import OVERFLOW
+
+    pairs = list(failing)
+    return [(s, c) for s, c in pairs if c != OVERFLOW], [(s, c) for s, c in pairs if c == OVERFLOW]
+
+
+def _find_failing(eng, args, purpose="hunt"):
+    """Run the seeds (streaming or one batch): (failing, infra,
+    abandoned count, aggregate), the aggregate being _stream_batches'
+    result (nearly empty for the batch path)."""
+    import numpy as np
+
+    if args.stream:
+        agg = _stream_batches(eng, args, purpose=purpose)
+        return agg["failing"], agg["infra"], len(agg["abandoned"]), agg
+    seeds = np.arange(args.seed, args.seed + args.seeds, dtype=np.uint32)
+    res = eng.make_runner(max_steps=args.max_steps)(seeds)
+    failing, infra = _split_infra(
+        (int(s), int(c))
+        for s, c in zip(eng.failing_seeds(res).tolist(), res.fail_code[res.failed].tolist())
+    )
+    return failing, infra, 0, {"stats": {}}
+
+
+def cmd_explore(args) -> int:
+    import numpy as np
+
+    eng = _build_engine(args)
+    if args.stream:
+        out = _stream_batches(eng, args, purpose="explore")
+        el = out["elapsed_s"]
+        failing = out["failing"]
+        st = out["stats"]
+        plateau_txt = (
+            f" [stopped early: coverage plateau after batch "
+            f"{out['batches_run']}/{out['batches_planned']}]"
+            if out["plateau"] else ""
+        )
+        print(
+            f"streamed {out['completed']} seeds in {el:.1f}s "
+            f"({out['completed']/max(el, 1e-9):.0f} seeds/s), {len(failing)} failing, "
+            f"{len(out['abandoned'])} abandoned"
+            + (f", {len(out['infra'])} infra (queue overflow)" if out["infra"] else "")
+            + plateau_txt
+        )
+        print(
+            f"executor: {st['device_segments']} segments, "
+            f"{st['host_syncs']} host syncs, {st['drains']} drains "
+            f"(pipelined={st['pipelined']}, donation={st['donation']}, "
+            f"depth={st['dispatch_depth']}x{st['segments_per_dispatch']})"
+        )
+        _print_fr_stats(st)
+        _print_cov_stats(st)
+        if failing:
+            codes = sorted({c for _s, c in failing})
+            print(f"failure codes: {codes}")
+            print(f"failing seeds: {[s for s, _ in failing[:20]]}{' ...' if len(failing) > 20 else ''}")
+            print(_repro_line(args, failing[0][0]))
+            return 1
+        return 0
+
+    seeds = np.arange(args.seed, args.seed + args.seeds, dtype=np.uint32)
+    res = eng.make_runner(max_steps=args.max_steps)(seeds)
+    failing = eng.failing_seeds(res).tolist()
+    n_done = int(res.done.sum())
+    print(f"explored {len(seeds.tolist())} seeds ({n_done} completed), {len(failing)} failing")
+    if getattr(args, "coverage", False):
+        from .runtime.coverage import coverage_dict, unpack_map
+
+        m = unpack_map(np.bitwise_or.reduce(res.cov["map"].cpu().numpy(), axis=0), eng.config.cov_slots_log2)
+        _print_cov_stats({"coverage": coverage_dict(m, eng.config.cov_slots_log2, band_bits=eng.cov_band_bits)})
+    if failing:
+        codes = sorted({int(c) for c in res.fail_code.tolist() if c != 0})
+        print(f"failure codes: {codes}")
+        print(f"failing seeds: {failing[:20]}{' ...' if len(failing) > 20 else ''}")
+        print(_repro_line(args, failing[0]))
+        return 1
+    return 0
+
+
+def cmd_hunt(args) -> int:
+    """explore -> shrink -> corpus: every found failing seed becomes a
+    durable "open" regression entry with its minimized config."""
+    from .engine import audit, corpus, shrink
+    from .models import build_machine
+
+    eng = _build_engine(args)
+    failing, infra, abandoned, agg = _find_failing(eng, args, purpose="hunt")
+    stream_stats = agg.get("stats", {})
+    hunted = agg.get("completed", args.seeds)
+    plateau_txt = ""
+    if agg.get("plateau"):
+        # a plateaued hunt ran FEWER seeds than asked
+        plateau_txt = (
+            f" [coverage plateau: stopped after batch "
+            f"{agg['batches_run']}/{agg['batches_planned']} — "
+            f"{max(0, args.seeds - hunted)} budgeted seeds not run]"
+        )
+    print(
+        f"hunted {hunted} seeds: {len(failing)} failing"
+        + (f", {abandoned} abandoned (over --max-steps)" if abandoned else "")
+        + (
+            f", {len(infra)} infra artifacts (queue overflow — rerun "
+            f"with a bigger --queue; not recorded as findings)"
+            if infra else ""
+        )
+        + plateau_txt
+    )
+    _print_fr_stats(stream_stats)
+    _print_cov_stats(stream_stats)
+    _write_coverage_out(eng, args, agg)
+    entries = corpus.load(args.corpus)
+    known = {e.key for e in entries}
+    added = 0
+    # one representative per distinct fail code (--all-seeds: the first
+    # --limit seeds, whatever their codes)
+    if getattr(args, "all_seeds", False):
+        to_shrink = failing[: args.limit]
+    else:
+        by_code: dict = {}
+        for seed, code in failing:
+            by_code.setdefault(code, []).append(seed)
+        to_shrink = [(s[0], c) for c, s in sorted(by_code.items())][: args.limit]
+        shrinking = {c for _s, c in to_shrink}
+        for code, seeds_of in sorted(by_code.items()):
+            verb = f"shrinking seed {seeds_of[0]}" if code in shrinking else "beyond --limit, not shrunk"
+            print(f"  code {code}: {len(seeds_of)} seeds ({verb})")
+    for seed, code in to_shrink:
+        try:
+            sr = shrink(eng, seed, max_steps=args.max_steps)
+        except ValueError as exc:
+            # flagged by the batch but not reproducing in the replay:
+            # report it (that drift is itself a finding) and go on
+            print(f"  ! seed {seed} code {code}: {exc}")
+            continue
+        entry = corpus.CorpusEntry(
+            machine=args.machine,
+            nodes=args.nodes,
+            seed=seed,
+            fail_code=code,
+            status=corpus.STATUS_OPEN,
+            config=sr.shrunk,
+            max_steps=sr.steps + 1,
+            note=sr.summary(),
+        )
+        if entry.key in known:
+            print(f"  = corpus: seed {seed} code {code} already recorded")
+            continue
+        # every new entry carries its digest trail and environment from birth
+        entry, _trail = audit.record_entry(entry, build_machine, device=_device(args))
+        known.add(entry.key)
+        entries.append(entry)
+        added += 1
+        print(f"  + corpus: {sr.summary()}")
+    if added:
+        corpus.save(args.corpus, entries)
+    if len(to_shrink) < (len(failing) if getattr(args, "all_seeds", False) else len({c for _s, c in failing})):
+        print("  (further failing codes/seeds not shrunk; raise --limit)")
+    print(f"{added} new entries in {args.corpus}")
+    return 1 if failing else 0
+
+
+def cmd_regress(args) -> int:
+    """Re-verify every corpus entry against its status contract: open
+    entries must still reproduce their exact failure; fixed entries must
+    keep passing. `--promote` flips open entries that no longer fail."""
+    from .engine import corpus
+    from .models import build_machine
+
+    entries = corpus.load(args.corpus)
+    if not entries:
+        print(f"corpus {args.corpus} is empty")
+        return 0
+    bad = 0
+    changed = False
+    for i, e in enumerate(entries):
+        try:
+            out = corpus.check(e, build_machine, device=_device(args))
+        except ValueError:
+            # an unknown machine name must not end the run: later entries
+            # are still checked and --promote updates still saved
+            print(f"[FAIL] {e.machine} seed {e.seed}: unknown machine in registry")
+            bad += 1
+            continue
+        tag = "ok " if out.ok else "FAIL"
+        print(f"[{tag}] {e.machine} seed {e.seed} code {e.fail_code} ({e.status}): {out.verdict}")
+        if not out.ok:
+            if args.promote and e.status == corpus.STATUS_OPEN and not out.failed:
+                entries[i] = dataclasses.replace(e, status=corpus.STATUS_FIXED)
+                changed = True
+                print(f"       promoted to {corpus.STATUS_FIXED}")
+            else:
+                bad += 1
+    if changed:
+        corpus.save(args.corpus, entries)
+        print(f"corpus updated: {args.corpus}")
+    print(f"{len(entries) - bad}/{len(entries)} entries satisfied")
+    return 1 if bad else 0
+
+
+def cmd_replay(args) -> int:
+    from .engine import replay
+
+    eng = _build_engine(args)
+    if getattr(args, "diff_seed", None) is not None:
+        # the schedule-fork debugger: the first diverging step of two seeds
+        from .engine.replay import replay_diff
+
+        replay_diff(eng, args.seed, args.diff_seed, max_steps=args.max_steps, context=args.diff_context)
+        return 0
+    rp = replay(eng, args.seed, max_steps=args.max_steps)
+    events = rp.trace[-args.tail :] if args.tail else rp.trace
+    for ev in events:
+        print(ev)
+    status = f"FAILED (code {rp.fail_code})" if rp.failed else "ok"
+    print(f"seed {args.seed}: {status}, {len(rp.trace)} events, t={int(rp.state.now_us)}us")
+    return 1 if rp.failed else 0
+
+
+def cmd_trace(args) -> int:
+    """Replay one seed and export its virtual-time event timeline:
+    Perfetto trace_event JSON (--perfetto, with the send -> delivery
+    flow arrows) and/or JSONL (--jsonl, one object per event)."""
+    from .engine import replay
+    from .engine.trace_export import write_jsonl, write_perfetto
+
+    if not args.perfetto and not args.jsonl:
+        sys.exit("trace needs at least one of --perfetto PATH / --jsonl PATH")
+    eng = _build_engine(args)
+    n_nodes = eng.machine.NUM_NODES
+    if args.perfetto:
+        from .engine.provenance import replay_with_lineage
+
+        rp, lineage = replay_with_lineage(eng, args.seed, max_steps=args.max_steps)
+        flows = [(lineage.trace[i], lineage.trace[j]) for i, j in lineage.message_flows()]
+        n = write_perfetto(args.perfetto, rp.trace, machine=args.machine, seed=args.seed, num_nodes=n_nodes,
+                           flows=flows)
+        print(f"wrote {n} events ({len(flows)} message flows) to "
+              f"{args.perfetto} (perfetto trace_event; "
+              f"open in https://ui.perfetto.dev)")
+    else:
+        rp = replay(eng, args.seed, max_steps=args.max_steps)
+    if args.jsonl:
+        n = write_jsonl(args.jsonl, rp.trace, machine=args.machine, seed=args.seed)
+        print(f"wrote {n} events to {args.jsonl} (JSONL)")
+    status = f"FAILED (code {rp.fail_code})" if rp.failed else "ok"
+    print(f"seed {args.seed}: {status}, {len(rp.trace)} events, t={int(rp.state.now_us)}us")
+    return 1 if rp.failed else 0
+
+
+def cmd_audit(args) -> int:
+    """Replay every corpus entry and bisect its recorded digest trail to
+    the first divergent checkpoint. With --record, record trails and
+    environment metadata again instead, refusing entries whose outcome
+    no longer matches their status contract."""
+    from .engine import audit, corpus
+    from .models import build_machine
+
+    entries = corpus.load(args.corpus)
+    if not entries:
+        print(f"corpus {args.corpus} is empty")
+        return 0
+    bad = 0
+    changed = False
+    for i, e in enumerate(entries):
+        try:
+            if args.record:
+                new, trail = audit.record_entry(e, build_machine, every=args.digest_every, device=_device(args))
+                if e.status == corpus.STATUS_OPEN:
+                    contract_ok = trail.failed and trail.fail_code == e.fail_code
+                else:  # STATUS_FIXED must pass
+                    contract_ok = not trail.failed
+                if not contract_ok:
+                    got = f"fails with code {trail.fail_code}" if trail.failed else "passes"
+                    print(f"[FAIL] {e.machine} seed {e.seed}: replay {got}, "
+                          f"which breaks its {e.status!r} contract — NOT "
+                          f"recording (fix or re-hunt the entry first)")
+                    bad += 1
+                    continue
+                entries[i] = new
+                changed = True
+                print(f"[rec ] {e.machine} seed {e.seed} code {e.fail_code}: "
+                      f"{len(new.digests)} checkpoints every {new.digest_every} "
+                      f"steps, final step {new.digest_final[0]}")
+                continue
+            out = audit.audit_entry(e, build_machine, device=_device(args))
+        except ValueError:
+            print(f"[FAIL] {e.machine} seed {e.seed}: unknown machine in registry")
+            bad += 1
+            continue
+        tag = {"match": "ok  ", "no-digests": "??  ", "diverged": "DIVG"}[out.status]
+        print(f"[{tag}] {e.machine} seed {e.seed} code {e.fail_code}: {out.verdict}")
+        if not out.ok:
+            bad += 1
+    if changed:
+        corpus.save(args.corpus, entries)
+        print(f"corpus updated: {args.corpus}")
+    print(f"{len(entries) - bad}/{len(entries)} entries satisfied")
+    return 1 if bad else 0
+
+
+def cmd_shrink(args) -> int:
+    from .engine import shrink
+
+    eng = _build_engine(args)
+    try:
+        sr = shrink(eng, args.seed, max_steps=args.max_steps)
+    except ValueError as exc:
+        print(exc)
+        return 2
+    print(sr.summary())
+    f = sr.shrunk.faults
+    print(
+        f"minimal repro: python -m {PROG} replay --machine {args.machine} "
+        f"--seed {args.seed} --nodes {args.nodes} "
+        f"--horizon {sr.shrunk.horizon_us / 1e6} --queue {sr.shrunk.queue_capacity} "
+        f"--faults {f.n_faults} --fault-tmax {f.t_max_us} "
+        f"--loss {sr.shrunk.packet_loss_rate} --max-steps {sr.steps} "
+        # kinds from the SHRUNK plan: ablation may have dropped some
+        f"--fault-kinds {fault_kinds_str(f)} "
+        + ("--strict-restart " if f.strict_restart else "")
+        + f"--rng-stream {sr.shrunk.rng_stream}"
+    )
+    return 0
+
+
+def cmd_check(args) -> int:
+    import numpy as np
+
+    from .errors import NonDeterminism
+
+    eng = _build_engine(args)
+    seeds = np.arange(args.seed, args.seed + args.seeds, dtype=np.uint32)
+    try:
+        eng.check_determinism(seeds, max_steps=args.max_steps)
+    except NonDeterminism as exc:
+        print(f"FAIL: {exc}")
+        return 1
+    print(f"determinism check passed for {args.seeds} seeds")
+    return 0
+
+
+def cmd_coverage(args) -> int:
+    """Render a persisted coverage map (`hunt --coverage-out`): slots
+    hit, per-band marginals, the thinnest (band x phase) cells and, with
+    --diff, what a second run added over the first; `--json` gives the
+    same tables machine-readably. Host-side numpy only: no engine."""
+    from .runtime.coverage import load_coverage_doc, render_report
+
+    try:
+        doc = load_coverage_doc(args.doc)
+        diff_doc = load_coverage_doc(args.diff) if args.diff else None
+    except (OSError, ValueError, KeyError) as exc:
+        sys.exit(f"coverage: {exc}")
+    if getattr(args, "json", False):
+        from .runtime.coverage import coverage_dict, diff_maps, doc_band_bits, doc_maps, top_uncovered
+
+        slots_log2 = doc["slots_log2"]
+        bb = doc_band_bits(doc)
+        other = doc_maps(diff_doc) if diff_doc is not None else {}
+        out = {"slots_log2": slots_log2, "band_bits": bb, "maps": {}}
+        for name, m in doc_maps(doc).items():
+            entry = {
+                **coverage_dict(m, slots_log2, band_bits=bb),
+                "thinnest": top_uncovered(m, slots_log2, top=args.top, band_bits=bb),
+            }
+            if name in other:
+                dd = diff_maps(other[name], m)
+                entry["diff"] = {"new": dd["only_b"], "lost": dd["only_a"], "shared": dd["both"]}
+            out["maps"][name] = entry
+        print(json.dumps(out, indent=1, sort_keys=True))
+        return 0
+    print(render_report(doc, top=args.top, diff_doc=diff_doc))
+    return 0
+
+
+def _parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog=PROG)
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    def obs_flags(p):
+        p.add_argument("--log-level", default=os.environ.get("MADSIM_TPU_LOG"),
+                       help="wire init_tracing at this level (DEBUG/INFO/...; also $MADSIM_TPU_LOG)")
+        p.add_argument("--log-jsonl", default=None, metavar="PATH",
+                       help="also sink logs as structured JSONL to PATH")
+
+    def device_flag(p):
+        p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="where the engines run: the CUDA card (default) or the CPU; "
+                       "without a card the command exits, it never falls back")
+
+    def common(p):
+        obs_flags(p)
+        device_flag(p)
+        p.add_argument("--machine", default="raft")
+        p.add_argument("--nodes", type=int, default=0)
+        p.add_argument("--seed", type=int, default=0)
+        p.add_argument("--horizon", type=float, default=5.0, help="virtual seconds")
+        p.add_argument("--queue", type=int, default=96)
+        p.add_argument("--faults", type=int, default=2)
+        p.add_argument("--loss", type=float, default=0.0)
+        p.add_argument("--max-steps", type=int, default=3000)
+        p.add_argument("--fault-tmax", type=int, default=0,
+                       help="fault injection window in us (0 = 60%% of horizon)")
+        p.add_argument("--fault-kinds", default="pair,kill",
+                       help="comma list of fault kinds to draw from: "
+                       "pair,kill,dir,group,storm,delay,pause,skew,dup,torn,heal-asym "
+                       "(default pair,kill; any other kind switches to the v2 schedule "
+                       "derivation; dup is per-delivery duplication, not a scheduled window)")
+        p.add_argument("--strict-restart", action="store_true",
+                       help="crash-with-amnesia restarts: a restarted node keeps only the "
+                       "leaves its Machine.durable_spec() marks durable")
+        p.add_argument("--rng-stream", type=int, default=2, choices=(2, 3),
+                       help="per-step RNG stream version: 2 = split-chain (default; replays "
+                       "every recorded seed), 3 = counter-based (the step megakernel's)")
+        p.add_argument("--compile-cache", default=None,
+                       help="not ported: the JAX package's persistent compile cache")
+        p.add_argument("--flight-recorder", action="store_true",
+                       help="engine flight recorder: rolling per-lane trace digests, checkpoint "
+                       "ring and on-device fault/queue metrics (results are equal either way)")
+        p.add_argument("--coverage", action="store_true",
+                       help="scenario-coverage telemetry: per-lane hit maps OR-reduced at stream "
+                       "harvest (results are equal either way)")
+        p.add_argument("--cov-buffer", type=int, default=None, metavar="N",
+                       help="coverage slot-buffer depth per lane (default: the engine's; 0 = the "
+                       "unbuffered per-event fold; the maps are equal either way)")
+        p.add_argument("--provenance", action="store_true", help="not ported: causal provenance words")
+        p.add_argument("--stats", default=None, metavar="BASE",
+                       help="StatsEmitter base path (also $MADSIM_TPU_STATS): per-batch stats to "
+                       "BASE.jsonl, BASE.prom and BASE.json")
+
+    def stream_flags(p):
+        p.add_argument("--no-pipeline", action="store_true",
+                       help="the per-segment driver (one blocking host sync a segment) instead "
+                       "of the pipelined executor")
+        p.add_argument("--segments-per-dispatch", type=int, default=8,
+                       help="segments issued a dispatch")
+        p.add_argument("--dispatch-depth", type=int, default=4,
+                       help="dispatches between blocking counter polls")
+        p.add_argument("--no-donate", action="store_true",
+                       help="report the carry as not donated (in PyTorch one carry is alive at "
+                       "a time either way; results are equal)")
+        p.add_argument("--devices", type=int, default=0, metavar="N", help="not ported: a mesh of N devices")
+        p.add_argument("--stop-on-plateau", type=int, default=0, metavar="N",
+                       help="with --coverage: stop when N consecutive seed batches add no new slot")
+        p.add_argument("--stop-after-batches", type=int, default=0, metavar="N",
+                       help="stop after N seed batches (resumable via --checkpoint)")
+        p.add_argument("--perf-timeline", default=None, metavar="PATH", help="not ported: the host timeline")
+        p.add_argument("--xla-profile", default=None, metavar="DIR", help="not ported: an XLA profile")
+
+    p = sub.add_parser("explore", help="run a seed batch, report failing seeds")
+    common(p)
+    p.add_argument("--seeds", type=int, default=1024)
+    p.add_argument("--stream", action="store_true",
+                   help="seed-streaming path (refill finished lanes; for large batches)")
+    p.add_argument("--batch", type=int, default=8192, help="lanes per streaming batch")
+    stream_flags(p)
+    p.add_argument("--multihost", action="store_true", help="not ported: a multi-process job")
+    p.set_defaults(fn=cmd_explore)
+
+    p = sub.add_parser("replay", help="bit-identical replay of one seed with trace")
+    common(p)
+    p.add_argument("--tail", type=int, default=30, help="print last N events (0=all)")
+    p.add_argument("--devices", type=int, default=0, help="not ported: the mesh size a hunt ran at")
+    p.add_argument("--diff-seed", type=int, default=None,
+                   help="also replay this seed and print where the two schedules first diverge")
+    p.add_argument("--diff-context", type=int, default=3, help="events of context around the divergence")
+    p.set_defaults(fn=cmd_replay)
+
+    p = sub.add_parser("trace", help="replay one seed and export its virtual-time event timeline "
+                       "(Perfetto trace_event JSON / structured JSONL)")
+    common(p)
+    p.add_argument("--perfetto", default=None, metavar="PATH",
+                   help="write Chrome/Perfetto trace_event JSON with message flow arrows")
+    p.add_argument("--jsonl", default=None, metavar="PATH", help="write one JSON object per event")
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser("shrink", help="minimize a failing seed's config")
+    common(p)
+    p.set_defaults(fn=cmd_shrink)
+
+    p = sub.add_parser("hunt", help="explore + shrink + record failing seeds in the corpus")
+    common(p)
+    p.add_argument("--seeds", type=int, default=1024)
+    p.add_argument("--stream", action="store_true", help="seed-streaming hunt")
+    p.add_argument("--batch", type=int, default=8192, help="lanes per streaming batch")
+    stream_flags(p)
+    p.add_argument("--corpus", default="corpus.json")
+    p.add_argument("--limit", type=int, default=5, help="max seeds to shrink+record")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="with --stream: persist per-batch progress to PATH after every batch; "
+                   "a re-run with the same arguments resumes where it stopped")
+    p.add_argument("--coverage-out", default=None, metavar="PATH",
+                   help="with --coverage --stream: persist the hunt's cumulative coverage map")
+    p.add_argument("--all-seeds", action="store_true",
+                   help="shrink the first --limit failing seeds even when they share a fail code")
+    p.add_argument("--guided", action="store_true", help="not ported: coverage-feedback search")
+    p.set_defaults(fn=cmd_hunt)
+
+    p = sub.add_parser("regress", help="re-verify every corpus entry (open must reproduce, fixed must pass)")
+    obs_flags(p)
+    device_flag(p)
+    p.add_argument("--corpus", default="corpus.json")
+    p.add_argument("--promote", action="store_true", help="flip open entries that no longer fail to fixed")
+    p.set_defaults(fn=cmd_regress)
+
+    p = sub.add_parser("audit", help="bisect every corpus entry's digest trail to the first divergent "
+                       "checkpoint; --record records trails and environment metadata again")
+    obs_flags(p)
+    device_flag(p)
+    p.add_argument("--corpus", default="corpus.json")
+    p.add_argument("--record", action="store_true",
+                   help="record digest trails again (refuses entries that broke their status contract)")
+    p.add_argument("--digest-every", type=int, default=64, help="checkpoint cadence in steps when recording")
+    p.set_defaults(fn=cmd_audit)
+
+    p = sub.add_parser("check", help="engine determinism self-check")
+    common(p)
+    p.add_argument("--seeds", type=int, default=64)
+    p.set_defaults(fn=cmd_check)
+
+    p = sub.add_parser("coverage", help="render a persisted scenario-coverage map; --diff OLD shows "
+                       "what a run added over another")
+    p.add_argument("doc", help="coverage JSON written by `hunt --coverage-out`")
+    p.add_argument("--diff", default=None, metavar="OLD",
+                   help="baseline coverage doc to diff against (new/lost/shared slots)")
+    p.add_argument("--top", type=int, default=8, help="thinnest band x phase cells to list")
+    p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.set_defaults(fn=cmd_coverage)
+
+    for name, (what, item) in _GATED_COMMANDS.items():
+        sub.add_parser(name, help=f"not ported ({item})", add_help=False)
+    return parser
+
+
+def main(argv=None) -> int:
+    parser = _parser()
+    args, extra = parser.parse_known_args(argv)
+    gate = _gate(args)
+    if gate:
+        print(gate, file=sys.stderr)
+        return 2
+    if extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    if getattr(args, "log_level", None) or getattr(args, "log_jsonl", None):
+        from .tracing import init_tracing
+
+        init_tracing(getattr(args, "log_level", None) or "INFO", jsonl_path=getattr(args, "log_jsonl", None))
+    if hasattr(args, "device"):
+        from .engine.core import resolve_device
+
+        try:
+            resolve_device(_device(args))
+        except RuntimeError as exc:
+            print(f"{PROG}: {exc} (here: --device cpu)", file=sys.stderr)
+            return 2
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

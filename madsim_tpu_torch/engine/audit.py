@@ -213,7 +213,7 @@ def audit_entry(entry, build_machine: Callable[[str, int], object], device=None)
         f" at step {trail.final_step} (entry expects code {entry.fail_code})"
     )
     if not entry.digests and not entry.digest_final:
-        return AuditOutcome(entry, "no-digests", None, trail, f"no recorded digests; {behavior}")
+        return AuditOutcome(entry, "no-digests", None, trail, f"no recorded digests (re-record with `audit --record`); {behavior}")
     div = first_divergence(entry.digests, entry.digest_final or None, trail)
     if div is None:
         return AuditOutcome(

@@ -52,6 +52,7 @@ from ..ops.coverage import (
     COV_BUFFER_DEFAULT,
     COV_SLOTS_LOG2_DEFAULT,
     cov_band,
+    cov_fold,
     cov_fold_words,
     cov_push,
     cov_slot,
@@ -310,7 +311,7 @@ class LaneState:
     nodes: Any
     ring: Any  # the trace ring: step, time, kind, node, src [L, R], payload [L, R, P] ({} when off)
     fr: Any  # flight recorder: digest, checkpoint ring, metrics ({} when off)
-    cov: Any  # coverage: {"map", "buf", "buf_n"} ({} when off)
+    cov: Any  # coverage: {"map", "buf", "buf_n"}, {"map"} unbuffered, {} when off
 
 
 @dataclasses.dataclass
@@ -354,8 +355,9 @@ def _unported(gate: str) -> NotImplementedError:
     return NotImplementedError(
         f"{gate} is not ported to madsim_tpu_torch yet (the port runs both "
         f"RNG streams, packed clogs, every fault kind, packet loss, "
-        f"duplication, strict restarts, the trace ring, and the flight "
-        f"recorder and buffered coverage on or off)"
+        f"duplication, strict restarts, the trace ring, the flight "
+        f"recorder and coverage (buffered or not) on or off, and both "
+        f"stream executors)"
     )
 
 
@@ -438,16 +440,25 @@ class Engine:
         )
         # a step appends the popped event's slot, and under dup the
         # synthetic dup-band slot, so flushing every cov_buffer //
-        # slots_per_step iterations can never overflow the buffer
+        # slots_per_step iterations can never overflow the buffer;
+        # cov_buffer=0 folds each slot into the map at its event instead
         slots_per_step = 2 if self._rng_layout.dup_active else 1
-        if config.cov_buffer < 1 or config.cov_buffer > 1024:
-            raise ValueError(f"cov_buffer={config.cov_buffer!r}: a depth in [{slots_per_step}, 1024]")
-        if config.coverage and config.cov_buffer < slots_per_step:
+        if config.cov_buffer < 0 or config.cov_buffer > 1024:
             raise ValueError(
-                f"cov_buffer={config.cov_buffer} is shallower than the {slots_per_step} slots one "
-                f"step can append under this config (dup events add a synthetic band slot)"
+                f"cov_buffer={config.cov_buffer!r} — 0 (unbuffered "
+                f"per-event fold) or a depth in "
+                f"[{slots_per_step}, 1024]"
             )
-        self._cov_flush_every = config.cov_buffer // slots_per_step
+        if config.coverage and 0 < config.cov_buffer < slots_per_step:
+            raise ValueError(
+                f"cov_buffer={config.cov_buffer} is shallower than the "
+                f"{slots_per_step} slots one step can append "
+                f"under this config (dup events add a synthetic band "
+                f"slot); use 0 for the unbuffered fold or >= "
+                f"{slots_per_step}"
+            )
+        self._cov_buffered = bool(config.coverage and config.cov_buffer > 0)
+        self._cov_flush_every = config.cov_buffer // slots_per_step if self._cov_buffered else 0
         # the event kind of each of a step's pushes: messages (each
         # followed by its duplicate under dup), timers, the restart boot
         # (made once: a per-step host list would be a host-to-device
@@ -486,7 +497,6 @@ class Engine:
         gates = [
             ("clog_packed=False", not cfg.clog_packed),
             ("provenance", cfg.provenance),
-            ("cov_buffer=0", cfg.cov_buffer == 0),
             ("compile_cache_dir (a JAX compile cache)", cfg.compile_cache_dir is not None),
         ]
         for gate, hit in gates:
@@ -684,16 +694,16 @@ class Engine:
         }
 
     def _empty_cov(self, lanes: int):
-        """Zeroed hit map plus the per-lane slot buffer and its count; {}
-        with coverage off."""
+        """Zeroed hit map plus, buffered, the per-lane slot buffer and its
+        count; the map alone with `cov_buffer=0`; {} with coverage off."""
         cfg = self.config
         if not cfg.coverage:
             return {}
-        return {
-            "map": empty_cov_map(lanes, cfg.cov_slots_log2, self.device),
-            "buf": torch.zeros((lanes, cfg.cov_buffer), dtype=torch.int32, device=self.device),
-            "buf_n": torch.zeros(lanes, dtype=torch.int32, device=self.device),
-        }
+        cov = {"map": empty_cov_map(lanes, cfg.cov_slots_log2, self.device)}
+        if self._cov_buffered:
+            cov["buf"] = torch.zeros((lanes, cfg.cov_buffer), dtype=torch.int32, device=self.device)
+            cov["buf_n"] = torch.zeros(lanes, dtype=torch.int32, device=self.device)
+        return cov
 
     # -- one event per lane --------------------------------------------------
 
@@ -901,7 +911,7 @@ class Engine:
                 "kill_hwm": torch.maximum(fr["kill_hwm"], killed.sum(dim=1, dtype=torch.int32)),
             }
 
-        # -- scenario coverage (buffered) -----------------------------------
+        # -- scenario coverage (buffered, or folded at once) ----------------
         cov = s.cov
         if cfg.coverage:
             abs_word = m.coverage_projection(nodes, new_now)
@@ -922,14 +932,20 @@ class Engine:
                 band = torch.where((ev_kind == EV_FAULT) & (op == F_RESTART), COV_BAND_AMNESIA, band)
             slot = cov_slot(abs_word, ev_kind, ev_node, op_word, ctx, cfg.cov_slots_log2,
                             band_bits=self.cov_band_bits, band=band)
-            buf, buf_n = cov_push(cov["buf"], cov["buf_n"], slot, live, write=running)
+            hits = [(slot, live)]
             if n_dups is not None:
                 # the synthetic dup band: a step that pushed a duplicate
                 dup_slot = cov_slot(abs_word, ev_kind, ev_node, n_dups, ctx, cfg.cov_slots_log2,
                                     band_bits=self.cov_band_bits,
                                     band=torch.full_like(band, COV_BAND_DUP))
-                buf, buf_n = cov_push(buf, buf_n, dup_slot, live & (n_dups > 0), write=running)
-            cov = dict(cov, buf=buf, buf_n=buf_n)
+                hits.append((dup_slot, live & (n_dups > 0)))
+            # the event's slot first, then the dup band's, as the reference
+            for hit_slot, hit in hits:
+                if self._cov_buffered:
+                    buf, buf_n = cov_push(cov["buf"], cov["buf_n"], hit_slot, hit, write=running)
+                    cov = dict(cov, buf=buf, buf_n=buf_n)
+                else:
+                    cov = {"map": cov_fold(cov["map"], hit_slot, hit)}
 
         # -- invariants / termination ---------------------------------------
         ok, code = m.invariant(nodes, new_now)
@@ -1063,13 +1079,17 @@ class Engine:
     # -- batch runners -------------------------------------------------------
 
     @torch.inference_mode()
-    def step_batch(self, state: LaneState, running=None) -> LaneState:
+    def step_batch(self, state: LaneState, running=None, go=None) -> LaneState:
         """One event step for every lane: the step-prefix kernel, then
         the lane step. Frozen lanes (done or failed) write back their
-        state. The megakernel computes pop, gather, the v3 words and the
-        digest in one pass; otherwise the pop + gather kernel runs and
-        the words are drawn, and the digest folded, here."""
+        state, and so does every lane where the scalar bool tensor `go`
+        is False (a parked stream segment). The megakernel computes pop,
+        gather, the v3 words and the digest in one pass; otherwise the
+        pop + gather kernel runs and the words are drawn, and the digest
+        folded, here."""
         active = ~(state.done | state.failed)
+        if go is not None:
+            active = active & go
         fr_on, layout = self.config.flight_recorder, self._rng_layout
         queue = (state.eq_time, state.eq_seq, state.eq_valid, state.eq_kind, state.eq_node,
                  state.eq_src, state.eq_payload)
@@ -1101,30 +1121,41 @@ class Engine:
         return dataclasses.replace(state, cov=dict(cov, map=new_map, buf_n=torch.zeros_like(cov["buf_n"])))
 
     @torch.inference_mode()
-    def run_segment(self, state: LaneState, segment_steps: int) -> LaneState:
+    def run_segment(self, state: LaneState, segment_steps: int, go=None, parked=None) -> Optional[LaneState]:
         """Advance the batch `segment_steps` event steps, with no host
         sync inside. The reference stops early once every lane is frozen;
         here the loop runs its full length, which changes nothing: a
         frozen lane writes back every field and does not advance `step`,
         and `running` stops the one write a frozen lane still makes (its
-        coverage-buffer tail). With coverage on, the buffer folds into
-        the map every `cov_buffer` iterations and, unconditionally, at
-        exit.
+        coverage-buffer tail). With buffered coverage, the buffer folds
+        into the map every `cov_buffer` iterations and, unconditionally,
+        at exit.
 
         The flush updates the coverage map in place, so the segment first
         takes its own copy: the caller's `state` is left as it was, and
-        running twice from one kept state gives equal results."""
-        if not self.config.coverage:
-            for _ in range(segment_steps):
-                state = self.step_batch(state)
-            return state
-        state = dataclasses.replace(state, cov=dict(state.cov, map=state.cov["map"].clone()))
+        running twice from one kept state gives equal results.
+
+        The stream executor's predicated segment: `go`, a scalar bool
+        tensor, freezes every lane where it is False (the segment then
+        changes nothing), and `parked()`, a host callable asked before
+        each step, may report that `go` is known to be False; the loop
+        then stops and returns None, since every step it issued was a
+        no-op."""
+        buffered = self._cov_buffered
+        if buffered:
+            state = dataclasses.replace(state, cov=dict(state.cov, map=state.cov["map"].clone()))
         for it in range(1, segment_steps + 1):
-            running = (~(state.done | state.failed)).any()
-            state = self.step_batch(state, running)
-            if it % self._cov_flush_every == 0:
+            if parked is not None and parked():
+                return None
+            running = None
+            if buffered:
+                running = (~(state.done | state.failed)).any()
+                if go is not None:
+                    running = running & go
+            state = self.step_batch(state, running, go)
+            if buffered and it % self._cov_flush_every == 0:
                 state = self._cov_flush_batch(state)
-        return self._cov_flush_batch(state)
+        return self._cov_flush_batch(state) if buffered else state
 
     @torch.inference_mode()
     def run_batch(self, seeds, max_steps: int = 10_000) -> BatchResult:
@@ -1134,7 +1165,7 @@ class Engine:
         fall on the flush cadence, so the result equals one
         `run_segment(state, max_steps)`."""
         state = self.init_batch(seeds)
-        every = self._cov_flush_every if self.config.coverage else 1
+        every = self._cov_flush_every or 1
         chunk = every * max(1, 128 // every)
         done_steps = 0
         while done_steps < max_steps:
@@ -1184,46 +1215,58 @@ class Engine:
         )
         return _with_counters(c, cap)
 
-    def _segment(self, c: StreamCarry, segment_steps: int, max_steps: int, cap: int) -> StreamCarry:
+    def _segment(self, c: StreamCarry, segment_steps: int, max_steps: int, cap: int, go=None,
+                 parked=None) -> StreamCarry:
         """Refill harvested lanes, advance one segment, harvest: all on
-        the device, no host sync."""
+        the device, no host sync. With `go` (a scalar bool tensor) the
+        segment is predicated: where it is False every write is masked
+        and the carry comes back unchanged, `segments` included. When
+        `parked()` reports mid-segment that `go` is False, the steps
+        issued so far were no-ops and `c` itself is returned."""
         # 1. refill lanes harvested at the end of the previous segment
         #    (cumsum ranks + the device seed counter: gapless, in lane order)
-        ranks = torch.cumsum(c.done.to(torch.int64), dim=0) - 1
+        refill = c.done if go is None else c.done & go
+        ranks = torch.cumsum(refill.to(torch.int64), dim=0) - 1
         fresh_seeds = (c.next_seed + ranks) & u32.MASK
-        state = tree_where(c.done, self.init_batch(fresh_seeds), c.state)
-        seeds = torch.where(c.done, fresh_seeds, c.seeds)
-        next_seed = (c.next_seed + c.done.sum()) & u32.MASK
+        state = tree_where(refill, self.init_batch(fresh_seeds), c.state)
+        seeds = torch.where(refill, fresh_seeds, c.seeds)
+        next_seed = (c.next_seed + refill.sum()) & u32.MASK
 
         # 2. advance the batch one segment
-        state = self.run_segment(state, segment_steps)
+        state = self.run_segment(state, segment_steps, go=go, parked=parked)
+        if state is None:
+            return c
 
         # 3. harvest: count completions, ring-append failing seeds/codes
         #    and abandoned (over-cap) seeds
         over_cap = state.step >= max_steps
         done = state.done | state.failed | over_cap
-        fail_mask = done & state.failed
+        # a parked segment harvests nothing (its lanes are the last
+        # harvest's, whose `done` this recomputes)
+        harvest = done if go is None else done & go
+        fail_mask = harvest & state.failed
         fail_seeds, fail_count = _append_ring(c.fail_seeds, c.fail_count, fail_mask, seeds, cap)
         fail_codes, _ = _append_ring(c.fail_codes, c.fail_count, fail_mask, state.fail_code.to(torch.int64), cap)
-        ab_mask = done & ~state.failed & over_cap
+        ab_mask = harvest & ~state.failed & over_cap
         ab_seeds, ab_count = _append_ring(c.ab_seeds, c.ab_count, ab_mask, seeds, cap)
 
         # flight-recorder totals of the lanes finishing this segment
         fr_metrics = c.fr_metrics
         if self.config.flight_recorder:
             frs, nk, ne = state.fr, len(FAULT_KIND_NAMES), len(FR_EXTRA_NAMES)
-            done_i = done.to(torch.int64)
+            done_i = harvest.to(torch.int64)
             inj_tot = fr_metrics[:nk] + (frs["inj"].to(torch.int64) * done_i[:, None]).sum(dim=0)
             extra_tot = torch.stack([
                 fr_metrics[nk + i] + (frs[k].to(torch.int64) * done_i).sum()
                 for i, k in enumerate(FR_EXTRA_NAMES)
             ])
             hwm = torch.stack([
-                torch.maximum(fr_metrics[nk + ne + i], torch.where(done, frs[k], 0).amax().to(torch.int64))
+                torch.maximum(fr_metrics[nk + ne + i], torch.where(harvest, frs[k], 0).amax().to(torch.int64))
                 for i, k in enumerate(("q_hwm", "clog_hwm", "kill_hwm"))
             ])
             fr_metrics = torch.cat([inj_tot, extra_tot, hwm])
-        # every lane's map, done or not: maps only gain bits
+        # every lane's map, done or not: maps only gain bits (and the OR
+        # is idempotent, so a parked segment adds nothing)
         cov_map = c.cov_map
         if self.config.coverage:
             cov_map = cov_map | cov_fold_words(state.cov["map"])
@@ -1232,8 +1275,8 @@ class Engine:
             seeds=seeds,
             done=done,
             next_seed=next_seed,
-            completed=c.completed + done.sum(),
-            segments=c.segments + 1,
+            completed=c.completed + harvest.sum(),
+            segments=c.segments + (1 if go is None else go.to(torch.int64)),
             fail_seeds=fail_seeds,
             fail_codes=fail_codes,
             fail_count=fail_count,
@@ -1254,28 +1297,54 @@ class Engine:
         seed_start: int = 0,
         max_steps: int = 10_000,
         mesh=None,
-        pipelined: bool = False,
+        pipelined: bool = True,
+        segments_per_dispatch: int = 8,
+        dispatch_depth: int = 4,
+        donate: Optional[bool] = None,
     ) -> dict:
         """Continuous seed streaming: run at least n_seeds simulations,
         keeping every lane busy. Each segment (refill, advance, harvest)
-        is device work; the host reads one small `counters` tensor per
-        segment and drains the failing/abandoned rings when they near
-        capacity. Seeds [seed_start, seed_start + seeds_consumed) enter
-        lanes in order; lanes past `max_steps` events are abandoned.
+        is device work; the host reads the small `counters` tensor and
+        drains the failing/abandoned rings when they near capacity.
+        Seeds [seed_start, seed_start + seeds_consumed) enter lanes in
+        order; lanes past `max_steps` events are abandoned.
+
+        The default pipelined executor issues `segments_per_dispatch`
+        segments a dispatch and makes one blocking counters read every
+        `dispatch_depth` dispatches (plus the drains). Each segment is
+        predicated on the device by the reference's go condition
+        (`completed < need` and neither ring past its drain mark), so
+        the executed segment sequence is exactly the per-segment
+        driver's (`pipelined=False`: one blocking read a segment), and
+        every result is identical. A segment whose condition is False
+        changes nothing; it still costs its host launches in eager
+        PyTorch, so after each segment the counters are copied to the
+        host without blocking (pinned memory and a CUDA event; on the
+        CPU the copy is done at once), and the host issues no segment,
+        and stops a speculative one between steps, once a finished copy
+        shows the condition False. An event query is not a blocking sync
+        and is not counted in `host_syncs`.
+
+        `donate` is accepted and reported as the reference's: in eager
+        PyTorch one carry is alive at a time either way, so it changes
+        nothing on the card.
 
         Returns the reference's dict: {"completed", "failing": [(seed,
         code)...], "infra": [(seed, code)...] (OVERFLOW lanes),
         "abandoned": [seed...], "seeds_consumed", "stats": {host_syncs,
-        drains, dispatches, device_segments, ..., "flight_recorder" (with
-        the recorder on), "coverage" (with coverage on)}, "coverage_map"
-        (with coverage on)}."""
+        drains, dispatches, dispatch_retries, device_segments,
+        dispatch_depth, segments_per_dispatch, donation, pipelined,
+        "flight_recorder" (with the recorder on), "coverage" (with
+        coverage on)}, "coverage_map" (with coverage on)}."""
         from ..runtime.coverage import coverage_dict, unpack_map
         from ..runtime.metrics import fr_metrics_dict
 
         if mesh is not None:
             raise _unported("run_stream(mesh=...)")
-        if pipelined:
-            raise _unported("run_stream(pipelined=True)")
+        if donate is None:
+            donate = True
+        if segments_per_dispatch < 1 or dispatch_depth < 1:
+            raise ValueError("segments_per_dispatch and dispatch_depth must be >= 1")
         cap = 2 * batch
         drain_mark = cap - batch
         seeds = torch.arange(seed_start, seed_start + batch, dtype=torch.int64, device=self.device) & u32.MASK
@@ -1284,7 +1353,7 @@ class Engine:
         stats = {"host_syncs": 0, "drains": 0, "dispatches": 0, "dispatch_retries": 0}
 
         def poll(c):
-            counters = c.counters.cpu().numpy()  # the one blocking read per segment
+            counters = c.counters.cpu().numpy()  # the blocking read
             stats["host_syncs"] += 1
             if counters[4]:
                 raise RuntimeError("run_stream result ring overflowed (drain policy bug)")
@@ -1304,15 +1373,49 @@ class Engine:
             zero = torch.zeros_like(c.fail_count)
             return _with_counters(dataclasses.replace(c, fail_count=zero, ab_count=zero), cap)
 
+        def pressure(counters) -> bool:
+            return int(counters[1]) > drain_mark or int(counters[2]) > drain_mark
+
         completed = 0
+        # progress is guaranteed (over-cap lanes are abandoned at
+        # harvest); the pipelined ceiling absorbs its parked dispatches
         max_segments = (max_steps // segment_steps + 2) * (n_seeds // batch + 2)
-        while completed < n_seeds and stats["dispatches"] < max_segments:
-            carry = self._segment(carry, segment_steps, max_steps, cap)
-            stats["dispatches"] += 1
-            counters = poll(carry)
-            completed = int(counters[0])
-            if int(counters[1]) > drain_mark or int(counters[2]) > drain_mark:
-                carry = drain(carry)
+        if pipelined:
+            need = min(n_seeds, 2**31 - 1)
+            watch = _CounterWatch(self.device, lambda k: int(k[0]) < need and not pressure(k))
+            max_dispatch = max_segments + dispatch_depth * (n_seeds // batch + 4)
+            in_flight = 0
+            while completed < n_seeds and stats["dispatches"] < max_dispatch:
+                # one dispatch: up to segments_per_dispatch predicated
+                # segments; the condition is monotone between drains, so
+                # once it is known False the rest are skipped
+                for _ in range(segments_per_dispatch):
+                    if watch.parked():
+                        break
+                    go = (carry.completed < need) & (carry.fail_count <= drain_mark) & (carry.ab_count <= drain_mark)
+                    nxt = self._segment(carry, segment_steps, max_steps, cap, go=go, parked=watch.parked)
+                    if nxt is not carry:
+                        carry = nxt
+                        watch.record(carry.counters)
+                stats["dispatches"] += 1
+                in_flight += 1
+                if in_flight >= dispatch_depth:
+                    in_flight = 0
+                    counters = poll(carry)
+                    completed = int(counters[0])
+                    if pressure(counters):
+                        carry = drain(carry)
+                        counters = counters.copy()
+                        counters[1] = counters[2] = 0
+                    watch.reset(counters)
+        else:
+            while completed < n_seeds and stats["dispatches"] < max_segments:
+                carry = self._segment(carry, segment_steps, max_steps, cap)
+                stats["dispatches"] += 1
+                counters = poll(carry)
+                completed = int(counters[0])
+                if pressure(counters):
+                    carry = drain(carry)
         counters = poll(carry)
         carry = drain(carry)
         out = {
@@ -1324,9 +1427,10 @@ class Engine:
             "stats": {
                 **stats,
                 "device_segments": int(counters[5]),
-                "dispatch_depth": 1,
-                "segments_per_dispatch": 1,
-                "pipelined": False,
+                "dispatch_depth": dispatch_depth if pipelined else 1,
+                "segments_per_dispatch": segments_per_dispatch if pipelined else 1,
+                "donation": bool(donate),
+                "pipelined": bool(pipelined),
             },
         }
         if self.config.flight_recorder:
@@ -1341,13 +1445,15 @@ class Engine:
         return out
 
     def make_stream_runner(self, batch: int = 1024, segment_steps: int = 256,
-                           max_steps: int = 10_000, **stream_kwargs):
-        """A configured `(n_seeds, seed_start=0) -> run_stream dict`."""
+                           max_steps: int = 10_000, mesh=None, **stream_kwargs):
+        """A configured `(n_seeds, seed_start=0) -> run_stream dict`: one
+        place to bind the executor knobs (pipelined,
+        segments_per_dispatch, dispatch_depth, donate)."""
 
         def run(n_seeds: int, seed_start: int = 0):
             return self.run_stream(
                 n_seeds, batch=batch, segment_steps=segment_steps,
-                seed_start=seed_start, max_steps=max_steps, **stream_kwargs,
+                seed_start=seed_start, max_steps=max_steps, mesh=mesh, **stream_kwargs,
             )
 
         return run
@@ -1463,6 +1569,41 @@ def _append_ring(buf, count, mask, values, cap: int):
     fills = (want_rank >= 1) & (want_rank <= n_new)
     vals = values[src.clamp(0, mask.shape[0] - 1)]
     return torch.where(fills, vals, buf), count + n_new
+
+
+class _CounterWatch:
+    """What the host knows, without blocking, of the stream's counters:
+    each finished segment's counters are copied to the host without
+    blocking (into pinned memory behind a CUDA event on the card; at
+    once on the CPU), and `parked()` says whether a copy that has
+    arrived shows the go condition `go(counters)` False. The condition
+    is monotone between drains, so the newest arrived copy decides;
+    `reset(counters)` starts afresh from a blocking poll's counters."""
+
+    def __init__(self, device: torch.device, go):
+        self.cuda = device.type == "cuda"
+        self.go = go
+        self.pending = []  # (event, pinned counters), oldest first
+        self.known = None
+
+    def record(self, counters: torch.Tensor) -> None:
+        if not self.cuda:
+            self.known = counters.numpy().copy()
+            return
+        host = torch.empty(counters.shape, dtype=counters.dtype, pin_memory=True)
+        host.copy_(counters, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self.pending.append((event, host))
+
+    def parked(self) -> bool:
+        while self.pending and self.pending[0][0].query():
+            self.known = self.pending.pop(0)[1].numpy()
+        return self.known is not None and not self.go(self.known)
+
+    def reset(self, counters) -> None:
+        self.pending = []
+        self.known = counters
 
 
 def _with_counters(c: StreamCarry, cap: int) -> StreamCarry:

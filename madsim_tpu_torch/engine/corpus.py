@@ -147,7 +147,8 @@ def check(entry: CorpusEntry, build_machine: Callable[[str, int], object], devic
         if failed:
             return RegressOutcome(entry, failed, code, False,
                                   f"DRIFT: fails with code {code}, expected {entry.fail_code}")
-        return RegressOutcome(entry, failed, code, False, "appears FIXED (no longer reproduces)")
+        return RegressOutcome(entry, failed, code, False,
+                              "appears FIXED (no longer reproduces) — re-run with --promote")
     if not failed:
         return RegressOutcome(entry, failed, code, True, "fixed (still passes)")
     return RegressOutcome(entry, failed, code, False, f"REGRESSION: fails again with code {code}")

@@ -85,7 +85,7 @@ def shrink(engine: Engine, seed: int, max_steps: int = 10_000, prov_word: Option
     base = replay(engine, seed, max_steps=max_steps, trace=False)
     if not base.failed:
         raise ValueError(
-            f"seed {seed} does not fail under this config (within {max_steps} steps): nothing to shrink"
+            f"seed {seed} does not fail under this config (within {max_steps} steps) — nothing to shrink"
         )
     code = base.fail_code
     attempts = 1

@@ -39,6 +39,11 @@ EXTRA_FLAGS = (
     ("strict-restart", "strict_restart"),
 )
 
+# The command line's `--fault-kinds` vocabulary, in the reference's
+# order: the scheduled kinds with dup (per-delivery chaos, not a
+# scheduled window) after skew.
+CLI_KIND_TO_FLAG = KIND_TO_FLAG[:8] + (("dup", "allow_dup"),) + KIND_TO_FLAG[8:]
+
 # Coverage band names: bands 0/1 are the event classes, bands 2..7 the
 # first six scheduled kinds; the 4-bit layout appends the rest.
 COV_BAND_NAMES = ("timer", "msg", "pair", "kill", "dir", "group", "storm", "delay")

@@ -12,7 +12,8 @@ is banded so the host can decode it (`runtime/coverage.py`):
 The buffered regime (`EngineConfig.cov_buffer > 0`) appends each step's
 slot index to a small per-lane buffer (`cov_push`) and folds the buffer
 into the map on a fixed cadence (`cov_flush`; the CUDA kernel in
-`ops/kernels.py` does the same fold on the card).
+`ops/kernels.py` does the same fold on the card). `cov_buffer=0` folds
+each popped event's slot into the map at once (`cov_fold`).
 """
 
 from __future__ import annotations
@@ -86,6 +87,15 @@ def cov_slot(
     mix = h & ((1 << mix_bits) - 1)
     slot = (band.to(torch.int64) << (slots_log2 - band_bits)) | (phase << mix_bits) | mix
     return slot.to(torch.int32)
+
+
+def cov_fold(cov_map, slot, hit) -> torch.Tensor:
+    """Set each lane's slot bit in its packed map [L, W] where `hit`;
+    elsewhere the word ORs in 0, so a frozen lane's map stays as it was.
+    One word gather and one word scatter per lane; returns a new map."""
+    w = (slot >> 5).to(torch.int64)[:, None]
+    bit = torch.bitwise_left_shift(torch.ones_like(slot), slot & 31) * hit.to(slot.dtype)
+    return cov_map.scatter(1, w, cov_map.gather(1, w) | bit[:, None].to(cov_map.dtype))
 
 
 def cov_push(buf, n, slot, hit, write=None):

@@ -4,7 +4,9 @@ corpus uses,
     write tmp -> flush -> fsync(tmp fd) -> rename -> fsync(directory)
 
 so a reader never sees a torn file and a crash leaves the old version or
-the new one. The directory fsync persists the rename itself.
+the new one. The directory fsync persists the rename itself. The corpus,
+the hunt checkpoint, the coverage doc and the stats snapshots write
+through here.
 """
 
 from __future__ import annotations
@@ -29,16 +31,19 @@ def fsync_dir(dirpath: str) -> None:
         os.close(fd)
 
 
-def atomic_write_text(path: str, text: str) -> None:
+def atomic_write_text(path: str, text: str, *, fsync: bool = True) -> None:
     """Atomically replace `path` with `text` (tmp + fsync + rename +
-    dir-fsync)."""
+    dir-fsync). `fsync=False` keeps the rename (a reader never sees a
+    torn file) without the durability half, for throwaway snapshots."""
     tmp = f"{path}.tmp"
     with open(tmp, "w") as f:
         f.write(text)
-        f.flush()
-        os.fsync(f.fileno())
+        if fsync:
+            f.flush()
+            os.fsync(f.fileno())
     os.replace(tmp, path)
-    fsync_dir(os.path.dirname(os.path.abspath(path)))
+    if fsync:
+        fsync_dir(os.path.dirname(os.path.abspath(path)))
 
 
 def atomic_write_json(path: str, doc, *, indent: int = 1, sort_keys: bool = True) -> None:

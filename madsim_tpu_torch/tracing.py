@@ -1,0 +1,166 @@
+"""Logging and run telemetry of the command line: the port's copy of
+the parts of `madsim_tpu/tracing.py` it uses.
+
+`init_tracing` installs a stream handler whose format carries the sim
+context (`%(sim)s`), and with a path a structured JSONL sink
+(`JsonlHandler`); `StatsEmitter` writes a long hunt's per-batch records
+as JSONL history, a Prometheus textfile and a latest-record snapshot.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from typing import Optional
+
+
+class SimContextFilter(logging.Filter):
+    """Injects the simulation context into log records. The port has no
+    async sim runtime, so a record is never emitted inside a simulated
+    task: its context is "-", the reference's value outside one."""
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        record.sim = "-"
+        return True
+
+
+class JsonlHandler(logging.Handler):
+    """Structured JSONL log sink: one JSON object per record —
+    {"ts", "level", "logger", "sim", "msg"} — append-mode, grep/jq-able.
+    The machine-readable counterpart of the human StreamHandler format
+    (engine traces have their own serializer, engine/trace_export.py)."""
+
+    def __init__(self, path: str):
+        super().__init__()
+        self._f = open(path, "a")
+
+    def emit(self, record: logging.LogRecord) -> None:
+        try:
+            self._f.write(
+                json.dumps(
+                    {
+                        "ts": round(time.time(), 6),
+                        "level": record.levelname,
+                        "logger": record.name,
+                        "sim": getattr(record, "sim", "-"),
+                        "msg": record.getMessage(),
+                    }
+                )
+            )
+            self._f.write("\n")
+            self._f.flush()
+        except Exception:  # never let logging take down the sim
+            self.handleError(record)
+
+    def close(self) -> None:
+        try:
+            self._f.close()
+        finally:
+            super().close()
+
+
+def init_tracing(level: str = "INFO", jsonl_path: Optional[str] = None) -> None:
+    """Install a handler whose format includes the sim span context
+    (reference: init_logger, sim/runtime/mod.rs:445-449). With
+    `jsonl_path`, a structured JSONL sink (JsonlHandler) is installed
+    alongside the human-readable stream handler."""
+    root = logging.getLogger()
+    root.setLevel(getattr(logging, level.upper()))
+    handler = logging.StreamHandler()
+    handler.setFormatter(logging.Formatter("%(levelname)s [%(sim)s] %(name)s: %(message)s"))
+    handler.addFilter(SimContextFilter())
+    root.addHandler(handler)
+    if jsonl_path:
+        jh = JsonlHandler(jsonl_path)
+        jh.addFilter(SimContextFilter())
+        root.addHandler(jh)
+
+
+class StatsEmitter:
+    """Time-series run telemetry for long hunts/benches — observable
+    from OUTSIDE the process, which a log stream is not:
+
+      * `<base>.jsonl` — one JSON object per emitted record (append;
+        the whole history, replotting-friendly);
+      * `<base>.prom` — a Prometheus textfile-collector snapshot of the
+        LATEST record's numeric leaves (node_exporter's textfile
+        directory);
+      * `<base>.json` — the latest record verbatim (dashboards read one
+        file, not a log).
+
+    Snapshots are written atomically (tmp + rename) so a scraper never
+    reads a torn file. Records are plain dicts; nested dicts flatten to
+    `a_b_c` gauge names, non-numeric leaves are JSONL-only. Emission
+    must never take down a hunt: I/O errors are swallowed after the
+    constructor proves the base path writable."""
+
+    def __init__(self, base: str, prefix: str = "madsim_tpu"):
+        self.base = base
+        self.prefix = prefix
+        self.seq = 0
+        self._jsonl = open(base + ".jsonl", "a")
+
+    @property
+    def jsonl_path(self) -> str:
+        return self.base + ".jsonl"
+
+    @property
+    def prom_path(self) -> str:
+        return self.base + ".prom"
+
+    @property
+    def snapshot_path(self) -> str:
+        return self.base + ".json"
+
+    @staticmethod
+    def _flatten(record: dict, prefix: str = "") -> dict:
+        out: dict = {}
+        for k, v in record.items():
+            key = f"{prefix}_{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                out.update(StatsEmitter._flatten(v, key))
+            elif isinstance(v, bool):
+                out[key] = int(v)
+            elif isinstance(v, (int, float)):
+                out[key] = v
+        return out
+
+    def _atomic_write(self, path: str, text: str) -> None:
+        # the shared rename discipline, WITHOUT the fsync half: these
+        # snapshots are rewritten every batch and are throwaway on
+        # crash — a scraper must never see a torn file, but losing the
+        # latest one to a power cut costs one poll interval
+        from .runtime.atomicio import atomic_write_text
+
+        atomic_write_text(path, text, fsync=False)
+
+    def emit(self, record: dict) -> dict:
+        """Emit one record (a plain dict of stats). Returns the record
+        as written (with `ts`/`seq` stamped)."""
+        self.seq += 1
+        row = {"ts": round(time.time(), 6), "seq": self.seq, **record}
+        return self._emit_row(row)
+
+    def _emit_row(self, row: dict) -> dict:
+        try:
+            self._jsonl.write(json.dumps(row, sort_keys=True) + "\n")
+            self._jsonl.flush()
+            lines = [f"# emitted by madsim_tpu StatsEmitter (seq {self.seq})"]
+            for k, v in sorted(self._flatten(row).items()):
+                name = f"{self.prefix}_{k}".replace("-", "_").replace(".", "_")
+                lines.append(f"# TYPE {name} gauge")
+                lines.append(f"{name} {v}")
+            self._atomic_write(self.prom_path, "\n".join(lines) + "\n")
+            self._atomic_write(
+                self.snapshot_path, json.dumps(row, sort_keys=True) + "\n"
+            )
+        except OSError:  # telemetry must never kill the run
+            pass
+        return row
+
+    def close(self) -> None:
+        try:
+            self._jsonl.close()
+        except OSError:
+            pass

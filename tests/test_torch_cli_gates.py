@@ -1,0 +1,133 @@
+"""The port's command line where it refuses or stops: every gate the port
+has not lifted exits with status 2 and one line naming the gate and its
+ROADMAP item, before any engine is built; without a card and without
+`--device cpu` a command exits non-zero and never falls back to the
+CPU; an unknown machine or fault kind exits as the reference's does.
+Then the short runs held against the JAX package's command line: the
+`--stop-on-plateau` early exit with `--stats` (and its refusal without
+`--coverage`, tests/test_coverage.py:280-320), `explore` on the batch
+path with coverage, and `check`."""
+
+import json
+
+import pytest
+import torch
+
+from madsim_tpu_torch.__main__ import main
+
+from torch_port_util import run_pair
+
+ECHO = ["--machine", "echo", "--seeds", "8", "--faults", "0", "--max-steps", "50"]
+GATES = [
+    ("why", ["why", "3"], "item 7"),
+    ("perf", ["perf", "out.json"], "item 13"),
+    ("prof", ["prof", "compile"], "item 13"),
+    ("bench", ["bench", "--lanes", "64"], "item 6"),
+    ("bench-ab", ["bench-ab", "--gate", "coverage"], "item 6"),
+    ("serve", ["serve", "--service", "stats"], "item 9"),
+    ("fleet", ["fleet", "queue"], "item 11"),
+    ("lint", ["lint"], "item 14"),
+    ("--provenance", ["explore", *ECHO, "--provenance"], "item 7"),
+    ("--guided", ["hunt", *ECHO, "--stream", "--coverage", "--guided"], "item 10"),
+    ("--devices", ["explore", *ECHO, "--stream", "--devices", "2"], "item 12"),
+    ("--multihost", ["explore", *ECHO, "--multihost"], "item 12"),
+    ("--perf-timeline", ["explore", *ECHO, "--stream", "--perf-timeline", "t.json"], "item 13"),
+    ("--xla-profile", ["explore", *ECHO, "--stream", "--xla-profile", "prof"], "item 13"),
+    ("--compile-cache", ["replay", "--machine", "echo", "--compile-cache", "cache"], "compile"),
+]
+
+
+@pytest.mark.parametrize("gate,argv,item", GATES, ids=[g for g, _, _ in GATES])
+def test_gates_exit_2_naming_themselves(gate, argv, item, capsys, monkeypatch):
+    from madsim_tpu_torch.engine import core
+
+    def no_engine(*args, **kwargs):
+        raise AssertionError("a gated command built an engine")
+
+    monkeypatch.setattr(core.Engine, "__init__", no_engine)
+    assert main([*argv, "--device", "cpu"] if argv[0] in ("explore", "hunt", "replay") else argv) == 2
+    err = capsys.readouterr().err.strip()
+    assert len(err.splitlines()) == 1 and gate in err and item in err and "not ported" in err
+
+
+@pytest.mark.parametrize("argv", [["explore", *ECHO], ["regress", "--corpus", "c.json"], ["check", *ECHO]],
+                         ids=["explore", "regress", "check"])
+def test_no_card_exits_without_falling_back(argv, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(argv) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_unknown_machine_and_kinds_exit_as_the_reference(capsys):
+    from madsim_tpu.__main__ import main as jax_main
+
+    for argv in (["explore", "--machine", "nope", "--seeds", "4"],
+                 ["explore", *ECHO, "--fault-kinds", "pair,bogus"],
+                 ["explore", *ECHO, "--faults", "1", "--fault-kinds", "dup"]):
+        with pytest.raises(SystemExit) as want:
+            jax_main(argv)
+        with pytest.raises(SystemExit) as got:
+            main([*argv, "--device", "cpu"])
+        assert str(got.value) == str(want.value) and str(got.value)
+
+
+def test_plateau_with_stats_matches_jax(tmp_path):
+    base = {who: str(tmp_path / who) for who in ("jax", "port")}
+    argv = ["explore", "--machine", "echo", "--seeds", "160", "--batch", "32", "--stream", "--coverage",
+            "--faults", "0", "--horizon", "1.0", "--max-steps", "200", "--stop-on-plateau", "2"]
+    want, got = run_pair([*argv, "--stats", base["jax"]], [*argv, "--stats", base["port"]])
+    assert got == want and got[0] == 0 and "plateau" in got[1]
+
+    def rows(b):
+        out = []
+        for line in open(b + ".jsonl"):
+            row = json.loads(line)
+            for key in ("ts", "seeds_per_sec", "elapsed_s"):
+                row.pop(key, None)
+            out.append(row)
+        return out
+
+    assert rows(base["port"]) == rows(base["jax"])
+    [summary] = [r for r in rows(base["port"]) if r["kind"] == "explore_summary"]
+    assert summary["plateau"] is True and f"streamed {summary['completed']} seeds" in got[1]
+
+
+def test_plateau_requires_coverage():
+    from madsim_tpu_torch.__main__ import main
+
+    with pytest.raises(SystemExit, match="--coverage"):
+        main(["explore", "--machine", "echo", "--seeds", "32", "--batch", "32", "--stream", "--faults", "0",
+              "--stop-on-plateau", "2", "--max-steps", "200", "--device", "cpu"])
+
+
+def test_explore_batch_and_check_match_jax():
+    want, got = run_pair(["explore", "--machine", "demo-doublegrant-etcd", "--seeds", "16", "--horizon", "8.0",
+                          "--max-steps", "200", "--coverage"])
+    assert got == want and got[0] == 1 and "failure codes: [120]" in got[1] and "coverage: " in got[1]
+    want, got = run_pair(["check", "--machine", "kv", "--seeds", "8", "--max-steps", "120"])
+    assert got == want and got[0] == 0 and "determinism check passed for 8 seeds" in got[1]
+
+
+def test_command_line_runs_with_jax_blocked(tmp_path):
+    """`python -m madsim_tpu_torch` imports nothing of JAX or the JAX
+    package: a hunt, its corpus regress and a coverage report run with
+    them blocked."""
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    corpus = str(tmp_path / "c.json")
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'madsim_tpu'): sys.modules[m] = None\n"
+        "sys.argv = ['madsim_tpu_torch'] + sys.argv[1:]\n"
+        "runpy.run_module('madsim_tpu_torch', run_name='__main__')\n"
+    )
+    hunt = ["hunt", "--machine", "demo-doublegrant-etcd", "--seeds", "4", "--horizon", "8.0", "--max-steps", "200",
+            "--corpus", corpus, "--limit", "1", "--device", "cpu"]
+    for argv, rc in ((hunt, 1), (["regress", "--corpus", corpus, "--device", "cpu"], 0)):
+        out = subprocess.run([sys.executable, "-c", code, *argv], cwd=repo, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == rc, out.stderr[-2000:]
+    assert "1/1 entries satisfied" in out.stdout

@@ -41,7 +41,7 @@ def test_run_stream_matches_jax_with_the_recorder_and_coverage_off():
     port = Engine(multipaxos.NoPromiseCheckMultiPaxos(5), EngineConfig(faults=FaultPlan(**faults), **cfg),
                   device="cpu")
     kw = dict(batch=16, segment_steps=64, seed_start=0, max_steps=384)
-    want, got = jax_eng.run_stream(32, pipelined=False, **kw), port.run_stream(32, **kw)
+    want, got = jax_eng.run_stream(32, pipelined=False, **kw), port.run_stream(32, pipelined=False, **kw)
     for key in ("completed", "failing", "infra", "abandoned", "seeds_consumed"):
         assert got[key] == want[key], key
     for key in ("host_syncs", "drains", "dispatches", "device_segments"):

@@ -53,7 +53,7 @@ def flagship():
 
 def test_kinds_tables_match_the_reference():
     for name in ("FAULT_KIND_NAMES", "FR_EXTRA_NAMES", "COV_BAND_NAMES", "COV_BAND_NAMES_V2", "KIND_TO_FLAG",
-                 "EXTRA_FLAGS", "FLAG_BY_KIND", "KIND_BY_FLAG"):
+                 "EXTRA_FLAGS", "FLAG_BY_KIND", "KIND_BY_FLAG", "CLI_KIND_TO_FLAG"):
         assert getattr(kinds, name) == getattr(jax_kinds, name), name
 
 
@@ -116,7 +116,7 @@ def test_run_segment_leaves_its_input_state_alone(flagship):
 def overcommit_streams():
     jax_eng, port = engines(JaxOvercommitRaft(5, 8), OvercommitRaft(5, 8))
     kw = dict(batch=32, segment_steps=64, seed_start=OVERCOMMIT_SEED - 40, max_steps=384)
-    return jax_eng.run_stream(64, pipelined=False, **kw), port.run_stream(64, **kw)
+    return jax_eng.run_stream(64, pipelined=False, **kw), port.run_stream(64, pipelined=False, **kw)
 
 
 def test_run_stream_matches_jax(overcommit_streams):
@@ -136,11 +136,11 @@ def test_overcommit_bug_found_on_the_same_seeds(overcommit_streams):
 
 
 # the gates still closed; those lifted since (every FaultPlan kind among
-# them) run in test_torch_gates.py
+# them) run in test_torch_gates.py, cov_buffer=0 and the pipelined
+# executor below
 GATES = [
     ("clog_packed=False", dict(clog_packed=False)),
     ("provenance", dict(provenance=True)),
-    ("cov_buffer=0", dict(cov_buffer=0)),
     ("compile_cache_dir", dict(compile_cache_dir="cache")),
 ]
 
@@ -152,12 +152,35 @@ def test_unported_gates_raise(gate, overrides):
         Engine(raft.RaftMachine(5, 8), cfg, device="cpu")
 
 
+def test_cov_buffer_zero_matches_jax():
+    """The lifted `cov_buffer=0` gate: the unbuffered per-event fold's
+    whole BatchResult equals the JAX package's on the flagship."""
+    jax_eng, port = engines(jax_raft.RaftMachine(5, 8), raft.RaftMachine(5, 8), cov_buffer=0)
+    seeds = np.arange(32, dtype=np.uint32) + 1000
+    want = jax.jit(jax_eng.run_batch, static_argnums=1)(jnp.asarray(seeds), 160)
+    got = port.run_batch(seeds, 160)
+    _same(want, got)
+    assert set(got.cov) == {"map"} and int(got.cov["map"].ne(0).sum()) > 0
+
+
 def test_stream_gates_raise(flagship):
     _, port = flagship
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        port.run_stream(8, batch=8, pipelined=True)
     with pytest.raises(NotImplementedError, match="mesh"):
         port.run_stream(8, batch=8, mesh=object())
+
+
+def test_pipelined_stream_matches_jax():
+    """The lifted `pipelined=True` gate (now the default): the overcommit
+    stream's results and executor statistics equal the JAX package's
+    pipelined executor's."""
+    jax_eng, port = engines(JaxOvercommitRaft(5, 8), OvercommitRaft(5, 8))
+    kw = dict(batch=32, segment_steps=64, seed_start=OVERCOMMIT_SEED - 40, max_steps=384)
+    want, got = jax_eng.run_stream(64, **kw), port.run_stream(64, **kw)
+    for key in ("completed", "failing", "infra", "abandoned", "seeds_consumed"):
+        assert got[key] == want[key], key
+    assert got["stats"] == {k: v for k, v in want["stats"].items()}
+    assert np.array_equal(got["coverage_map"], want["coverage_map"])
+    assert (OVERCOMMIT_SEED, raft.LOG_MATCHING) in got["failing"] and got["stats"]["pipelined"]
 
 
 def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

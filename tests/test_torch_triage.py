@@ -130,7 +130,7 @@ def test_decode_ring_on_a_lane_that_never_filled_its_ring():
 def test_run_stream_with_a_ring_matches_jax():
     jax_eng, port = _triage(2, trace_ring=8)
     kw = dict(batch=16, segment_steps=32, seed_start=700, max_steps=256)
-    want, got = jax_eng.run_stream(40, pipelined=False, **kw), port.run_stream(40, **kw)
+    want, got = jax_eng.run_stream(40, pipelined=False, **kw), port.run_stream(40, pipelined=False, **kw)
     for key in ("completed", "failing", "infra", "abandoned", "seeds_consumed"):
         assert got[key] == want[key], key
     for key in ("coverage", "flight_recorder", "host_syncs", "drains", "dispatches", "device_segments"):

@@ -4,7 +4,11 @@ for both, and leaf-for-leaf comparison of their state trees."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
+import json
+import re
 
 import numpy as np
 import torch
@@ -152,3 +156,46 @@ def check_projection(jax_m, port_m, states, now):
     for k, s in enumerate(states):
         got = port_m.coverage_projection(torch_nodes(port_m.state_type, s), t_now)
         assert np.array_equal(got.numpy(), np.asarray(proj(s, now))), k
+
+
+# -- the command line ---------------------------------------------------------
+
+_WALL = re.compile(r" in \d+\.\ds \(\d+ seeds/s\)")
+
+
+def cli_text(out: str) -> str:
+    """A command line's stdout with its wall-clock figures masked and the
+    program name as the JAX package's, so the two packages' outputs
+    compare as text."""
+    return _WALL.sub(" in <wall>", out.replace("madsim_tpu_torch", "madsim_tpu"))
+
+
+def run_cli(main, argv):
+    """(exit code, stdout) of one command line run in this process."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(list(argv))
+    return rc, out.getvalue()
+
+
+def run_pair(jax_argv, port_argv=None, port_extra=("--device", "cpu")):
+    """Run the JAX package's command line on `jax_argv` and the port's on
+    `port_argv` (the same by default) plus `port_extra` (the CPU):
+    ((rc, text), (rc, text)), the texts as `cli_text` gives them."""
+    from madsim_tpu.__main__ import main as jax_main
+    from madsim_tpu_torch.__main__ import main as port_main
+
+    want = run_cli(jax_main, jax_argv)
+    got = run_cli(port_main, list(jax_argv if port_argv is None else port_argv) + list(port_extra))
+    return (want[0], cli_text(want[1])), (got[0], cli_text(got[1]))
+
+
+def corpus_without_env(path):
+    """A corpus file's entries with the `meta` fields that name the
+    package and its framework (the port's torch and CUDA, the reference's
+    JAX) taken out; everything else as written."""
+    doc = json.load(open(path))
+    for entry in doc["entries"]:
+        for key in ("madsim_tpu", "madsim_tpu_torch", "jax", "jaxlib", "torch", "cuda"):
+            entry.get("meta", {}).pop(key, None)
+    return doc
