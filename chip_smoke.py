@@ -118,8 +118,26 @@ last line):
      segments issued (megakernel launches over 384) against those
      executed; `cli_kernels` holds and times the megakernel at the
      replays' L = 1, `check`'s 256 lanes and the small explore's 64, and
-     the flush at 64 lanes;
- 12. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+     the flush at 64 lanes. Beside the hunt runs the same hunt with
+     `--provenance`, which must find the same seeds, print the fault
+     attribution line, harvest a word for every find (the first eight
+     equal to one-lane replays on the card) and shrink its first find
+     with provenance guidance in no more replays than `shrink` to the
+     same config; `why` of that seed with `--json --perfetto` gives the
+     same stdout and files on the card and the CPU;
+ 12. causal provenance in process (`provenance`): 256 lanes of the
+     volatile-commit demo under the palette with heal-asym and 2% loss,
+     on both streams, every lane leaf equal on the card and the CPU with
+     the gate on, and every leaf but the three provenance planes equal
+     with it on and off; the 8192-lane profile of the hunt's engine with
+     the gate on and off (its cost a step);
+ 13. the unpacked clog matrix (`card_vs_cpu_clog`): the flagship at 256
+     lanes under every link kind on both streams, packed against
+     unpacked and the matrix on the card against the CPU; a 64-node
+     gossip cluster (which only the matrix holds) at 256 lanes on both
+     streams against the CPU; `clog_kernels` holds and times the
+     megakernel and pop_gather at its queue of 256;
+ 14. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
@@ -135,12 +153,14 @@ just after; a kernel of the path that never launched fails the run.
 
 It needs a CUDA card and the repository beside it; with neither it
 exits non-zero and prints no result. `--only cli` builds the kernels and
-runs phase 11 alone (a short check; it prints no result line).
+runs phase 11 alone, `--only prov` phases 11-13 (short checks; they print
+no result line).
 """
 
 import argparse
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -281,6 +301,26 @@ TRIAGE_FAULTS = dict(n_faults=2, t_max_us=5_000_000, dur_min_us=200_000, dur_max
 TRIAGE_STEPS, TRIAGE_MIN_FAILING, POSTMORTEM_LANES = 32, 1024, 8
 TRIAGE_STATE_STEPS = 8  # the hunt's state its kernels are timed and profiled on: this far in (lanes live)
 TRIAGE_DIGEST_EVERY = 4  # the recorded entry's checkpoint cadence (a shrunk entry runs ~20 events)
+# phase 12, provenance: 256 lanes of the volatile-commit demo under
+# card_vs_cpu_demos' plan with the whole palette, heal-asym and 2% loss
+# (on the CPU 7 lanes fail 102 by step 256, each word with the amnesia
+# bit; duplicate copies queue with bit 31), and the 8192-lane profile of
+# the command-line hunt's engine with the gate on and off; the first
+# finds of the hunt replayed
+PROV_LANES, PROV_STEPS, PROV_Q = 256, 256, 96
+PROV_FAULTS = dict(VOLATILE_FAULTS, allow_pause=True, allow_skew=True, allow_dup=True, allow_heal_asym=True)
+PROV_PROFILE_STEPS, PROV_STATE_STEPS, PROV_REPLAYS = 8, 32, 8
+# phase 13, the unpacked clog matrix: the flagship under every link kind
+# (packed against unpacked, and the matrix on the card against the CPU),
+# and a 64-node gossip cluster, which only the matrix holds, under pair
+# and kill (past 61 nodes no v2 schedule can be drawn, so no dir or group
+# fault); its queue is the smallest power of two from 256 that overflows
+# no lane over its steps
+CLOG_FAULTS = dict(FLAGSHIP_FAULTS, n_faults=3, allow_dir_clog=True, allow_group=True, allow_heal_asym=True)
+CLOG_STEPS = 160
+GOSSIP64 = dict(horizon_us=5_000_000, clog_packed=False, flight_recorder=True, coverage=False)
+GOSSIP64_FAULTS = dict(n_faults=3, t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=800_000)
+GOSSIP64_NODES, GOSSIP64_LANES, GOSSIP64_STEPS, GOSSIP64_MIN_Q = 64, 256, 128, 256
 STARTED = time.perf_counter()
 
 
@@ -512,6 +552,13 @@ def pop_planes(state, gather=True):
     return planes + [state.eq_kind, state.eq_node, state.eq_src, state.eq_payload] if gather else planes
 
 
+def pop_gather_bytes(lanes, q, p):
+    """pop_gather's bytes: the time, seq and valid planes whole (9 B a
+    slot); one 32-byte sector for each gathered field (kind, node, src,
+    the payload row); idx, any, the four fields and the payload row out."""
+    return lanes * (9 * q + 4 * 32 + 4 + 1 + 16 + 4 * p)
+
+
 def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_states, palette_states, torn_state,
                       models_state, triage_replay_state):
     """The pop + gather and pop kernels against their twins on the main
@@ -561,10 +608,7 @@ def check_pop_kernels(kernels, g, dev, state, replay_state, hunt_state, corpus_s
         if name == "pop_gather":
             fn, plain, err = (lambda: kernels.pop_gather_batch(*ins)), (lambda: kernels.pop_gather_plain(*ins)), \
                 gather_err
-            # bytes: time, seq and valid planes whole (9 B a slot); one
-            # 32-byte sector for each gathered field (kind, node, src, the
-            # payload row); idx, any, the four fields and the payload row out
-            nbytes = lanes * (9 * q + 4 * 32 + 4 + 1 + 16 + 4 * ins[6].shape[2])
+            nbytes = pop_gather_bytes(lanes, q, ins[6].shape[2])
         else:
             fn, plain, err = (lambda: kernels.pop_earliest_batch(*ins[:3])), \
                 (lambda: kernels.pop_earliest_plain(*ins[:3])), pop_err
@@ -1527,11 +1571,31 @@ def triage_kernels(kernels, dev, found, model_states):
     ), (("cov_flush_triage", found["hunt_state"].cov, found["hunt_launches"]["cov_flush"]),))
 
 
-def time_kernel_shapes(kernels, dev, phase, steps, flushes):
-    """Each megakernel shape (name, state, words, launches) and each
-    flush (name, the coverage leaves, launches) against its twin on the
-    state of the path that launches it, then timed there with its floor
-    and bound; one `phase` line."""
+def time_pop_gather(kernels, dev, state):
+    """pop_gather against its twin on a main path's state, then its time
+    there, the twin's, (bytes, operations) and its floor."""
+    import torch
+
+    ins = pop_planes(state)
+    got, want = kernels.pop_gather_batch(*ins), kernels.pop_gather_plain(*ins)
+    torch.cuda.synchronize()
+    err = max_abs_err([got[0], got[1], *got[2], got[3]], [want[0], want[1], *want[2], want[3]])
+    lanes, q = state.eq_time.shape
+    if err:
+        fail(f"pop_gather disagrees with its twin at L = {lanes}, Q = {q}: max abs err {err}")
+    ms = device_time_ms(lambda: kernels.pop_gather_batch(*ins))
+    plain_ms = wall_time_ms(lambda: kernels.pop_gather_plain(*ins))
+    # three compares a slot, one per argmin stage
+    nbytes = pop_gather_bytes(lanes, q, state.eq_payload.shape[2])
+    return err, ms, plain_ms, nbytes, lanes * 3 * q, floor_ms(kernels, "pop_gather", lanes, dev)
+
+
+def time_kernel_shapes(kernels, dev, phase, steps, flushes, pops=()):
+    """Each megakernel shape (name, state, words, launches), each flush
+    (name, the coverage leaves, launches) and each pop + gather shape
+    (name, state, launches) against its twin on the state of the path
+    that launches it, then timed there with its floor and bound; one
+    `phase` line."""
     out = {}
     for name, state, words, n in steps:
         err, ms, plain, nbytes, ops, floor = time_step_kernel(kernels, dev, state, words)
@@ -1543,6 +1607,10 @@ def time_kernel_shapes(kernels, dev, phase, steps, flushes):
         out[name] = {"lanes": cov["buf"].shape[0], "ms": ms, "plain_ms": plain, "floor_ms": floor,
                      "bytes": nbytes, "ops": ops, "live_entries": live, "live_sectors": sectors, "launches": n,
                      "max_abs_err": err}
+    for name, state, n in pops:
+        err, ms, plain, nbytes, ops, floor = time_pop_gather(kernels, dev, state)
+        out[name] = {"lanes": state.eq_time.shape[0], "q": state.eq_time.shape[1], "ms": ms, "plain_ms": plain,
+                     "floor_ms": floor, "bytes": nbytes, "ops": ops, "launches": n, "max_abs_err": err}
     for k in out.values():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
         k["launches_x_excess_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
@@ -1710,16 +1778,23 @@ def cli_phase(torch, np):
     with tempfile.TemporaryDirectory(prefix="madsim_cli_") as tmp:
         files = {k: str(pathlib.Path(tmp) / f) for k, f in (
             ("corpus", "found.json"), ("ckpt", "hunt.ckpt.json"), ("cov", "hunt.cov.json"),
-            ("perfetto", "trace.json"), ("jsonl", "trace.jsonl"), ("repo_corpus", "corpus.json"))}
+            ("perfetto", "trace.json"), ("jsonl", "trace.jsonl"), ("repo_corpus", "corpus.json"),
+            ("prov_corpus", "found_prov.json"), ("prov_ckpt", "hunt_prov.ckpt.json"),
+            ("why_json", "why.json"), ("why_perfetto", "why.perfetto.json"),
+            ("why_json_cpu", "why_cpu.json"), ("why_perfetto_cpu", "why_cpu.perfetto.json"))}
         shutil.copy(pathlib.Path(__file__).resolve().parent / "corpus.json", files["repo_corpus"])
 
-        # 1. the hunt, and beside it what needs nothing of it
+        # 1. the hunt, with provenance and without, and beside them what
+        #    needs nothing of them
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(1) as pool:
+        hunt_argv = ["hunt", "--stream", *CLI_HUNT, "--seeds", str(2 * CLI_LANES), "--batch", str(CLI_LANES),
+                     "--flight-recorder", "--coverage", "--log-level", "INFO"]
+        with ThreadPoolExecutor(2) as pool:
             hunt_job = pool.submit(run_cli, tmp, "hunt", [
-                "hunt", "--stream", *CLI_HUNT, "--seeds", str(2 * CLI_LANES), "--batch", str(CLI_LANES),
-                "--flight-recorder", "--coverage", "--coverage-out", files["cov"], "--checkpoint", files["ckpt"],
-                "--corpus", files["corpus"], "--log-level", "INFO"], 1)
+                *hunt_argv, "--coverage-out", files["cov"], "--checkpoint", files["ckpt"],
+                "--corpus", files["corpus"]], 1)
+            prov_job = pool.submit(run_cli, tmp, "hunt_prov", [
+                *hunt_argv, "--provenance", "--checkpoint", files["prov_ckpt"], "--corpus", files["prov_corpus"]], 1)
             res = run_cli_jobs(tmp, {  # name: (argv, exit code, CPU threads)
                 "corpus_regress": (["regress", "--corpus", files["repo_corpus"]], 0),
                 "corpus_audit": (["audit", "--corpus", files["repo_corpus"]], 0),
@@ -1727,7 +1802,7 @@ def cli_phase(torch, np):
                 "small_card": (CLI_SMALL, 0),
                 "small_cpu": ([*CLI_SMALL, "--device", "cpu"], 0, 2),
             })
-            hunt = hunt_job.result()
+            hunt, hunt_prov = hunt_job.result(), prov_job.result()
         stage1_s = round(time.perf_counter() - t0, 3)
         m = re.search(r"hunted (\d+) seeds: (\d+) failing", hunt["out"])
         added = re.search(r"(\d+) new entries in", hunt["out"])
@@ -1741,6 +1816,7 @@ def cli_phase(torch, np):
         if not ckpt["done"] or len(failing) != int(m.group(2)):
             fail(f"cli hunt's checkpoint: done={ckpt['done']}, {len(failing)} failing, printed {m.group(2)}")
         seed, code = failing[0]
+        prov = cli_provenance_hunt(hunt, hunt_prov, files, failing)
         for name in ("corpus_regress", "corpus_audit"):
             if "8/8 entries satisfied" not in res[name]["out"]:
                 fail(f"cli {name} of corpus.json:\n{res[name]['out']}")
@@ -1764,6 +1840,10 @@ def cli_phase(torch, np):
                 "trace": (["trace", *one, "--perfetto", files["perfetto"], "--jsonl", files["jsonl"]], 1),
                 "shrink": (["shrink", *one], 0),
                 "coverage": (["coverage", files["cov"]], 0),
+                "why": (["why", str(seed), *CLI_HUNT, "--json", files["why_json"], "--perfetto",
+                         files["why_perfetto"]], 0),
+                "why_cpu": (["why", str(seed), *CLI_HUNT, "--json", files["why_json_cpu"], "--perfetto",
+                             files["why_perfetto_cpu"], "--device", "cpu"], 0, 2),
             })
             # the first four finds on the CPU engine, meanwhile
             cpu_eng = _build_engine(_parser().parse_args(["explore", *CLI_HUNT, "--device", "cpu"]))
@@ -1771,6 +1851,9 @@ def cli_phase(torch, np):
             torch.set_num_threads(2)
             replay = cpu_eng.run_batch(np.array([s for s, _ in failing[:4]], dtype=np.uint32), 3000)
             torch.set_num_threads(threads)
+            # and the provenance hunt's words of its first finds against
+            # one-lane replays on the card
+            prov["replays"] = cli_prov_replays(prov["words"], failing[:PROV_REPLAYS])
             res.update(jobs.result())
         stage2_s = round(time.perf_counter() - t0, 3)
         codes = [int(c) if f else 0 for f, c in zip(replay.failed.tolist(), replay.fail_code.tolist())]
@@ -1792,7 +1875,12 @@ def cli_phase(torch, np):
             fail(f"cli shrink:\n{res['shrink']['out']}")
         if "demo-volatilecommit-raft:" not in res["coverage"]["out"]:
             fail(f"cli coverage:\n{res['coverage']['out']}")
-        for name in ("regress", "audit", "replay", "shrink", "check", "corpus_regress", "small_card"):
+        prov["why"] = cli_why_pair(res, files, seed, code)
+        unguided = re.search(r"\[(\d+) verification replays\]", res["shrink"]["out"])
+        if not unguided or prov["guided_attempts"] > int(unguided.group(1)):
+            fail(f"cli: the guided shrink took {prov['guided_attempts']} replays, `shrink`:\n{res['shrink']['out']}")
+        prov["shrink_attempts"] = int(unguided.group(1))
+        for name in ("regress", "audit", "replay", "shrink", "check", "corpus_regress", "small_card", "why"):
             if sum(res[name]["launches"].values()) <= 0:
                 fail(f"cli {name} on the card launched no kernel: {res[name]['launches']}")
 
@@ -1833,9 +1921,79 @@ def cli_phase(torch, np):
             "found_entries": n_found, "trace_flows": int(flows.group(2)), "small_equal": True,
             "explore": explore,
         }
-    emit({"phase": "cli", **out})
+        prov.pop("words")
+        out["provenance"] = {**prov, "subprocess_s": hunt_prov["s"], "launches": hunt_prov["launches"],
+                             **cli_rates(hunt_prov["err"])}
+    emit({"phase": "cli", **{k: v for k, v in out.items() if k != "provenance"}})
     out["launches"] = {k: r["launches"] for k, r in res.items()}
     return out
+
+
+def cli_provenance_hunt(hunt, hunt_prov, files, failing):
+    """Phase 11's `hunt --stream --provenance` against the gate-off hunt
+    beside it: the same finds (the provenance changes no result), the
+    fault-attribution line, a word for every find in its checkpoint, and
+    its guided shrink of the first find reaching the gate-off hunt's
+    shrunk config. Returns the words and what the line reports."""
+    import re
+
+    m = re.search(r"hunted (\d+) seeds: (\d+) failing", hunt["out"])
+    m_prov = re.search(r"hunted (\d+) seeds: (\d+) failing", hunt_prov["out"])
+    att = re.search(r"fault attribution: \[([^\]]*)\]", hunt_prov["out"])
+    ckpt = json.loads(pathlib.Path(files["prov_ckpt"]).read_text())
+    if not m_prov or m_prov.groups() != m.groups() or [tuple(x) for x in ckpt["failing"]] != failing:
+        fail(f"cli hunt --provenance found other seeds than the hunt:\n{hunt_prov['out']}\n{hunt['out']}")
+    if not att or sorted(int(k) for k in ckpt["prov"]) != sorted(s for s, _ in failing):
+        fail(f"cli hunt --provenance: no attribution line, or words missing:\n{hunt_prov['out']}")
+    guided = re.search(r"\+ corpus: .*\[(\d+) verification replays, provenance-guided by \[([^\]]*)\]\]",
+                       hunt_prov["out"])
+    entries = {k: json.loads(pathlib.Path(files[k]).read_text())["entries"] for k in ("corpus", "prov_corpus")}
+    if not guided or len(entries["prov_corpus"]) != 1 or \
+            entries["prov_corpus"][0]["config"] != entries["corpus"][0]["config"]:
+        fail(f"cli hunt --provenance: its guided shrink did not reach the hunt's shrunk config:\n"
+             f"{hunt_prov['out']}\n{entries}")
+    if hunt_prov["launches"].get("step_megakernel", 0) <= 0 or hunt_prov["launches"].get("cov_flush", 0) <= 0:
+        fail(f"cli hunt --provenance launched {hunt_prov['launches']}")
+    return {"seeds": int(m_prov.group(1)), "failing": int(m_prov.group(2)), "attribution": att.group(1),
+            "guided_attempts": int(guided.group(1)), "guided_by": guided.group(2), "same_finds": True,
+            "same_shrunk_config": True, "words": {int(k): v for k, v in ckpt["prov"].items()}}
+
+
+def cli_prov_replays(words, finds):
+    """One-lane replays on the card, with the hunt's engine and the gate
+    on, of `finds`: each must fail with its code and the word the
+    hunt's failure ring harvested."""
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+    from madsim_tpu_torch.engine.replay import replay
+
+    eng = _build_engine(_parser().parse_args(["explore", *CLI_HUNT, "--provenance"]))
+    t0 = time.perf_counter()
+    got = []
+    for seed, code in finds:
+        rp = replay(eng, seed, max_steps=3000, trace=False)
+        if not rp.failed or rp.fail_code != code or rp.fail_prov != words[seed]:
+            fail(f"cli hunt --provenance: seed {seed} harvested word 0x{words[seed]:08x} code {code}, replayed "
+                 f"0x{rp.fail_prov:08x} code {rp.fail_code if rp.failed else 0}")
+        got.append([seed, f"0x{rp.fail_prov:08x}"])
+    return {"seeds_words": got, "equal": True, "s": round(time.perf_counter() - t0, 3)}
+
+
+def cli_why_pair(res, files, seed, code):
+    """`why <seed> --json --perfetto` on the card and with `--device cpu`:
+    the same stdout (the file names aside), JSON and Perfetto bytes."""
+    card, cpu = res["why"]["out"], res["why_cpu"]["out"]
+    for key in ("why_json", "why_perfetto"):
+        cpu = cpu.replace(files[key + "_cpu"], files[key])
+    same_files = all(pathlib.Path(files[k]).read_bytes() == pathlib.Path(files[k + "_cpu"]).read_bytes()
+                     for k in ("why_json", "why_perfetto"))
+    if card != cpu or not same_files or f"seed {seed} fails with code {code}" not in card:
+        fail(f"cli why: the card and the CPU differ (files equal: {same_files}):\n{card}\n{cpu}")
+    doc = json.loads(pathlib.Path(files["why_json"]).read_text())
+    flows = re.search(r"\((\d+) causal flows", card)
+    return {"prov_word": f"0x{doc['prov_word']:08x}", "implicated_kinds": doc["implicated_kinds"],
+            "cone_events": doc["cone_events"], "trace_events": doc["trace_events"],
+            "causal_flows": int(flows.group(1)) if flows else None, "card_s": res["why"]["s"],
+            "cpu_s": res["why_cpu"]["s"], "equal": True}
 
 
 def cli_kernels(kernels, np, dev, cli):
@@ -1867,14 +2025,167 @@ def cli_kernels(kernels, np, dev, cli):
     ), (("cov_flush_L64", small_state.cov, launches["small_card"].get("cov_flush", 0)),))
 
 
+def segment_state(eng, seeds, steps):
+    """The lane state of `seeds` after `steps` event steps, as numpy."""
+    from madsim_tpu_torch.interop import tree_to_numpy
+
+    return tree_to_numpy(eng.run_segment(eng.init_batch(seeds), steps))
+
+
+def without(tree, names):
+    return {k: v for k, v in tree.items() if k not in names}
+
+
+def provenance_phase(torch, np, cli):
+    """Phase 12: causal provenance. What the command line did with it in
+    phase 11 (the 8192-lane `hunt --stream --provenance` beside the
+    gate-off hunt: the same finds, the attribution line, the guided
+    shrink against the unguided one, the hunt's words of its first finds
+    against one-lane replays on the card, `why` on the card and the CPU),
+    then in process: 256 lanes of the volatile-commit demo under the
+    whole palette with heal-asym and 2% loss on both streams, every lane
+    leaf on the card equal to the CPU's with the gate on, and every leaf
+    but the three provenance planes equal with the gate on and off on
+    the card; and the 8192-lane profile of the hunt's engine with the
+    gate on and off (kernels and busy ms a step, idle share)."""
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.engine.core import PROV_BIT_AMNESIA, PROV_BIT_DUP
+    from madsim_tpu_torch.models import build_machine
+
+    planes = ("node_prov", "eq_prov", "fail_prov")
+    m = build_machine("demo-volatilecommit-raft")
+    seeds = np.arange(PROV_LANES, dtype=np.uint32) + 60_000
+    legs = {}
+    for stream in (3, 2):
+        def eng(device=None, prov=True):
+            cfg = EngineConfig(**{**FLAGSHIP, **VOLATILE, "rng_stream": stream, "queue_capacity": PROV_Q,
+                                  "packet_loss_rate": 0.02, "provenance": prov}, faults=FaultPlan(**PROV_FAULTS))
+            return Engine(m, cfg, device=device)
+
+        secs, states = {}, {}
+        for name, device, prov in (("card", None, True), ("cpu", "cpu", True), ("off", None, False)):
+            t0 = time.perf_counter()
+            states[name] = segment_state(eng(device, prov), seeds, PROV_STEPS)
+            secs[name] = round(time.perf_counter() - t0, 3)
+        bad = tree_diff(states["card"], states["cpu"])
+        if bad:
+            fail(f"provenance v{stream}: the card's lanes differ from the CPU's in {bad[:8]}")
+        if any(states["off"][k].shape[1:] != (0,) for k in planes):
+            fail(f"provenance v{stream}: the gate off left planes {[states['off'][k].shape for k in planes]}")
+        bad = tree_diff(without(states["card"], planes), without(states["off"], planes))
+        if bad:
+            fail(f"provenance v{stream}: the gate on changed {bad[:8]}")
+        failed = states["card"]["failed"]
+        words = states["card"]["fail_prov"][failed]
+        if not failed.any() or not (words >> PROV_BIT_AMNESIA & 1).any():
+            fail(f"provenance v{stream}: no failing lane with the amnesia bit: {failed.sum()} failed")
+        legs[f"v{stream}"] = {"lanes": PROV_LANES, "steps": PROV_STEPS, "failed": int(failed.sum()),
+                              "codes": sorted({int(c) for c in states["card"]["fail_code"][failed]}),
+                              "words_amnesia": int((words >> PROV_BIT_AMNESIA & 1).sum()),
+                              "words_dup": int((words >> PROV_BIT_DUP & 1).sum()),
+                              "queued_dup_words": int((states["card"]["eq_prov"] >> PROV_BIT_DUP & 1).sum()),
+                              "card_s": secs["card"], "cpu_s": secs["cpu"], "off_card_s": secs["off"]}
+    # the gate's cost a step, at the command-line hunt's full width
+    profiles = {}
+    for name, extra in (("on", ["--provenance"]), ("off", [])):
+        hunt_eng = _build_engine(_parser().parse_args(["explore", *CLI_HUNT, *extra]))
+        state = hunt_eng.run_segment(hunt_eng.init_batch(np.arange(CLI_LANES, dtype=np.uint32)), PROV_STATE_STEPS)
+        profiles[name] = profile_steps(hunt_eng, state, steps=PROV_PROFILE_STEPS)
+        del state
+    emit({"phase": "provenance", "cli": cli["provenance"], **legs, "profile_on": profiles["on"],
+          "profile_off": profiles["off"]})
+
+
+def clog_phase(torch, np, kernels, dev):
+    """Phase 13: the unpacked clog matrix (`card_vs_cpu_clog`). The
+    flagship at 256 lanes under pair, kill, dir, group and heal-asym
+    faults on both streams: packed against unpacked on the card (every
+    leaf but the clog state), and the matrix's lanes on the card against
+    the CPU's, matrix included. Then a 64-node gossip cluster at 256 lanes
+    on both streams, card against CPU, at the smallest power-of-two queue
+    from 256 that overflows no lane; the megakernel (v3) and pop_gather
+    (v2) at its shapes are held against their twins and timed
+    (`clog_kernels`)."""
+    from madsim_tpu_torch.engine import OVERFLOW, Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import RaftMachine
+    from madsim_tpu_torch.models.gossip import GossipMachine
+
+    raft = RaftMachine(num_nodes=5, log_capacity=8)
+    seeds = np.arange(CHECK_LANES, dtype=np.uint32) + 70_000
+    out = {}
+    for stream in (3, 2):
+        def eng(device=None, packed=False):
+            cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": stream, "clog_packed": packed},
+                               faults=FaultPlan(**CLOG_FAULTS))
+            return Engine(raft, cfg, device=device)
+
+        t0 = time.perf_counter()
+        card = segment_state(eng(), seeds, CLOG_STEPS)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = segment_state(eng("cpu"), seeds, CLOG_STEPS)
+        t_cpu = time.perf_counter() - t0
+        packed = segment_state(eng(None, True), seeds, CLOG_STEPS)
+        bad = tree_diff(card, cpu)
+        if bad:
+            fail(f"clog matrix v{stream}: the card's lanes differ from the CPU's in {bad[:8]}")
+        bad = tree_diff(without(card, ("clogged",)), without(packed, ("clogged",)))
+        if bad or card["clogged"].shape != (CHECK_LANES, 5, 5):
+            fail(f"clog v{stream}: packed and unpacked differ in {bad[:8]} (matrix {card['clogged'].shape})")
+        out[f"flagship_v{stream}"] = {"lanes": CHECK_LANES, "steps": CLOG_STEPS, "card_s": round(t_card, 3),
+                                      "cpu_s": round(t_cpu, 3), "clog_hwm": int(card["fr"]["clog_hwm"].max()),
+                                      "failed": int(card["failed"].sum())}
+    gossip = GossipMachine(num_nodes=GOSSIP64_NODES)
+    seeds = np.arange(GOSSIP64_LANES, dtype=np.uint32) + 80_000
+    kernel_states = {}
+    for stream, kernel in ((3, "step_megakernel"), (2, "pop_gather")):
+        q, tried = GOSSIP64_MIN_Q, []
+        while True:
+            cfg = EngineConfig(**GOSSIP64, rng_stream=stream, queue_capacity=q, faults=FaultPlan(**GOSSIP64_FAULTS))
+            card_eng = Engine(gossip, cfg)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            state = card_eng.run_segment(card_eng.init_batch(seeds), GOSSIP64_STEPS)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            launches = dict(kernels.launches)
+            overflow = int((state.fail_code == OVERFLOW).sum())
+            tried.append((q, overflow))
+            if not overflow:
+                break
+            q *= 2
+        if launches.get(kernel, 0) <= 0:
+            fail(f"gossip 64 v{stream} never launched {kernel}: {launches}")
+        t0 = time.perf_counter()
+        cpu = segment_state(Engine(gossip, cfg, device="cpu"), seeds, GOSSIP64_STEPS)
+        t_cpu = time.perf_counter() - t0
+        bad = tree_diff(tree_to_numpy(state), cpu)
+        if bad:
+            fail(f"gossip 64 v{stream}: the card's lanes differ from the CPU's in {bad[:8]}")
+        kernel_states[stream] = (state, card_eng._rng_layout.total_words, launches[kernel])
+        out[f"gossip64_v{stream}"] = {"nodes": GOSSIP64_NODES, "lanes": GOSSIP64_LANES, "steps": GOSSIP64_STEPS,
+                                      "q": q, "tried_q_overflow": tried, "card_s": round(t_card, 3),
+                                      "cpu_s": round(t_cpu, 3), "failed": int(state.failed.sum()),
+                                      "queue_max": int(state.eq_valid.sum(dim=1).max()), "launches": launches}
+    emit({"phase": "card_vs_cpu_clog", "equal": True, **out})
+    (v3_state, words, v3_n), (v2_state, _, v2_n) = kernel_states[3], kernel_states[2]
+    time_kernel_shapes(kernels, dev, "clog_kernels", (
+        (f"step_megakernel_gossip64_L{GOSSIP64_LANES}_Q{v3_state.eq_time.shape[1]}_W{words}", v3_state, words, v3_n),
+    ), (), pops=((f"pop_gather_gossip64_L{GOSSIP64_LANES}_Q{v2_state.eq_time.shape[1]}", v2_state, v2_n),))
+
+
 def main(argv=None):
     import torch
 
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
-    args.add_argument("--only", choices=("cli",), default=None,
-                      help="build, then run this phase alone (a short check; prints no result line)")
+    args.add_argument("--only", choices=("cli", "prov"), default=None,
+                      help="build, then run phase 11 alone (cli) or phases 11-13 (prov): a short check that "
+                      "prints no result line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -1902,8 +2213,12 @@ def main(argv=None):
     build.load()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs),
           "ptxas": ptxas_line(build, libs)})
-    if args.only == "cli":
-        cli_kernels(kernels, np, torch.device("cuda"), cli_phase(torch, np))
+    if args.only:
+        cli = cli_phase(torch, np)
+        cli_kernels(kernels, np, torch.device("cuda"), cli)
+        if args.only == "prov":
+            provenance_phase(torch, np, cli)
+            clog_phase(torch, np, kernels, torch.device("cuda"))
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
     designs = [(f"against {d}", build.load(pathlib.Path(d).resolve())) for d in args.against]
@@ -2104,7 +2419,12 @@ def main(argv=None):
     emit({"phase": "profile_v2", **profile_steps(v2_eng, v2_state, steps=8)})
 
     # 11. the command line, in subprocesses on the card
-    cli_kernels(kernels, np, dev, cli_phase(torch, np))
+    cli = cli_phase(torch, np)
+    cli_kernels(kernels, np, dev, cli)
+
+    # 12. causal provenance; 13. the unpacked clog matrix
+    provenance_phase(torch, np, cli)
+    clog_phase(torch, np, kernels, dev)
 
     emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
 

@@ -4,18 +4,20 @@ trace export, shrinking, the corpus, audits and coverage reports.
     python -m madsim_tpu_torch explore --machine raft --seeds 4096 [--stream]
     python -m madsim_tpu_torch hunt    --machine demo-overcommit-raft --stream --corpus c.json
     python -m madsim_tpu_torch replay  --machine raft --seed 1234 [--tail 30]
+    python -m madsim_tpu_torch why     1234 --machine demo-volatilecommit-raft --strict-restart
     python -m madsim_tpu_torch regress --corpus corpus.json
     python -m madsim_tpu_torch check   --machine kv --seeds 64
 
 The port of `madsim_tpu/__main__.py`: the same subcommands, flags,
 defaults, printed lines and exit codes for explore, hunt, replay, trace,
-shrink, regress, audit, check and coverage, and the same files (corpus,
-checkpoint, coverage doc, exports). Every command runs on the CUDA card
-unless given `--device cpu`; without a card it exits non-zero and never
-falls back to the CPU. What the port does not run yet (provenance and
-`why`, guided search, several devices, the perf tooling, the compile
-cache, bench, serve, fleet, lint) exits with status 2 and one line
-naming the gate, before any engine is built.
+why, shrink, regress, audit, check and coverage, `--provenance` among
+the flags, and the same files (corpus, checkpoint, coverage doc,
+exports, attribution JSON). Every command runs on the CUDA card unless
+given `--device cpu`; without a card it exits non-zero and never falls
+back to the CPU. What the port does not run yet (guided search, several
+devices, the perf tooling, the compile cache, bench, serve, fleet,
+lint) exits with status 2 and one line naming the gate, before any
+engine is built.
 """
 
 from __future__ import annotations
@@ -30,12 +32,10 @@ import sys
 PROG = "madsim_tpu_torch"
 
 # what the port refuses, and the ROADMAP.md item (queue 1) it waits for
-_ITEM_PROVENANCE = "ROADMAP.md queue 1, item 7"
 _ITEM_GUIDED = "ROADMAP.md queue 1, item 10"
 _ITEM_MESH = "ROADMAP.md queue 1, item 12"
 _ITEM_PERF = "ROADMAP.md queue 1, item 13"
 _GATED_COMMANDS = {
-    "why": ("the `why` command (provenance)", _ITEM_PROVENANCE),
     "perf": ("the `perf` command", _ITEM_PERF),
     "prof": ("the `prof` command", _ITEM_PERF),
     "bench": ("the `bench` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
@@ -45,7 +45,6 @@ _GATED_COMMANDS = {
     "lint": ("the `lint` command", "ROADMAP.md queue 1, item 14"),
 }
 _GATED_FLAGS = (
-    ("provenance", "--provenance (with hunt's provenance-guided shrink)", _ITEM_PROVENANCE),
     ("guided", "--guided", _ITEM_GUIDED),
     ("devices", "--devices N", _ITEM_MESH),
     ("multihost", "--multihost", _ITEM_MESH),
@@ -96,6 +95,7 @@ def _build_engine(args):
         rng_stream=getattr(args, "rng_stream", 2),
         flight_recorder=bool(getattr(args, "flight_recorder", False)),
         coverage=bool(getattr(args, "coverage", False)),
+        provenance=bool(getattr(args, "provenance", False)),
         # None keeps the engine default (buffered); 0 is the unbuffered
         # per-event fold; the maps are equal either way
         **({} if getattr(args, "cov_buffer", None) is None
@@ -186,6 +186,16 @@ def _print_fr_stats(stats) -> None:
     )
 
 
+def _print_attribution(stats) -> None:
+    """One fault-attribution line when provenance rode the run: how many
+    failures causally implicate each chaos kind."""
+    att = stats.get("fault_attribution")
+    if att is None:
+        return
+    kinds = ", ".join(f"{k}={v}" for k, v in att.items())
+    print(f"fault attribution: [{kinds or 'no failures'}]")
+
+
 def _make_emitter(args):
     """StatsEmitter bound to --stats BASE (also $MADSIM_TPU_STATS)."""
     base = getattr(args, "stats", None) or os.environ.get("MADSIM_TPU_STATS")
@@ -246,7 +256,9 @@ def _stream_batches(eng, args, purpose="explore"):
     batch = min(args.seeds, args.batch)
     planned = -(-args.seeds // batch)  # ceil
 
-    agg = {"completed": 0, "failing": [], "infra": [], "abandoned": [], "seeds_consumed": 0, "stats": {}}
+    agg = {"completed": 0, "failing": [], "infra": [], "abandoned": [], "seeds_consumed": 0, "stats": {},
+           # seed -> violation provenance word (--provenance; empty otherwise)
+           "provenance": {}}
     cov_map = None
     cursor = args.seed
     plateaued = False
@@ -269,6 +281,7 @@ def _stream_batches(eng, args, purpose="explore"):
             agg["failing"] = [tuple(x) for x in ck["failing"]]
             agg["infra"] = [tuple(x) for x in ck["infra"]]
             agg["abandoned"] = list(ck["abandoned"])
+            agg["provenance"] = {int(k): int(v) for k, v in (ck.get("prov") or {}).items()}
             cursor = int(ck["cursor"])
             start_bi = int(ck["batch"])
             plateaued = bool(ck.get("plateau", False))
@@ -310,9 +323,7 @@ def _stream_batches(eng, args, purpose="explore"):
                 "failing": [list(x) for x in agg["failing"]],
                 "infra": [list(x) for x in agg["infra"]],
                 "abandoned": list(agg["abandoned"]),
-                # seed -> provenance word in the reference: provenance is
-                # not ported, so the map stays empty
-                "prov": {},
+                "prov": {str(k): v for k, v in agg["provenance"].items()},
                 "cov_b64": encode_map(cov_map) if cov_map is not None else None,
                 "detector": (
                     {"best": detector.best, "streak": detector.streak, "batches": detector.batches}
@@ -347,6 +358,7 @@ def _stream_batches(eng, args, purpose="explore"):
         agg["failing"].extend(out["failing"])
         agg["infra"].extend(out["infra"])
         agg["abandoned"].extend(out["abandoned"])
+        agg["provenance"].update(out.get("provenance", {}))
         agg["stats"] = out["stats"]
         new_slots = 0
         slots_hit = 0
@@ -414,6 +426,13 @@ def _stream_batches(eng, args, purpose="explore"):
             "plateau": plateaued,
             "plateau_patience": plateau_n,
         }
+    if agg["provenance"]:
+        # per-kind fault attribution over the finds: how many failures
+        # causally implicate each chaos kind
+        from .engine.provenance import kind_counts
+
+        agg["stats"] = dict(agg["stats"])
+        agg["stats"]["fault_attribution"] = kind_counts(eng, agg["provenance"])
     if emitter is not None:
         emitter.emit(
             {
@@ -428,6 +447,8 @@ def _stream_batches(eng, args, purpose="explore"):
                 "plateau": plateaued,
                 "elapsed_s": round(agg["elapsed_s"], 2),
                 **({"coverage": agg["stats"]["coverage"]} if cov_map is not None else {}),
+                **({"fault_attribution": agg["stats"]["fault_attribution"]}
+                   if "fault_attribution" in agg["stats"] else {}),
             }
         )
         emitter.close()
@@ -487,7 +508,16 @@ def _find_failing(eng, args, purpose="hunt"):
         (int(s), int(c))
         for s, c in zip(eng.failing_seeds(res).tolist(), res.fail_code[res.failed].tolist())
     )
-    return failing, infra, 0, {"stats": {}}
+    agg = {"stats": {}, "provenance": {}}
+    if eng.config.provenance:
+        from .engine.provenance import kind_counts
+
+        agg["provenance"] = {
+            int(s): int(p) & 0xFFFFFFFF
+            for s, p in zip(eng.failing_seeds(res).tolist(), res.fail_prov[res.failed].tolist())
+        }
+        agg["stats"]["fault_attribution"] = kind_counts(eng, agg["provenance"])
+    return failing, infra, 0, agg
 
 
 def cmd_explore(args) -> int:
@@ -519,6 +549,7 @@ def cmd_explore(args) -> int:
         )
         _print_fr_stats(st)
         _print_cov_stats(st)
+        _print_attribution(st)
         if failing:
             codes = sorted({c for _s, c in failing})
             print(f"failure codes: {codes}")
@@ -576,6 +607,7 @@ def cmd_hunt(args) -> int:
     )
     _print_fr_stats(stream_stats)
     _print_cov_stats(stream_stats)
+    _print_attribution(stream_stats)
     _write_coverage_out(eng, args, agg)
     entries = corpus.load(args.corpus)
     known = {e.key for e in entries}
@@ -595,7 +627,9 @@ def cmd_hunt(args) -> int:
             print(f"  code {code}: {len(seeds_of)} seeds ({verb})")
     for seed, code in to_shrink:
         try:
-            sr = shrink(eng, seed, max_steps=args.max_steps)
+            # the device-harvested provenance word (when the gate rode the
+            # hunt) orders the candidates; each is still verified by replay
+            sr = shrink(eng, seed, max_steps=args.max_steps, prov_word=agg.get("provenance", {}).get(seed))
         except ValueError as exc:
             # flagged by the batch but not reproducing in the replay:
             # report it (that drift is itself a finding) and go on
@@ -714,6 +748,71 @@ def cmd_trace(args) -> int:
     status = f"FAILED (code {rp.fail_code})" if rp.failed else "ok"
     print(f"seed {args.seed}: {status}, {len(rp.trace)} events, t={int(rp.state.now_us)}us")
     return 1 if rp.failed else 0
+
+
+def cmd_why(args) -> int:
+    """Answer "why did this seed fail?": replay with causal provenance and
+    lineage, decode the violation's provenance word to the implicated
+    scheduled faults (kind, virtual time, target), cut the trace to the
+    violation's past cone, and render the causal chain as text (stdout,
+    --out), JSON (--json) and a Perfetto timeline with the cone's flow
+    arrows and the cone highlighted (--perfetto)."""
+    from .engine.provenance import implicated, render_why, replay_with_lineage
+    from .engine.trace_export import write_perfetto
+
+    args.provenance = True  # the whole point of `why`
+    if getattr(args, "seed_pos", None) is not None:
+        args.seed = args.seed_pos
+    eng = _build_engine(args)
+    rp, lineage = replay_with_lineage(eng, args.seed, max_steps=args.max_steps)
+    if not rp.failed:
+        print(
+            f"seed {args.seed} does not fail under this config (within "
+            f"{args.max_steps} steps) — nothing to explain; pass the "
+            f"repro line's exact flags"
+        )
+        return 2
+    word = rp.fail_prov
+    att = implicated(eng, args.seed, word)
+    cone = lineage.past_cone(len(lineage.trace) - 1)
+    text = render_why(eng, args.seed, rp, lineage, cone, att, max_events=args.tail)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+        print(f"causal chain -> {args.out}")
+    if args.json:
+        doc = {
+            "machine": args.machine,
+            "seed": args.seed,
+            "fail_code": rp.fail_code,
+            "fail_time_us": int(rp.state.now_us),
+            "prov_word": word,
+            "implicated_kinds": list(att.kinds),
+            "implicated_faults": [
+                {"index": f.index, "kind": f.kind_name, "t_apply_us": f.t_apply_us, "t_undo_us": f.t_undo_us,
+                 "target": f.target}
+                for f in att.faults
+            ],
+            "cone_events": len(cone),
+            "trace_events": len(lineage.trace),
+        }
+        with open(args.json, "w") as f:
+            json.dump(doc, f, indent=2)
+            f.write("\n")
+        print(f"attribution JSON -> {args.json}")
+    if args.perfetto:
+        cone_idx = set(cone)
+        cone_steps = {lineage.trace[i].step for i in cone}
+        flows = [(lineage.trace[i], lineage.trace[j]) for i, j in lineage.message_flows() if j in cone_idx]
+        n = write_perfetto(args.perfetto, rp.trace, machine=args.machine, seed=args.seed,
+                           num_nodes=eng.machine.NUM_NODES, flows=flows, highlight=cone_steps)
+        print(
+            f"wrote {n} events ({len(flows)} causal flows, cone "
+            f"highlighted) to {args.perfetto} (open in "
+            f"https://ui.perfetto.dev)"
+        )
+    return 0
 
 
 def cmd_audit(args) -> int:
@@ -892,7 +991,11 @@ def _parser() -> argparse.ArgumentParser:
         p.add_argument("--cov-buffer", type=int, default=None, metavar="N",
                        help="coverage slot-buffer depth per lane (default: the engine's; 0 = the "
                        "unbuffered per-event fold; the maps are equal either way)")
-        p.add_argument("--provenance", action="store_true", help="not ported: causal provenance words")
+        p.add_argument("--provenance", action="store_true",
+                       help="causal provenance: every queued event and node carries a 32-bit lineage word "
+                       "(one bit per scheduled fault, ORed along deliveries); failures decode to the "
+                       "implicated faults in hunt reports, shrink uses attribution to order its "
+                       "candidates, and `why` renders the causal chain (results are equal either way)")
         p.add_argument("--stats", default=None, metavar="BASE",
                        help="StatsEmitter base path (also $MADSIM_TPU_STATS): per-batch stats to "
                        "BASE.jsonl, BASE.prom and BASE.json")
@@ -946,6 +1049,20 @@ def _parser() -> argparse.ArgumentParser:
     p = sub.add_parser("shrink", help="minimize a failing seed's config")
     common(p)
     p.set_defaults(fn=cmd_shrink)
+
+    p = sub.add_parser("why", help="explain a failing seed: replay with causal provenance, name the implicated "
+                       "faults (kind, time, target), and render the violation's past cone as text / JSON / "
+                       "Perfetto flows")
+    common(p)
+    p.add_argument("seed_pos", nargs="?", type=int, default=None, metavar="SEED",
+                   help="the failing seed (as --seed; pass the repro line's other flags so the schedule matches)")
+    p.add_argument("--tail", type=int, default=30, help="cone events to print (0 = the whole cone)")
+    p.add_argument("--out", default=None, metavar="PATH", help="also write the rendered causal chain to PATH")
+    p.add_argument("--json", default=None, metavar="PATH",
+                   help="write the attribution as JSON (implicated kinds and faults, word, cone size)")
+    p.add_argument("--perfetto", default=None, metavar="PATH",
+                   help="write the timeline with causal flow arrows and the past cone highlighted")
+    p.set_defaults(fn=cmd_why)
 
     p = sub.add_parser("hunt", help="explore + shrink + record failing seeds in the corpus")
     common(p)

@@ -28,9 +28,14 @@ two directions at two times.
 
 With `trace_ring > 0` each lane also keeps its last R popped events on
 the device, for a post-mortem with no replay (`Engine.ring_trace`).
+With `provenance` every queued event and every node carries a lineage
+word (bit f: scheduled fault f is in its causal past) that the lane step
+ORs along deliveries, and a failing lane keeps its violation's word.
+With `clog_packed=False` the clog state is the plain bool[L, N, N]
+matrix, the only layout past 60 nodes.
 
-Configurations outside this slice raise NotImplementedError naming the
-gate; nothing is silently ignored. The entry points run under
+The one configuration outside the port (a JAX compile cache) raises
+NotImplementedError naming the gate; nothing is silently ignored. The entry points run under
 `torch.inference_mode()`: the engine is integer code with no gradients,
 and the mode trims PyTorch's per-op dispatch cost, which is what an
 eager step of a few thousand small ops pays for.
@@ -63,7 +68,7 @@ from ..ops.step_rng import (
     RNG_STREAM_COUNTER, RNG_STREAM_LEGACY, RNG_STREAM_VERSIONS, layout_for, restart_key, step_words,
 )
 from ..ops.threefry import bits32, prng_key, split
-from ..utils import take, tree_where
+from ..utils import gather_at, set2d, take, tree_where
 from .machine import TORN_CLASSES, Machine, state_leaf_names
 
 # Event kinds
@@ -147,6 +152,21 @@ FR_METRICS_LEN = len(FAULT_KIND_NAMES) + len(FR_EXTRA_NAMES) + 3
 CLOG_WORD_BITS = 30
 CLOG_WORDS = 2
 CLOG_MAX_NODES = CLOG_WORD_BITS * CLOG_WORDS
+
+# Causal provenance: bit f of a lineage word marks scheduled fault f
+# (fault indices past 29 alias bit 29); bits 30 and 31 are the two
+# unscheduled chaos channels, a strict (amnesia) restart and a
+# duplicate delivery. Words only OR, never clear.
+PROV_FAULT_BITS = 30
+PROV_BIT_AMNESIA = 30
+PROV_BIT_DUP = 31
+# bit 31 as an int32 bit pattern, the planes' dtype
+_PROV_DUP_I32 = -(1 << PROV_BIT_DUP)
+
+
+def prov_fault_bit(fault_index: int) -> int:
+    """The provenance bit scheduled fault `fault_index` sets."""
+    return 1 << min(fault_index, PROV_FAULT_BITS - 1)
 
 
 def digest_fold(d0, d1, words):
@@ -301,13 +321,13 @@ class LaneState:
     eq_src: torch.Tensor
     eq_payload: torch.Tensor  # int32[L, Q, P]
     eq_valid: torch.Tensor  # bool[L, Q]
-    clogged: torch.Tensor  # int32[L, N, CLOG_WORDS]
+    clogged: torch.Tensor  # int32[L, N, CLOG_WORDS] packed rows, or bool[L, N, N] (clog_packed=False)
     killed: torch.Tensor  # bool[L, N]
     paused_until: torch.Tensor  # int32[L, N] resume times ([L, 0] with the pause kind off)
     skew_q10: torch.Tensor  # int32[L, N] q10 timer factors ([L, 0] with the skew kind off)
-    node_prov: torch.Tensor  # [L, 0] (provenance off)
-    eq_prov: torch.Tensor  # [L, 0]
-    fail_prov: torch.Tensor  # [L, 0]
+    node_prov: torch.Tensor  # int32[L, N] lineage words ([L, 0] with provenance off)
+    eq_prov: torch.Tensor  # int32[L, Q] ([L, 0])
+    fail_prov: torch.Tensor  # int32[L] the violation's word ([L, 0])
     nodes: Any
     ring: Any  # the trace ring: step, time, kind, node, src [L, R], payload [L, R, P] ({} when off)
     fr: Any  # flight recorder: digest, checkpoint ring, metrics ({} when off)
@@ -343,6 +363,7 @@ class StreamCarry:
     segments: torch.Tensor
     fail_seeds: torch.Tensor  # [C]
     fail_codes: torch.Tensor  # [C]
+    fail_provs: torch.Tensor  # [C] violation words as uint32 values ([0] with provenance off)
     fail_count: torch.Tensor
     ab_seeds: torch.Tensor  # [C]
     ab_count: torch.Tensor
@@ -354,10 +375,10 @@ class StreamCarry:
 def _unported(gate: str) -> NotImplementedError:
     return NotImplementedError(
         f"{gate} is not ported to madsim_tpu_torch yet (the port runs both "
-        f"RNG streams, packed clogs, every fault kind, packet loss, "
-        f"duplication, strict restarts, the trace ring, the flight "
-        f"recorder and coverage (buffered or not) on or off, and both "
-        f"stream executors)"
+        f"RNG streams, packed and unpacked clogs, every fault kind, packet "
+        f"loss, duplication, strict restarts, the trace ring, the flight "
+        f"recorder, coverage (buffered or not) and provenance on or off, "
+        f"and both stream executors)"
     )
 
 
@@ -395,8 +416,20 @@ class Engine:
             raise ValueError("group partitions need 2 <= NUM_NODES <= 60 (two 30-bit mask words)")
         if not 0 <= fp.storm_loss_u16 <= 65535:
             raise ValueError("storm_loss_u16 must be in [0, 65535]")
-        if n > CLOG_MAX_NODES:
-            raise ValueError(f"clog_packed needs NUM_NODES <= {CLOG_MAX_NODES}")
+        if fp.n_faults > 0 and fp.uses_v2_kinds and n > CLOG_MAX_NODES + 1:
+            # the high mask word is drawn modulo 2 ** (n - 30): past 61
+            # nodes that leaves uint32, and the reference cannot draw it
+            raise ValueError(
+                f"the v2 fault derivation draws a group mask word modulo 2**(NUM_NODES - 30), which "
+                f"leaves uint32 past {CLOG_MAX_NODES + 1} nodes; {n} nodes run the v1 kinds "
+                f"(pair, kill) alone"
+            )
+        if config.clog_packed and n > CLOG_MAX_NODES:
+            raise ValueError(
+                f"clog_packed needs NUM_NODES <= {CLOG_MAX_NODES} (two-word "
+                f"int32 rows); pass EngineConfig(clog_packed=False) for "
+                f"{n} nodes"
+            )
         if config.flight_recorder and (config.fr_digest_every < 1 or config.fr_digest_ring < 1):
             raise ValueError("flight_recorder needs fr_digest_every >= 1 and fr_digest_ring >= 1")
         if fp.strict_restart and fp.allow_kill and machine.durable_spec() is None:
@@ -469,6 +502,8 @@ class Engine:
         )
         # the v2 fault derivation's kind table, made once for the same reason
         self._fault_kinds = torch.tensor(fp.enabled_kinds(), dtype=torch.int32, device=self.device)
+        if config.provenance:
+            self._prov_tables = self._make_prov_tables(fp)
 
     @staticmethod
     def _check_torn_contract(machine: Machine) -> None:
@@ -494,14 +529,8 @@ class Engine:
     def _check_slice(cfg: EngineConfig) -> None:
         if cfg.rng_stream not in RNG_STREAM_VERSIONS:
             raise ValueError(f"rng_stream={cfg.rng_stream!r} unknown; supported: {RNG_STREAM_VERSIONS}")
-        gates = [
-            ("clog_packed=False", not cfg.clog_packed),
-            ("provenance", cfg.provenance),
-            ("compile_cache_dir (a JAX compile cache)", cfg.compile_cache_dir is not None),
-        ]
-        for gate, hit in gates:
-            if hit:
-                raise _unported(gate)
+        if cfg.compile_cache_dir is not None:
+            raise _unported("compile_cache_dir (a JAX compile cache)")
 
     # -- lane init -----------------------------------------------------------
 
@@ -521,7 +550,8 @@ class Engine:
         factor. With torn or heal_asym on, one more split follows: a torn
         fault's arg2 is its damage mask, and under heal_asym every fault
         takes a third slot, the one-way heal b -> a at t + dur2, valid
-        only for heal_asym faults."""
+        only for heal_asym faults. With provenance on, every slot of
+        fault f carries its bit and the boot timers word 0."""
         m, cfg, dev = self.machine, self.config, self.device
         seeds = self._seed_values(seeds)
         lanes = seeds.shape[0]
@@ -541,6 +571,9 @@ class Engine:
         eq_payload = torch.zeros((lanes, q, p), **i32)  # timer id BOOT
         eq_valid = is_boot.clone(memory_format=torch.contiguous_format)
         next_seq = n
+        # provenance: boot timers are causal roots (word 0); every slot of
+        # scheduled fault f carries its bit, so processing it plants it
+        eq_prov = torch.zeros((lanes, q if cfg.provenance else 0), **i32)
 
         fp = cfg.faults
         for f in range(fp.n_faults):
@@ -609,6 +642,8 @@ class Engine:
                 pay = torch.stack([op, p1, p2] + [torch.zeros_like(a)] * (p - 3), dim=1)
                 eq_payload = torch.where(msk[:, :, None], pay[:, None, :], eq_payload)
                 eq_valid = eq_valid | (msk if valid is None else msk & valid[:, None])
+                if cfg.provenance:
+                    eq_prov = torch.where(msk, prov_fault_bit(f), eq_prov)
             next_seq += fp.slots_per_fault
 
         def full(value, dtype=torch.int32):
@@ -635,13 +670,14 @@ class Engine:
             eq_src=eq_src,
             eq_payload=eq_payload,
             eq_valid=eq_valid,
-            clogged=torch.zeros((lanes, n, CLOG_WORDS), **i32),
+            clogged=(torch.zeros((lanes, n, CLOG_WORDS), **i32) if cfg.clog_packed
+                     else torch.zeros((lanes, n, n), dtype=torch.bool, device=dev)),
             killed=torch.zeros((lanes, n), dtype=torch.bool, device=dev),
             paused_until=per_node if fp.allow_pause else empty,
             skew_q10=per_node.clone() if fp.allow_skew else empty,
-            node_prov=empty,
-            eq_prov=empty,
-            fail_prov=empty,
+            node_prov=per_node.clone() if cfg.provenance else empty,
+            eq_prov=eq_prov,
+            fail_prov=full(0) if cfg.provenance else empty,
             nodes=nodes,
             ring=self._empty_ring(lanes),
             fr=self._empty_fr(eq_valid),
@@ -725,6 +761,12 @@ class Engine:
         dev = s.eq_valid.device
         ev_time, ev_kind, ev_node, ev_src = popped
         op = payload[:, 0]
+        idx64 = idx.to(torch.int64)
+        prov_on = cfg.provenance
+        if prov_on:
+            # the popped event's lineage word (fault slots carry their bit
+            # from init, messages and timers their sender's word)
+            ev_prov = gather_at(s.eq_prov, idx64)
 
         new_now = torch.maximum(s.now_us, ev_time)
         live = any_valid & active
@@ -735,7 +777,7 @@ class Engine:
         # past now is deferred: its slot stays valid and only its time
         # moves to the resume point, below. Kill still dominates. The
         # deferred pop is still a popped event (digest, coverage, trace).
-        at_idx = torch.arange(q, device=dev) == idx.to(torch.int64)[:, None]
+        at_idx = torch.arange(q, device=dev) == idx64[:, None]
         popped_slot = at_idx & live[:, None]
         defer = None
         if fp.allow_pause:
@@ -791,12 +833,16 @@ class Engine:
         boot_node = torch.where(is_fault, f_boot, -1)
         msg_valid = outbox.msg_valid & effective[:, None]
         timer_valid = outbox.timer_valid & effective[:, None]
+        node_prov = s.node_prov
+        if prov_on:
+            node_prov, sender_prov = self._prov_fold(s, ev_prov, ev_kind, ev_node, payload, effective)
 
         # -- push messages (latency / loss / clog), timers, the restart boot
         lat_span = max(1, cfg.latency_max_us - cfg.latency_min_us)
         lat_bits = words[:, layout.lat_off : layout.lat_off + m.MAX_MSGS]
         # the handling node's outbound clog row (pre-fault state)
-        blocked = take(_clog_row_bools(take(s.clogged, ev_node), n), outbox.msg_dst)
+        clog_row = take(s.clogged, ev_node)
+        blocked = take(_clog_row_bools(clog_row, n) if cfg.clog_packed else clog_row, outbox.msg_dst)
         if layout.loss_active:
             # static loss rate plus the active storm's (rate 65535 ~ drop
             # all), the sum saturating at the top of the uint32 range
@@ -854,17 +900,25 @@ class Engine:
             "src": torch.cat([msg_src, torch.full((lanes, m.MAX_TIMERS + 1), -1, dtype=torch.int32, device=dev)], 1),
             "payload": torch.cat([msg_pay, timer_pay, torch.zeros_like(timer_pay[:, :1])], 1),
         }
-        eq_time = s.eq_time
+        eq = {"time": s.eq_time, "seq": s.eq_seq, "kind": s.eq_kind, "node": s.eq_node,
+              "src": s.eq_src, "payload": s.eq_payload, "valid": eq_valid}
+        if prov_on:
+            # every push inherits the handling node's word; a duplicate
+            # copy adds the dup bit
+            pushes["prov"] = sender_prov[:, None] | self._prov_tables[2]
+            eq["prov"] = s.eq_prov
         if defer is not None:
             # the deferred slot stays valid with its seq; its time becomes
             # the node's resume time, where it races the resume event only
             # by (time, seq), as in the reference. It takes no free slot.
-            eq_time = torch.where(at_idx & defer[:, None], node_resume_us[:, None], eq_time)
-        eq, pushed, overflow = _push_all(
-            {"time": eq_time, "seq": s.eq_seq, "kind": s.eq_kind, "node": s.eq_node,
-             "src": s.eq_src, "payload": s.eq_payload, "valid": eq_valid},
-            s.next_seq, pushes,
-        )
+            defer_slot = at_idx & defer[:, None]
+            eq["time"] = torch.where(defer_slot, node_resume_us[:, None], eq["time"])
+            if prov_on:
+                # the pause window caused the deferral: the target node's
+                # word (it holds the pause fault's bit) joins the event's
+                target = gather_at(s.node_prov, ev_node.to(torch.int64))
+                eq["prov"] = torch.where(defer_slot, eq["prov"] | target[:, None], eq["prov"])
+        eq, pushed, overflow = _push_all(eq, s.next_seq, pushes)
         next_seq = s.next_seq + pushed.sum(dim=1, dtype=torch.int32)
         msg_count = s.msg_count + pushed[:, :n_msg_cols].sum(dim=1, dtype=torch.int32)
         n_dups = pushed[:, 1:n_msg_cols:2].sum(dim=1, dtype=torch.int32) if layout.dup_active else None
@@ -895,7 +949,7 @@ class Engine:
             # occupancy: a deferred pop leaves its slot valid
             popped_one = live if defer is None else live & ~defer
             eq_n = fr["eq_n"] - popped_one.to(torch.int32) + (next_seq - s.next_seq)
-            n_clog = u32.popcount(clogged).sum(dim=(1, 2), dtype=torch.int32)
+            n_clog = (u32.popcount(clogged) if cfg.clog_packed else clogged).sum(dim=(1, 2), dtype=torch.int32)
             fr = {
                 "d0": d0,
                 "d1": d1,
@@ -950,6 +1004,11 @@ class Engine:
         # -- invariants / termination ---------------------------------------
         ok, code = m.invariant(nodes, new_now)
         inv_fail = process & ~ok
+        fail_prov = s.fail_prov
+        if prov_on:
+            # the violation's word, at the first failure only: the handling
+            # node's (which folds the popped event's) and the event's own
+            fail_prov = torch.where(inv_fail & ~s.failed, sender_prov | ev_prov, fail_prov)
         failed = failed | inv_fail
         fail_code = torch.where(inv_fail, code, fail_code)
         done = s.done | (active & ~any_valid) | horizon_hit | (active & m.is_done(nodes, new_now))
@@ -977,19 +1036,57 @@ class Engine:
             killed=killed,
             paused_until=paused_until,
             skew_q10=skew_q10,
-            node_prov=s.node_prov,
-            eq_prov=s.eq_prov,
-            fail_prov=s.fail_prov,
+            node_prov=node_prov,
+            eq_prov=eq.get("prov", s.eq_prov),
+            fail_prov=fail_prov,
             nodes=nodes,
             ring=ring,
             fr=fr,
             cov=cov,
         )
 
+    def _make_prov_tables(self, fp: FaultPlan):
+        """The lineage fold's constant tables, made once: by fault op, the
+        nodes it touches (0: node `a`, 1: both endpoints, 2: every node)
+        and the word it adds beyond the event's own (the amnesia bit on a
+        strict restart); by push column, the bits a push adds to its
+        sender's word (the dup bit on a duplicate copy)."""
+        m, dev = self.machine, self.device
+        pair_ops = [F_CLOG_PAIR, F_UNCLOG_PAIR, F_CLOG_DIR, F_UNCLOG_DIR]
+        if fp.allow_heal_asym:
+            pair_ops += [F_HASYM, F_HASYM_HEAL]
+        global_ops = [F_CLOG_GROUP, F_UNCLOG_GROUP, F_LOSS_STORM, F_LOSS_END, F_DELAY_SPIKE, F_DELAY_END]
+        n_ops = F_HASYM_HEAL + 1
+        touch = [1 if op in pair_ops else 2 if op in global_ops else 0 for op in range(n_ops)]
+        adds = [1 << PROV_BIT_AMNESIA if fp.strict_restart and op == F_RESTART else 0 for op in range(n_ops)]
+        dup_cols = [0, _PROV_DUP_I32] * m.MAX_MSGS if self._rng_layout.dup_active else [0] * m.MAX_MSGS
+        push_bits = dup_cols + [0] * (m.MAX_TIMERS + 1)
+        return tuple(torch.tensor(t, dtype=torch.int32, device=dev) for t in (touch, adds, push_bits))
+
+    def _prov_fold(self, s: LaneState, ev_prov, ev_kind, ev_node, payload, effective):
+        """The lineage fold of one step: a processed handler event ORs its
+        word into the handling node; a processed fault event plants its
+        word (with the amnesia bit on a strict restart) on the nodes it
+        touches: node `a`, both endpoints of a link op, every node for a
+        group, storm or delay op. Returns (node_prov, sender_prov), the
+        latter the handling node's new word, which every push inherits
+        (a fault event's node is its target `a`)."""
+        touch_tab, add_tab, _ = self._prov_tables
+        is_fault = ev_kind == EV_FAULT
+        op = payload[:, 0].clamp(0, touch_tab.numel() - 1).to(torch.int64)
+        touch = torch.where(is_fault, touch_tab[op], 0)
+        a = torch.where(is_fault, payload[:, 1], ev_node)
+        b = torch.where(touch == 1, payload[:, 2], a)
+        idxs = torch.arange(s.node_prov.shape[1], device=a.device)
+        touched = (idxs == a[:, None]) | (idxs == b[:, None]) | (touch == 2)[:, None]
+        add = ev_prov | torch.where(is_fault, add_tab[op], 0)
+        node_prov = torch.where(touched & effective[:, None], s.node_prov | add[:, None], s.node_prov)
+        return node_prov, gather_at(node_prov, ev_node.to(torch.int64))
+
     def _fault_branch(self, s: LaneState, payload, words, k_restart):
-        """The fault ops on the packed clog rows (pair, directional and
-        group clogs and their undos, the asymmetric partition's clog and
-        its two one-way heals), kill and restart (strict under
+        """The fault ops on the clog state, packed rows or the matrix
+        (pair, directional and group clogs and their undos, the
+        asymmetric partition's clog and its two one-way heals), kill and restart (strict under
         `strict_restart`), the torn kill and restart, the loss storm, the
         delay-spike window and the pause and skew windows of node `a`,
         for every lane (the caller selects fault lanes). Returns (nodes,
@@ -1000,17 +1097,7 @@ class Engine:
         op, a, b = payload[:, 0], payload[:, 1], payload[:, 2]
         col = lambda x: x[:, None]  # noqa: E731
         idxs = torch.arange(n, device=op.device)
-        w0, w1 = s.clogged[:, :, 0], s.clogged[:, :, 1]
-
-        def apply_bit(w0, w1, row_mask, bit_lo, bit_hi, val, touch):
-            msk = col(touch) & row_mask
-            nw0 = torch.where(col(val), w0 | col(bit_lo), w0 & ~col(bit_lo))
-            nw1 = torch.where(col(val), w1 | col(bit_hi), w1 & ~col(bit_hi))
-            return torch.where(msk, nw0, w0), torch.where(msk, nw1, w1)
-
-        a_lo, a_hi = _clog_bit_words(a)
-        b_lo, b_hi = _clog_bit_words(b)
-        a_row, b_row = idxs == col(a), idxs == col(b)
+        a_row = idxs == col(a)
         # pair partition: both directions
         pair_val = op == F_CLOG_PAIR
         touch_pair = pair_val | (op == F_UNCLOG_PAIR)
@@ -1022,27 +1109,25 @@ class Engine:
             pair_val = pair_val | (op == F_HASYM)
             touch_pair = touch_pair | (op == F_HASYM)
             touch_dir = touch_dir | (op == F_HASYM_HEAL)
-        w0, w1 = apply_bit(w0, w1, a_row, b_lo, b_hi, pair_val, touch_pair)
-        w0, w1 = apply_bit(w0, w1, b_row, a_lo, a_hi, pair_val, touch_pair)
-        # directional clog: a -> b only
-        w0, w1 = apply_bit(w0, w1, a_row, b_lo, b_hi, dir_val, touch_dir)
-        # group partition: `a` holds member bits [0, 30), `b` bits [30, 60);
-        # a member's cross links are the group's complement, an outsider's
-        # the group (a node's own bit lands on neither side)
+        # group partition: `a` holds member bits [0, 30), `b` bits [30, 60)
+        # (a node past 60 reads bit 29 of `b`, as in the reference)
         in_g = torch.where(
             idxs < CLOG_WORD_BITS,
             col(a) >> idxs.clamp(0, CLOG_WORD_BITS - 1),
             col(b) >> (idxs - CLOG_WORD_BITS).clamp(0, CLOG_WORD_BITS - 1),
         ) & 1 == 1
-        full_lo = (1 << min(n, CLOG_WORD_BITS)) - 1
-        full_hi = (1 << max(n - CLOG_WORD_BITS, 0)) - 1
-        cross_lo = torch.where(in_g, ~col(a) & full_lo, col(a) & full_lo)
-        cross_hi = torch.where(in_g, ~col(b) & full_hi, col(b) & full_hi)
-        g_on = col(op == F_CLOG_GROUP)
-        touch_group = col((op == F_CLOG_GROUP) | (op == F_UNCLOG_GROUP))
-        w0 = torch.where(touch_group, torch.where(g_on, w0 | cross_lo, w0 & ~cross_lo), w0)
-        w1 = torch.where(touch_group, torch.where(g_on, w1 | cross_hi, w1 & ~cross_hi), w1)
-        clogged = torch.stack([w0, w1], dim=2)
+        if self.config.clog_packed:
+            clogged = self._clog_rows(s.clogged, op, a, b, a_row, idxs == col(b), in_g,
+                                      pair_val, touch_pair, dir_val, touch_dir)
+        else:
+            # the bool matrix: masked writes at (a, b) and (b, a), and the
+            # group's cross-boundary links
+            pair = set2d(set2d(s.clogged, a, b, pair_val), b, a, pair_val)
+            clogged = torch.where(touch_pair[:, None, None], pair, s.clogged)
+            clogged = torch.where(touch_dir[:, None, None], set2d(clogged, a, b, dir_val), clogged)
+            cross = in_g[:, :, None] != in_g[:, None, :]
+            touch_group = ((op == F_CLOG_GROUP) | (op == F_UNCLOG_GROUP))[:, None, None]
+            clogged = torch.where(touch_group & cross, (op == F_CLOG_GROUP)[:, None, None], clogged)
         kill_op, restart_op = op == F_KILL, op == F_RESTART
         if fp.allow_torn:
             # a torn fault is a kill whose restart damages storage
@@ -1075,6 +1160,37 @@ class Engine:
             nodes = self.machine.torn_restart_if(nodes, a, op == F_TORN_RESTART, k_restart, torn_seed)
         boot_node = torch.where(restart_op, a, -1)
         return nodes, clogged, killed, storm.to(torch.int32), delay, paused, skew, boot_node
+
+    def _clog_rows(self, clogged, op, a, b, a_row, b_row, in_g, pair_val, touch_pair, dir_val, touch_dir):
+        """The link ops on the packed rows int32[L, N, CLOG_WORDS]: pair,
+        directional and group clogs and their undos as word-wise bit ops."""
+        n = self.machine.NUM_NODES
+        col = lambda x: x[:, None]  # noqa: E731
+        w0, w1 = clogged[:, :, 0], clogged[:, :, 1]
+
+        def apply_bit(w0, w1, row_mask, bit_lo, bit_hi, val, touch):
+            msk = col(touch) & row_mask
+            nw0 = torch.where(col(val), w0 | col(bit_lo), w0 & ~col(bit_lo))
+            nw1 = torch.where(col(val), w1 | col(bit_hi), w1 & ~col(bit_hi))
+            return torch.where(msk, nw0, w0), torch.where(msk, nw1, w1)
+
+        a_lo, a_hi = _clog_bit_words(a)
+        b_lo, b_hi = _clog_bit_words(b)
+        w0, w1 = apply_bit(w0, w1, a_row, b_lo, b_hi, pair_val, touch_pair)
+        w0, w1 = apply_bit(w0, w1, b_row, a_lo, a_hi, pair_val, touch_pair)
+        # directional clog: a -> b only
+        w0, w1 = apply_bit(w0, w1, a_row, b_lo, b_hi, dir_val, touch_dir)
+        # a group member's cross links are the group's complement, an
+        # outsider's the group (a node's own bit lands on neither side)
+        full_lo = (1 << min(n, CLOG_WORD_BITS)) - 1
+        full_hi = (1 << max(n - CLOG_WORD_BITS, 0)) - 1
+        cross_lo = torch.where(in_g, ~col(a) & full_lo, col(a) & full_lo)
+        cross_hi = torch.where(in_g, ~col(b) & full_hi, col(b) & full_hi)
+        g_on = col(op == F_CLOG_GROUP)
+        touch_group = col((op == F_CLOG_GROUP) | (op == F_UNCLOG_GROUP))
+        w0 = torch.where(touch_group, torch.where(g_on, w0 | cross_lo, w0 & ~cross_lo), w0)
+        w1 = torch.where(touch_group, torch.where(g_on, w1 | cross_hi, w1 & ~cross_hi), w1)
+        return torch.stack([w0, w1], dim=2)
 
     # -- batch runners -------------------------------------------------------
 
@@ -1204,6 +1320,7 @@ class Engine:
             segments=zero,
             fail_seeds=torch.zeros(cap, **i64),
             fail_codes=torch.zeros(cap, **i64),
+            fail_provs=torch.zeros(cap if cfg.provenance else 0, **i64),
             fail_count=zero,
             ab_seeds=torch.zeros(cap, **i64),
             ab_count=zero,
@@ -1247,6 +1364,10 @@ class Engine:
         fail_mask = harvest & state.failed
         fail_seeds, fail_count = _append_ring(c.fail_seeds, c.fail_count, fail_mask, seeds, cap)
         fail_codes, _ = _append_ring(c.fail_codes, c.fail_count, fail_mask, state.fail_code.to(torch.int64), cap)
+        fail_provs = c.fail_provs
+        if self.config.provenance:
+            # violation words ride the failure ring, as uint32 values
+            fail_provs, _ = _append_ring(c.fail_provs, c.fail_count, fail_mask, u32.from_i32(state.fail_prov), cap)
         ab_mask = harvest & ~state.failed & over_cap
         ab_seeds, ab_count = _append_ring(c.ab_seeds, c.ab_count, ab_mask, seeds, cap)
 
@@ -1279,6 +1400,7 @@ class Engine:
             segments=c.segments + (1 if go is None else go.to(torch.int64)),
             fail_seeds=fail_seeds,
             fail_codes=fail_codes,
+            fail_provs=fail_provs,
             fail_count=fail_count,
             ab_seeds=ab_seeds,
             ab_count=ab_count,
@@ -1335,7 +1457,9 @@ class Engine:
         drains, dispatches, dispatch_retries, device_segments,
         dispatch_depth, segments_per_dispatch, donation, pipelined,
         "flight_recorder" (with the recorder on), "coverage" (with
-        coverage on)}, "coverage_map" (with coverage on)}."""
+        coverage on)}, "coverage_map" (with coverage on), "provenance"
+        {seed: violation word} of every failing lane (with provenance
+        on)}."""
         from ..runtime.coverage import coverage_dict, unpack_map
         from ..runtime.metrics import fr_metrics_dict
 
@@ -1350,6 +1474,8 @@ class Engine:
         seeds = torch.arange(seed_start, seed_start + batch, dtype=torch.int64, device=self.device) & u32.MASK
         carry = self._init_carry(seeds, cap)
         failing, infra, abandoned, cov_curve = [], [], [], []
+        prov_by_seed = {}  # seed -> violation word (provenance on)
+        prov_on = self.config.provenance
         stats = {"host_syncs": 0, "drains": 0, "dispatches": 0, "dispatch_retries": 0}
 
         def poll(c):
@@ -1362,14 +1488,17 @@ class Engine:
 
         def drain(c):
             rings = torch.cat([
-                c.fail_seeds, c.fail_codes, c.ab_seeds, c.fail_count[None], c.ab_count[None],
+                c.fail_seeds, c.fail_codes, c.fail_provs, c.ab_seeds, c.fail_count[None], c.ab_count[None],
             ]).cpu().numpy()
             stats["drains"] += 1
             stats["host_syncs"] += 1
             f_n, a_n = int(rings[-2]), int(rings[-1])
-            for s_, code in zip(rings[:f_n], rings[cap : cap + f_n]):
+            ab_at = (3 if prov_on else 2) * cap
+            for i, (s_, code) in enumerate(zip(rings[:f_n], rings[cap : cap + f_n])):
                 (infra if int(code) == OVERFLOW else failing).append((int(s_), int(code)))
-            abandoned.extend(int(s_) for s_ in rings[2 * cap : 2 * cap + a_n])
+                if prov_on:
+                    prov_by_seed[int(s_)] = int(rings[2 * cap + i])
+            abandoned.extend(int(s_) for s_ in rings[ab_at : ab_at + a_n])
             zero = torch.zeros_like(c.fail_count)
             return _with_counters(dataclasses.replace(c, fail_count=zero, ab_count=zero), cap)
 
@@ -1442,6 +1571,8 @@ class Engine:
                 "curve": cov_curve,
             }
             out["coverage_map"] = cov_map
+        if prov_on:
+            out["provenance"] = prov_by_seed
         return out
 
     def make_stream_runner(self, batch: int = 1024, segment_steps: int = 256,
@@ -1534,8 +1665,9 @@ def _push_all(eq, next_seq, pushes):
     free slot of rank prior_k (the number of wanted pushes before it),
     gets seq next_seq + prior_k, and fits iff prior_k < the number of
     free slots. `pushes` holds [L, K] columns want/time/node/src, the
-    [K] event kinds and payload [L, K, P]. Returns (eq, pushed [L, K],
-    overflow [L])."""
+    [K] event kinds and payload [L, K, P], and with provenance on the
+    [L, K] lineage words `prov` (then `eq` has its "prov" plane too).
+    Returns (eq, pushed [L, K], overflow [L])."""
     want = pushes["want"]
     free = ~eq["valid"]
     prior = torch.cumsum(want.to(torch.int32), dim=1) - want.to(torch.int32)
@@ -1546,11 +1678,13 @@ def _push_all(eq, next_seq, pushes):
     hit = lands.any(dim=1)
     k_at = (lands.to(torch.int64) * torch.arange(want.shape[1], device=want.device)[None, :, None]).sum(dim=1)
     kinds = pushes["kind"].expand_as(prior)
-    cols = torch.stack([pushes["time"], next_seq[:, None] + prior, kinds, pushes["node"], pushes["src"]], dim=2)
+    names = ("time", "seq", "kind", "node", "src") + (("prov",) if "prov" in pushes else ())
+    cols = torch.stack([pushes["time"], next_seq[:, None] + prior, kinds, pushes["node"], pushes["src"]]
+                       + [pushes[k] for k in names[5:]], dim=2)
     at = k_at[:, :, None]
-    vals = torch.take_along_dim(cols.to(torch.int32), at, dim=1)  # [L, Q, 5]
+    vals = torch.take_along_dim(cols.to(torch.int32), at, dim=1)  # [L, Q, 5 or 6]
     pay = torch.take_along_dim(pushes["payload"], at, dim=1)  # [L, Q, P]
-    out = {k: torch.where(hit, vals[:, :, i], eq[k]) for i, k in enumerate(("time", "seq", "kind", "node", "src"))}
+    out = {k: torch.where(hit, vals[:, :, i], eq[k]) for i, k in enumerate(names)}
     out["payload"] = torch.where(hit[:, :, None], pay.to(torch.int32), eq["payload"])
     out["valid"] = eq["valid"] | hit
     return out, pushed, (want & ~fits).any(dim=1)

@@ -42,7 +42,8 @@ class TraceEvent:
     # the event's queue sequence number (unique per lane, assigned at
     # push time)
     seq: int = -1
-    # the causal-provenance word (0: provenance is not ported)
+    # the event's causal-provenance word as a uint32 value
+    # (EngineConfig.provenance; 0 with the gate off)
     prov: int = 0
 
     def __repr__(self) -> str:
@@ -65,6 +66,12 @@ class ReplayResult:
     @property
     def fail_code(self) -> int:
         return int(self.state.fail_code)
+
+    @property
+    def fail_prov(self) -> int:
+        """The violation's provenance word as a uint32 value (the state
+        holds it as an int32 bit pattern); 0 with the gate off."""
+        return int(self.state.fail_prov.sum()) & 0xFFFFFFFF
 
 
 def replay_diff(
@@ -159,11 +166,14 @@ def replay(
         return replay_outcome(engine, seed, max_steps=max_steps)
     state = engine.init_batch([seed])
     events: List[TraceEvent] = []
+    prov_on = int(engine.config.provenance)
     for step in range(max_steps):
         idx, any_valid = pop_earliest_batch(state.eq_time, state.eq_seq, state.eq_valid)
         at = idx.to(torch.int64)[:, None]
-        fields = [torch.take_along_dim(plane, at, dim=1)[0]
-                  for plane in (state.eq_time, state.eq_kind, state.eq_node, state.eq_src, state.eq_seq)]
+        planes = (state.eq_time, state.eq_kind, state.eq_node, state.eq_src, state.eq_seq)
+        if prov_on:
+            planes += (state.eq_prov,)
+        fields = [torch.take_along_dim(plane, at, dim=1)[0] for plane in planes]
         payload = torch.take_along_dim(state.eq_payload, at[:, :, None], dim=1)[0, 0]
         # one read a step: the lane's stop flag, whether it pops, the event
         row = torch.cat([_frozen(state).to(torch.int32), any_valid.to(torch.int32), *fields, payload]).tolist()
@@ -172,8 +182,9 @@ def replay(
         ev = None
         if row[1]:
             time_us, kind, node, src, seq = row[2:7]
+            prov = row[7] & 0xFFFFFFFF if prov_on else 0
             ev = TraceEvent(step=step, time_us=time_us, kind=_KIND_NAMES.get(kind, "?"), node=node,
-                            src=src, payload=tuple(row[7:]), seq=seq)
+                            src=src, payload=tuple(row[7 + prov_on:]), seq=seq, prov=prov)
         state = engine.step_batch(state)
         if ev is not None:
             if trace:

@@ -16,7 +16,14 @@ fail with the same code; only such candidates are kept:
   * the failing step count reported as a sufficient step budget.
 
 Every candidate engine is built on the device of the engine it shrinks.
-Provenance-guided ordering is not ported: a provenance word raises.
+
+With a violation provenance word (`prov_word`, or the base replay's when
+the engine's `provenance` gate is on), attribution orders the
+candidates: the fault-count scan first tries the smallest prefix that
+holds every implicated fault, and the kind ablation first drops every
+kind the word does not implicate in one candidate. Attribution
+over-approximates, so it is never trusted: every candidate is still
+verified by a replay, and the shrunk config is the unguided one.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import dataclasses
 from typing import Optional
 
 from ..kinds import FLAG_BY_KIND
-from .core import Engine, EngineConfig, _unported
+from .core import Engine, EngineConfig
 from .replay import ReplayResult, replay
 
 # Ablation order: the newest, most exotic kinds first, so the reported
@@ -48,8 +55,8 @@ class ShrinkResult:
     fail_time_us: int
     attempts: int  # replays spent shrinking
     kinds_removed: tuple = ()  # chaos flags ablated off (honest replays)
-    guided: bool = False  # provenance guidance (not ported: always False)
-    prov_kinds: tuple = ()
+    guided: bool = False  # provenance attribution steered the order
+    prov_kinds: tuple = ()  # kinds the violation's provenance implicated
 
     def summary(self) -> str:
         o, s = self.original, self.shrunk
@@ -63,10 +70,11 @@ class ShrinkResult:
         if s.horizon_us != o.horizon_us:
             parts.append(f"horizon {o.horizon_us}us -> {s.horizon_us}us")
         changed = "; ".join(parts) if parts else "config already minimal"
+        guided = f", provenance-guided by [{','.join(self.prov_kinds)}]" if self.guided else ""
         return (
             f"seed {self.seed} fails with code {self.fail_code} in "
             f"{self.steps} events (t={self.fail_time_us}us); {changed} "
-            f"[{self.attempts} verification replays]"
+            f"[{self.attempts} verification replays{guided}]"
         )
 
 
@@ -78,10 +86,9 @@ def _fails_same(engine: Engine, seed: int, max_steps: int, code: int) -> Optiona
 
 
 def shrink(engine: Engine, seed: int, max_steps: int = 10_000, prov_word: Optional[int] = None) -> ShrinkResult:
-    """Minimize the failing configuration of `seed`. Raises ValueError if
-    the seed does not fail under `engine`."""
-    if prov_word:
-        raise _unported("provenance")
+    """Minimize the failing configuration of `seed`, the candidates in
+    the order its provenance word suggests when there is one. Raises
+    ValueError if the seed does not fail under `engine`."""
     base = replay(engine, seed, max_steps=max_steps, trace=False)
     if not base.failed:
         raise ValueError(
@@ -97,14 +104,44 @@ def shrink(engine: Engine, seed: int, max_steps: int = 10_000, prov_word: Option
         attempts += 1
         return _fails_same(Engine(engine.machine, cand_cfg, device=engine.device), seed, max_steps, code)
 
+    # attribution, when there is a word: the implicated faults and kinds
+    if prov_word is None and cfg.provenance:
+        prov_word = base.fail_prov
+    att = None
+    if prov_word:
+        from .provenance import implicated
+
+        att = implicated(engine, seed, prov_word)
+    guided = att is not None
+    imp_kinds = set(att.kinds) if att else set()
+
+    def with_faults(f):
+        return dataclasses.replace(cfg, faults=dataclasses.replace(cfg.faults, n_faults=f))
+
     # 1. the fewest faults whose prefix plan still reproduces (a linear
-    #    scan from zero: the smallest candidate first)
-    for f in range(cfg.faults.n_faults):
-        cand_cfg = dataclasses.replace(cfg, faults=dataclasses.replace(cfg.faults, n_faults=f))
-        rp = attempt(cand_cfg)
-        if rp is not None:
-            cfg, best = cand_cfg, rp
-            break
+    #    scan from zero: the smallest candidate first). Guided: a prefix
+    #    reproduces only if it holds the implicated faults, so the
+    #    smallest such prefix goes first; on a miss the full scan follows.
+    guessed = False
+    tried_guess = None
+    if att and att.faults and not att.aliased:
+        guess = max(f.index for f in att.faults) + 1
+        if guess < cfg.faults.n_faults:
+            tried_guess = guess
+            cand_cfg = with_faults(guess)
+            rp = attempt(cand_cfg)
+            if rp is not None:
+                cfg, best = cand_cfg, rp
+                guessed = True
+    if not guessed:
+        for f in range(cfg.faults.n_faults):
+            if f == tried_guess:
+                continue  # replayed above
+            cand_cfg = with_faults(f)
+            rp = attempt(cand_cfg)
+            if rp is not None:
+                cfg, best = cand_cfg, rp
+                break
 
     # 2. packet loss off
     if cfg.packet_loss_rate > 0:
@@ -115,9 +152,24 @@ def shrink(engine: Engine, seed: int, max_steps: int = 10_000, prov_word: Option
 
     # 3. chaos-flag ablation: each enabled flag off; a flag whose removal
     #    changes the outcome stays. A scheduled plan keeps at least one
-    #    kind (the engine refuses n_faults > 0 with none).
+    #    kind (the engine refuses n_faults > 0 with none). Guided: every
+    #    kind the word does not implicate goes off in one candidate
+    #    first; on a hit only the implicated kinds are left to try.
     kinds_removed = []
-    for kind_name, field in ABLATABLE_KINDS:
+    enabled = [(name, field) for name, field in ABLATABLE_KINDS if getattr(cfg.faults, field)]
+    scan = enabled
+    if guided:
+        non_imp = [(n, f) for n, f in enabled if n not in imp_kinds]
+        if len(non_imp) >= 2:
+            bulk_faults = dataclasses.replace(cfg.faults, **{f: False for _n, f in non_imp})
+            if bulk_faults.n_faults == 0 or bulk_faults.enabled_kinds():
+                cand_cfg = dataclasses.replace(cfg, faults=bulk_faults)
+                rp = attempt(cand_cfg)
+                if rp is not None:
+                    cfg, best = cand_cfg, rp
+                    kinds_removed.extend(n for n, _f in non_imp)
+                    scan = [(n, f) for n, f in enabled if n in imp_kinds]
+    for kind_name, field in scan:
         if not getattr(cfg.faults, field):
             continue
         cand_faults = dataclasses.replace(cfg.faults, **{field: False})
@@ -148,4 +200,6 @@ def shrink(engine: Engine, seed: int, max_steps: int = 10_000, prov_word: Option
         fail_time_us=int(best.state.now_us),
         attempts=attempts,
         kinds_removed=tuple(kinds_removed),
+        guided=guided,
+        prov_kinds=tuple(att.kinds) if att else (),
     )

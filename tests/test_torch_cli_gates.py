@@ -19,7 +19,6 @@ from torch_port_util import run_pair
 
 ECHO = ["--machine", "echo", "--seeds", "8", "--faults", "0", "--max-steps", "50"]
 GATES = [
-    ("why", ["why", "3"], "item 7"),
     ("perf", ["perf", "out.json"], "item 13"),
     ("prof", ["prof", "compile"], "item 13"),
     ("bench", ["bench", "--lanes", "64"], "item 6"),
@@ -27,7 +26,6 @@ GATES = [
     ("serve", ["serve", "--service", "stats"], "item 9"),
     ("fleet", ["fleet", "queue"], "item 11"),
     ("lint", ["lint"], "item 14"),
-    ("--provenance", ["explore", *ECHO, "--provenance"], "item 7"),
     ("--guided", ["hunt", *ECHO, "--stream", "--coverage", "--guided"], "item 10"),
     ("--devices", ["explore", *ECHO, "--stream", "--devices", "2"], "item 12"),
     ("--multihost", ["explore", *ECHO, "--multihost"], "item 12"),

@@ -135,12 +135,11 @@ def test_overcommit_bug_found_on_the_same_seeds(overcommit_streams):
     assert got["failing"] == want["failing"]
 
 
-# the gates still closed; those lifted since (every FaultPlan kind among
+# the gate still closed; those lifted since (every FaultPlan kind among
 # them) run in test_torch_gates.py, cov_buffer=0 and the pipelined
-# executor below
+# executor below, provenance in test_torch_provenance.py and
+# clog_packed=False in test_torch_clog.py
 GATES = [
-    ("clog_packed=False", dict(clog_packed=False)),
-    ("provenance", dict(provenance=True)),
     ("compile_cache_dir", dict(compile_cache_dir="cache")),
 ]
 

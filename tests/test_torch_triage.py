@@ -188,12 +188,12 @@ def test_shrink_matches_jax(rng_stream):
 
 
 def test_shrink_refuses_a_passing_seed_and_a_provenance_word():
+    """A passing seed is refused, with or without a provenance word to
+    guide the shrink (guided shrink runs in test_torch_provenance.py)."""
     honest = Engine(etcd.EtcdMachine(4, 2, 6), EngineConfig(**TRIAGE, faults=FaultPlan(**ETCD_FAULTS)), device="cpu")
-    with pytest.raises(ValueError, match="does not fail"):
-        shrink(honest, 0, max_steps=16)
-    _, port = _triage(3)
-    with pytest.raises(NotImplementedError, match="provenance"):
-        shrink(port, 3, max_steps=64, prov_word=0b101)
+    for word in (None, 0b101):
+        with pytest.raises(ValueError, match="does not fail"):
+            shrink(honest, 0, max_steps=16, prov_word=word)
 
 
 # -- the corpus ------------------------------------------------------------------
