@@ -137,7 +137,25 @@ last line):
      gossip cluster (which only the matrix holds) at 256 lanes on both
      streams against the CPU; `clog_kernels` holds and times the
      megakernel and pop_gather at its queue of 256;
- 14. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+ 14. guided search (`guided`): `hunt --stream --coverage --provenance
+     --guided --stop-on-plateau 1` of phase 11's hunt at 3 x 8192 lanes
+     on the card, a `guided_batch` line a batch (seconds, seeds/s,
+     mutants, new slots, finds so far, the rung); every batch after the
+     first holds as many mutants as its heartbeat counts, every seed of
+     the checkpoint's trail is unique, and the first 64 finds re-run on
+     the CPU with `run_seed_batch` under their escalation step's engine
+     to the same codes; beside it the same hunt at 64 lanes on the card
+     and with `--device cpu` gives equal stdout and checkpoints; the
+     step's kernels at the base rung and the escalated one
+     (`profile_guided`);
+ 15. the Raft differential's device side (`differential`): the fault
+     schedules and device verdicts of 64 seeds at the fixture of
+     tests/test_differential.py (Q = 96, the split chain) on the card
+     and on the CPU, equal; `guided_kernels` holds and times the
+     megakernel and the flush at the escalated vocabulary's W (8192
+     lanes), the megakernel at the 64-lane hunt's escalated W, and
+     pop_gather at the differential's 64 lanes of Q = 96;
+ 16. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
@@ -153,8 +171,8 @@ just after; a kernel of the path that never launched fails the run.
 
 It needs a CUDA card and the repository beside it; with neither it
 exits non-zero and prints no result. `--only cli` builds the kernels and
-runs phase 11 alone, `--only prov` phases 11-13 (short checks; they print
-no result line).
+runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phases
+14-15 (short checks; they print no result line).
 """
 
 import argparse
@@ -1686,8 +1704,9 @@ CLI_SMALL = ["explore", "--stream", "--machine", "raft", "--seeds", "64", "--bat
              *CLI_SHAPE, "--flight-recorder", "--coverage"]
 CLI_JOBS = 6  # commands run at once where nothing is timed (8 host cores)
 # runs the module as `python -m` does, then writes to the path given
-# first the wrappers' launch counts of that process and the executor
-# statistics of each of its run_stream calls
+# first the wrappers' launch counts of that process, the executor
+# statistics of each of its run_stream calls and each guided batch's
+# (run_seed_batch's) word block, lanes and launches
 CLI_LAUNCHER = (
     "import atexit, json, runpy, sys\n"
     "out = sys.argv.pop(1)\n"
@@ -1699,10 +1718,41 @@ CLI_LAUNCHER = (
     "    streams.append({k: v for k, v in res['stats'].items() if isinstance(v, (bool, int))})\n"
     "    return res\n"
     "Engine.run_stream = counted\n"
-    "atexit.register(lambda: json.dump({'launches': kernels.launches, 'streams': streams}, open(out, 'w')))\n"
+    "batches, run_seed_batch = [], Engine.run_seed_batch\n"
+    "def counted_batch(self, *args, **kwargs):\n"
+    "    before = dict(kernels.launches)\n"
+    "    res = run_seed_batch(self, *args, **kwargs)\n"
+    "    batches.append({'words': self._rng_layout.total_words, 'lanes': res['completed'],\n"
+    "                    'launches': {k: v - before.get(k, 0) for k, v in kernels.launches.items()}})\n"
+    "    return res\n"
+    "Engine.run_seed_batch = counted_batch\n"
+    "atexit.register(lambda: json.dump({'launches': kernels.launches, 'streams': streams, 'batches': batches},\n"
+    "                                  open(out, 'w')))\n"
     "sys.argv[0] = 'madsim_tpu_torch'\n"
     "runpy.run_module('madsim_tpu_torch', run_name='__main__', alter_sys=True)\n"
 )
+
+# phase 14, guided search: phase 11's hunt arguments with coverage,
+# provenance and guidance at full width (three batches of 8192 lanes; a
+# guided batch runs every lane to its end, so the batch lasts as long as
+# its longest lane: on the JAX package's CPU run of 2048 of these seeds
+# the median lane ends at 219 events, the 99th percentile at 1,829, the
+# longest at 2,655, so lanes are cut at 1,500 events); beside it the same
+# hunt at 64 lanes, five batches (the last under the escalated vocabulary:
+# on the CPU port the cell grid plateaus after the fourth), lanes cut at
+# 768 events, on the card and the CPU; the first finds of the full-width
+# hunt re-run on the CPU
+GUIDED_ARGS = [*CLI_HUNT, "--stream", "--coverage", "--provenance", "--guided", "--stop-on-plateau", "1",
+               "--limit", "0", "--log-level", "INFO"]
+GUIDED_LANES, GUIDED_BATCHES, GUIDED_STEPS = 8192, 3, 1500
+GUIDED_SMALL_LANES, GUIDED_SMALL_BATCHES, GUIDED_SMALL_STEPS = 64, 5, 768
+GUIDED_RERUN = 64
+GUIDED_STATE_STEPS = 64  # the escalated batch's state its kernels are timed on: this far in
+# phase 15, the Raft differential's device side at the fixture of
+# tests/test_differential.py:21-28 (Q = 96, the split chain), 64 seeds
+DIFF = dict(horizon_us=5_000_000, queue_capacity=96)
+DIFF_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
+DIFF_LANES, DIFF_STEPS = 64, 3000
 
 
 def run_cli(tmp, name, argv, rc=0, cpu_threads=None, timeout=900):
@@ -1719,7 +1769,7 @@ def run_cli(tmp, name, argv, rc=0, cpu_threads=None, timeout=900):
     done = subprocess.run([sys.executable, "-c", CLI_LAUNCHER, str(counts), *argv], cwd=tmp, env=env,
                           capture_output=True, text=True, timeout=timeout)
     res = {"rc": done.returncode, "out": done.stdout, "err": done.stderr, "s": round(time.perf_counter() - t0, 3),
-           **(json.loads(counts.read_text()) if counts.exists() else {"launches": {}, "streams": []})}
+           **(json.loads(counts.read_text()) if counts.exists() else {"launches": {}, "streams": [], "batches": []})}
     if done.returncode != rc:
         fail(f"cli {name}: `{' '.join(argv)}` exited {done.returncode}, expected {rc}:\n"
              f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
@@ -2177,15 +2227,233 @@ def clog_phase(torch, np, kernels, dev):
     ), (), pops=((f"pop_gather_gossip64_L{GOSSIP64_LANES}_Q{v2_state.eq_time.shape[1]}", v2_state, v2_n),))
 
 
+def differential_side(device=None):
+    """Phase 15's device side of the Raft differential on `device` (the
+    card by default): every seed's fault schedule (one `init_batch`) and
+    device verdict (one `run_batch`) at the fixture's config."""
+    from madsim_tpu_torch.differential import fault_schedules, run_device_rafts
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+
+    eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), EngineConfig(**DIFF, faults=FaultPlan(**DIFF_FAULTS)),
+                 device=device)
+    seeds = list(range(DIFF_LANES))
+    return {"schedules": fault_schedules(eng, seeds), "verdicts": run_device_rafts(eng, seeds, DIFF_STEPS)}
+
+
+GUIDED_BEAT = re.compile(
+    r"guided batch (\d+)/(\d+): (\d+) seeds \((\d+) mutants\) in ([0-9.]+)s \((\d+) seeds/s\) on \d+ device\(s\), "
+    r"coverage (\d+) slots \(\+(\d+)\), (\d+) failing so far, escalation (\d+) \[([^\]]*)\]"
+    r"(?: -> escalated to step (\d+))?")
+
+
+def guided_batches(err):
+    """The guided heartbeat lines of a hunt's log, one dict a batch."""
+    keys = ("batch", "batches", "seeds", "mutants", "seconds", "seeds_per_s", "slots", "new_slots", "failing",
+            "escalation", "kinds", "escalated_to")
+    out = []
+    for m in GUIDED_BEAT.finditer(err):
+        row = dict(zip(keys, m.groups()))
+        out.append({k: (v if k == "kinds" else None if v is None else float(v) if k == "seconds" else int(v))
+                    for k, v in row.items()})
+    return out
+
+
+def guided_phase(torch, np, kernels, dev):
+    """Phases 14 and 15: guided search at full width (`guided`), and the
+    Raft differential's device side (`differential`). At once: `hunt
+    --guided` of phase 11's hunt at 3 x 8192 lanes on the card (a
+    `guided_batch` line a batch: seconds, seeds/s, mutants, new slots,
+    finds so far, the rung), the same at 64 lanes on the card and with
+    `--device cpu` (equal stdout and checkpoints), the differential's
+    fault schedules and verdicts of 64 seeds on the CPU in a subprocess;
+    in this process the same on the card (equal). Then the checks of the
+    full-width hunt: mutants in every batch after the first, as many as
+    its heartbeat counts; every seed of its trail unique; its first 64
+    finds re-run on the CPU with `run_seed_batch` under their escalation
+    step's engine, to the same codes. Then each new kernel shape, held
+    against its twin and timed (`guided_kernels`): the megakernel and the
+    flush at 8192 lanes under the escalated vocabulary, the megakernel at
+    the 64-lane hunt's escalated W, pop_gather at the differential's 64
+    lanes of Q = 96."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+    from madsim_tpu_torch.search.guided import engine_for_escalation
+
+    with tempfile.TemporaryDirectory(prefix="madsim_guided_") as tmp:
+        dirs = {k: pathlib.Path(tmp) / k for k in ("full", "small_card", "small_cpu")}
+        for d in dirs.values():
+            d.mkdir()
+        full_argv = ["hunt", *GUIDED_ARGS, "--seeds", str(GUIDED_BATCHES * GUIDED_LANES), "--batch",
+                     str(GUIDED_LANES), "--max-steps", str(GUIDED_STEPS), "--checkpoint", "ck.json", "--corpus",
+                     "c.json"]
+        small_argv = ["hunt", *GUIDED_ARGS, "--seeds", str(GUIDED_SMALL_BATCHES * GUIDED_SMALL_LANES), "--batch",
+                      str(GUIDED_SMALL_LANES), "--max-steps", str(GUIDED_SMALL_STEPS), "--checkpoint", "ck.json",
+                      "--corpus", "c.json"]
+        diff_out = pathlib.Path(tmp) / "differential_cpu.json"
+        diff_code = ("import json, sys\n"
+                     f"sys.path.insert(0, {str(pathlib.Path(__file__).resolve().parent)!r})\n"
+                     "import chip_smoke\n"
+                     "json.dump(chip_smoke.differential_side('cpu'), open(sys.argv[1], 'w'))\n")
+        env = dict(os.environ, OMP_NUM_THREADS="2")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            full_job = pool.submit(run_cli, str(dirs["full"]), "guided", full_argv, 1)
+            small_jobs = {k: pool.submit(run_cli, str(dirs[k]), k, small_argv + (["--device", "cpu"] if k ==
+                                         "small_cpu" else []), 1, 2 if k == "small_cpu" else None)
+                          for k in ("small_card", "small_cpu")}
+            diff_job = pool.submit(subprocess.run, [sys.executable, "-c", diff_code, str(diff_out)], env=env,
+                                   capture_output=True, text=True, timeout=900)
+            # the differential's device side on the card, meanwhile
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t_diff = time.perf_counter()
+            diff_card = differential_side()
+            torch.cuda.synchronize()
+            diff_card_s = time.perf_counter() - t_diff
+            diff_launches = dict(kernels.launches)
+            done = diff_job.result()
+            diff_cpu_s = time.perf_counter() - t_diff
+            full = full_job.result()
+            small = {k: j.result() for k, j in small_jobs.items()}
+        stage_s = round(time.perf_counter() - t0, 3)
+        if done.returncode != 0:
+            fail(f"differential on the CPU exited {done.returncode}:\n{done.stderr[-3000:]}")
+        diff_cpu = json.loads(diff_out.read_text())
+        # tuples of the card's side as JSON gives them back
+        if json.loads(json.dumps(diff_card)) != diff_cpu:
+            fail("differential: the card's schedules or verdicts differ from the CPU's")
+        if diff_launches.get("pop_gather", 0) <= 0:
+            fail(f"differential on the card never launched pop_gather: {diff_launches}")
+        verdicts = diff_card["verdicts"]
+        emit({"phase": "differential", "seeds": DIFF_LANES, "equal": True, "card_s": round(diff_card_s, 3),
+              "cpu_subprocess_s": round(diff_cpu_s, 3), "fault_events": sum(len(x) for x in diff_card["schedules"]),
+              "device_violations": sum(1 for v in verdicts if v["violation"]),
+              "device_elected": sum(1 for v in verdicts if v["elected"]), "launches": diff_launches})
+
+        # the full-width hunt
+        beats = guided_batches(full["err"])
+        ckpt = json.loads((dirs["full"] / "ck.json").read_text())
+        trail = ckpt["guided"]["trail"]
+        for b in beats:
+            emit({"phase": "guided_batch", **b})
+        if len(beats) != GUIDED_BATCHES or len(trail) != GUIDED_BATCHES or not ckpt["done"]:
+            fail(f"guided hunt ran {len(beats)} heartbeats, {len(trail)} trail records (done={ckpt['done']}):\n"
+                 f"{full['out']}\n{full['err'][-3000:]}")
+        for b, rec in zip(beats[1:], trail[1:]):
+            if b["mutants"] <= 0 or b["mutants"] != rec["mutants"]:
+                fail(f"guided batch {b['batch']}: {b['mutants']} mutants in the heartbeat, {rec['mutants']} in "
+                     f"the trail")
+        seeds = [s for rec in trail for s in rec["seeds"]]
+        if len(seeds) != len(set(seeds)) or len(seeds) != ckpt["completed"]:
+            fail(f"guided trail: {len(seeds)} seeds, {len(set(seeds))} unique, {ckpt['completed']} completed")
+        for name in ("step_megakernel", "cov_flush"):
+            if full["launches"].get(name, 0) <= 0:
+                fail(f"guided hunt never launched {name}: {full['launches']}")
+        failing = [tuple(x) for x in ckpt["failing"]]
+        esc = {int(k): v for k, v in ckpt["guided"]["failing_escalation"].items()}
+        summary = re.search(r"hunted (\d+) seeds: (\d+) failing(?:, (\d+) abandoned)?", full["out"])
+        g_line = re.search(r"guided: escalation step (\d+), (\d+) corpus parents, (\d+) mutants over (\d+) batches",
+                           full["out"])
+        att = re.search(r"fault attribution: \[([^\]]*)\]", full["out"])
+        if not summary or not g_line or int(summary.group(2)) != len(failing) or not failing:
+            fail(f"guided hunt: its summary does not match its checkpoint, or it found nothing:\n{full['out']}")
+
+        # its first finds on the CPU engine, under their escalation step's engine
+        cpu_base = _build_engine(_parser().parse_args([*full_argv, "--device", "cpu"]))
+        first = failing[:GUIDED_RERUN]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(4)
+        t0 = time.perf_counter()
+        rerun = {}
+        for step in sorted({esc[s] for s, _ in first}):
+            group = [(s, c) for s, c in first if esc[s] == step]
+            out = engine_for_escalation(cpu_base, step).run_seed_batch([s for s, _ in group],
+                                                                        max_steps=GUIDED_STEPS)
+            if sorted(out["failing"] + out["infra"]) != sorted(group):
+                fail(f"guided finds under escalation step {step} re-ran on the CPU as {out['failing']}, "
+                     f"{out['infra']}; the card found {group}")
+            rerun[str(step)] = len(group)
+        rerun_s = round(time.perf_counter() - t0, 3)
+        torch.set_num_threads(threads)
+
+        # the 64-lane hunt, card against CPU
+        card_out, cpu_out = cli_wall_free(small["small_card"]["out"]), cli_wall_free(small["small_cpu"]["out"])
+        card_ck, cpu_ck = ((dirs[k] / "ck.json").read_bytes() for k in ("small_card", "small_cpu"))
+        if card_out != cpu_out or card_ck != cpu_ck:
+            fail(f"64-lane guided hunt: the card and the CPU differ (checkpoints equal: {card_ck == cpu_ck}):\n"
+                 f"{card_out}\n{cpu_out}")
+        small_trail = json.loads(card_ck)["guided"]["trail"]
+        esc_engines = sorted({r["escalated_to"] for r in trail if r["escalated_to"]})
+        emit({"phase": "guided", "lanes": GUIDED_LANES, "batches": GUIDED_BATCHES, "max_steps": GUIDED_STEPS,
+              "stage_s": stage_s, "subprocess_s": full["s"], "seeds": int(summary.group(1)),
+              "failing": len(failing), "abandoned": int(summary.group(3) or 0),
+              "codes": sorted({c for _, c in failing}), "escalation": int(g_line.group(1)),
+              "parents": int(g_line.group(2)), "mutants": int(g_line.group(3)),
+              "escalated_engines_built": len(esc_engines), "escalated_to": esc_engines,
+              "finds_by_escalation": {str(k): sum(1 for s, _ in failing if esc[s] == k) for k in sorted(set(esc.values()))},
+              "attribution": att.group(1) if att else None, "trail_unique": True,
+              "rerun_on_cpu": {"finds": len(first), "by_escalation": rerun, "s": rerun_s, "same_codes": True},
+              "launches": full["launches"], "batch_launches": full["batches"],
+              "small": {"lanes": GUIDED_SMALL_LANES, "batches": len(small_trail), "equal": True,
+                        "card_s": small["small_card"]["s"], "cpu_s": small["small_cpu"]["s"],
+                        "escalations": [r["escalated_to"] for r in small_trail if r["escalated_to"]],
+                        "failing": len(json.loads(card_ck)["failing"]),
+                        "launches": small["small_card"]["launches"]}})
+
+    # each new kernel shape, on a state of the engine that launches it
+    card_base = _build_engine(_parser().parse_args(full_argv))
+    steps, flushes = [], []
+    by_words = {}
+    for b in full["batches"]:
+        n = by_words.setdefault(b["words"], {"step_megakernel": 0, "cov_flush": 0})
+        for k in n:
+            n[k] += b["launches"].get(k, 0)
+    # where a step's time goes, at the base rung and the top one
+    profiles = {}
+    for rung in sorted({0, max(r["escalation"] for r in trail)}):
+        eng = engine_for_escalation(card_base, rung)
+        words = eng._rng_layout.total_words
+        rec = next(r for r in trail if r["escalation"] == rung)
+        state = eng.run_segment(eng.init_batch(np.asarray(rec["seeds"], dtype=np.int64)), GUIDED_STATE_STEPS)
+        for _ in range(eng._cov_flush_every):  # coverage buffers a flush period in
+            state = eng.step_batch(state)
+        profiles[f"escalation_{rung}"] = {"words": words, **profile_steps(eng, state, steps=8)}
+        if rung:
+            n = by_words.get(words, {})
+            steps.append((f"step_megakernel_guided_L{GUIDED_LANES}_Q32_W{words}", state, words,
+                          n.get("step_megakernel", 0)))
+            flushes.append((f"cov_flush_guided_L{GUIDED_LANES}_W{words}", state.cov, n.get("cov_flush", 0)))
+    emit({"phase": "profile_guided", **profiles})
+    small_top = max([r["escalation"] for r in small_trail])
+    if small_top:
+        eng = engine_for_escalation(_build_engine(_parser().parse_args(small_argv)), small_top)
+        words = eng._rng_layout.total_words
+        state = eng.run_segment(eng.init_batch(np.asarray(small_trail[-1]["seeds"], dtype=np.int64)),
+                                GUIDED_STATE_STEPS)
+        n = sum(b["launches"].get("step_megakernel", 0) for b in small["small_card"]["batches"] if b["words"] == words)
+        steps.append((f"step_megakernel_guided_L{GUIDED_SMALL_LANES}_Q32_W{words}", state, words, n))
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+
+    d_eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), EngineConfig(**DIFF, faults=FaultPlan(**DIFF_FAULTS)))
+    d_state = d_eng.run_segment(d_eng.init_batch(np.arange(DIFF_LANES, dtype=np.uint32)), 300)
+    time_kernel_shapes(kernels, dev, "guided_kernels", steps, flushes, pops=(
+        (f"pop_gather_differential_L{DIFF_LANES}_Q{DIFF['queue_capacity']}", d_state, diff_launches["pop_gather"]),))
+
+
 def main(argv=None):
     import torch
 
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
-    args.add_argument("--only", choices=("cli", "prov"), default=None,
-                      help="build, then run phase 11 alone (cli) or phases 11-13 (prov): a short check that "
-                      "prints no result line")
+    args.add_argument("--only", choices=("cli", "prov", "guided"), default=None,
+                      help="build, then run phase 11 alone (cli), phases 11-13 (prov) or phases 14-15 (guided): "
+                      "a short check that prints no result line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -2213,6 +2481,10 @@ def main(argv=None):
     build.load()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs),
           "ptxas": ptxas_line(build, libs)})
+    if args.only == "guided":
+        guided_phase(torch, np, kernels, torch.device("cuda"))
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
     if args.only:
         cli = cli_phase(torch, np)
         cli_kernels(kernels, np, torch.device("cuda"), cli)
@@ -2426,9 +2698,12 @@ def main(argv=None):
     provenance_phase(torch, np, cli)
     clog_phase(torch, np, kernels, dev)
 
+    # 14. guided search at full width; 15. the Raft differential's device side
+    guided_phase(torch, np, kernels, dev)
+
     emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
 
-    # 9. the kernels line
+    # 16. the kernels line
     emit({"kernels": [
         {"name": "step_megakernel", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/step_megakernel.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:310", "launches": launches["step_megakernel"],

@@ -1,23 +1,27 @@
-"""The command line of the port: seed exploration, hunting, replay,
-trace export, shrinking, the corpus, audits and coverage reports.
+"""The command line of the port: seed exploration, hunting (guided or
+not), replay, trace export, shrinking, the corpus, audits, coverage
+reports and the stats endpoint.
 
     python -m madsim_tpu_torch explore --machine raft --seeds 4096 [--stream]
     python -m madsim_tpu_torch hunt    --machine demo-overcommit-raft --stream --corpus c.json
+    python -m madsim_tpu_torch hunt    --machine raft --stream --coverage --guided --checkpoint ck.json
     python -m madsim_tpu_torch replay  --machine raft --seed 1234 [--tail 30]
     python -m madsim_tpu_torch why     1234 --machine demo-volatilecommit-raft --strict-restart
     python -m madsim_tpu_torch regress --corpus corpus.json
     python -m madsim_tpu_torch check   --machine kv --seeds 64
+    python -m madsim_tpu_torch serve   --service stats --stats BASE --addr 127.0.0.1:0
 
 The port of `madsim_tpu/__main__.py`: the same subcommands, flags,
-defaults, printed lines and exit codes for explore, hunt, replay, trace,
-why, shrink, regress, audit, check and coverage, `--provenance` among
-the flags, and the same files (corpus, checkpoint, coverage doc,
+defaults, printed lines and exit codes for explore, hunt (with
+`--guided`), replay, trace, why, shrink, regress, audit, check, coverage
+and `serve --service stats`, `--provenance` among the flags, and the
+same files (corpus, checkpoint with its guided trail, coverage doc,
 exports, attribution JSON). Every command runs on the CUDA card unless
 given `--device cpu`; without a card it exits non-zero and never falls
-back to the CPU. What the port does not run yet (guided search, several
-devices, the perf tooling, the compile cache, bench, serve, fleet,
-lint) exits with status 2 and one line naming the gate, before any
-engine is built.
+back to the CPU. What the port does not run yet (several devices, the
+perf tooling, the compile cache, bench, fleet, lint) and the host
+services `serve --service etcd|kafka|s3` exit with status 2 and one
+line naming the gate, before any engine is built.
 """
 
 from __future__ import annotations
@@ -32,7 +36,6 @@ import sys
 PROG = "madsim_tpu_torch"
 
 # what the port refuses, and the ROADMAP.md item (queue 1) it waits for
-_ITEM_GUIDED = "ROADMAP.md queue 1, item 10"
 _ITEM_MESH = "ROADMAP.md queue 1, item 12"
 _ITEM_PERF = "ROADMAP.md queue 1, item 13"
 _GATED_COMMANDS = {
@@ -40,12 +43,10 @@ _GATED_COMMANDS = {
     "prof": ("the `prof` command", _ITEM_PERF),
     "bench": ("the `bench` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
     "bench-ab": ("the `bench-ab` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
-    "serve": ("the `serve` command", "ROADMAP.md queue 1, item 9"),
     "fleet": ("the `fleet` command", "ROADMAP.md queue 1, item 11"),
     "lint": ("the `lint` command", "ROADMAP.md queue 1, item 14"),
 }
 _GATED_FLAGS = (
-    ("guided", "--guided", _ITEM_GUIDED),
     ("devices", "--devices N", _ITEM_MESH),
     ("multihost", "--multihost", _ITEM_MESH),
     ("perf_timeline", "--perf-timeline", _ITEM_PERF),
@@ -56,6 +57,11 @@ _GATED_FLAGS = (
 
 def _gate(args) -> str:
     """The line naming the first gate this command line hits, or ''."""
+    if args.cmd == "serve" and args.service != "stats":
+        # the host services serve over real TCP and run no engine: the
+        # JAX package's command line serves them
+        return (f"{PROG}: `serve --service {args.service}` is a host service, not ported "
+                f"(run python -m madsim_tpu serve --service {args.service})")
     if args.cmd in _GATED_COMMANDS:
         what, item = _GATED_COMMANDS[args.cmd]
     else:
@@ -87,6 +93,10 @@ def _build_engine(args):
 
     machine = _machine(args.machine, args.nodes)
     cfg = EngineConfig(
+        # guided hunts pin the 4-bit coverage band layout so the slot
+        # space stays identical across fault-vocabulary escalations; 0
+        # keeps the derived layout for every unguided run
+        cov_band_bits_min=4 if getattr(args, "guided", False) else 0,
         # round, not truncate: a shrunk repro prints horizon_us/1e6 and
         # float truncation would shave the failing event off the horizon
         horizon_us=round(args.horizon * 1e6),
@@ -240,6 +250,13 @@ def _stream_batches(eng, args, purpose="explore"):
     import time as wall
 
     import numpy as np
+
+    if getattr(args, "guided", False):
+        # coverage-feedback search: the same aggregate, checkpoint file
+        # and stats feed, but every batch's seed vector is chosen
+        from .search.guided import run_guided
+
+        return run_guided(eng, args, purpose=purpose)
 
     log = logging.getLogger(f"madsim_tpu.{purpose}")
     emitter = _make_emitter(args)
@@ -583,6 +600,13 @@ def cmd_hunt(args) -> int:
     from .engine import audit, corpus, shrink
     from .models import build_machine
 
+    if getattr(args, "guided", False):
+        if not args.stream:
+            sys.exit("--guided needs --stream (the chunked batch loop "
+                     "is where the feedback lives)")
+        if not getattr(args, "coverage", False):
+            sys.exit("--guided needs --coverage: the bias signal IS the "
+                     "live coverage map")
     eng = _build_engine(args)
     failing, infra, abandoned, agg = _find_failing(eng, args, purpose="hunt")
     stream_stats = agg.get("stats", {})
@@ -608,6 +632,16 @@ def cmd_hunt(args) -> int:
     _print_fr_stats(stream_stats)
     _print_cov_stats(stream_stats)
     _print_attribution(stream_stats)
+    guided_rec = agg.get("guided") or {}
+    if guided_rec:
+        g = stream_stats.get("guided", {})
+        print(
+            f"guided: escalation step {g.get('escalation', 0)}, "
+            f"{g.get('parents', 0)} corpus parents, "
+            f"{g.get('mutants', 0)} mutants over {g.get('batches', 0)} "
+            f"batches (trail recorded"
+            + (" in checkpoint)" if getattr(args, "checkpoint", None) else ")")
+        )
     _write_coverage_out(eng, args, agg)
     entries = corpus.load(args.corpus)
     known = {e.key for e in entries}
@@ -625,11 +659,20 @@ def cmd_hunt(args) -> int:
         for code, seeds_of in sorted(by_code.items()):
             verb = f"shrinking seed {seeds_of[0]}" if code in shrinking else "beyond --limit, not shrunk"
             print(f"  code {code}: {len(seeds_of)} seeds ({verb})")
+    esc_by_seed = {int(k): int(v) for k, v in (guided_rec.get("failing_escalation") or {}).items()}
     for seed, code in to_shrink:
+        # a guided find made under an escalated vocabulary reproduces only
+        # under that vocabulary: shrink (and the entry's config) start from
+        # the escalation step's engine, and kind ablation minimizes it
+        shrink_eng = eng
+        if esc_by_seed.get(seed):
+            from .search.guided import engine_for_escalation
+
+            shrink_eng = engine_for_escalation(eng, esc_by_seed[seed])
         try:
             # the device-harvested provenance word (when the gate rode the
             # hunt) orders the candidates; each is still verified by replay
-            sr = shrink(eng, seed, max_steps=args.max_steps, prov_word=agg.get("provenance", {}).get(seed))
+            sr = shrink(shrink_eng, seed, max_steps=args.max_steps, prov_word=agg.get("provenance", {}).get(seed))
         except ValueError as exc:
             # flagged by the batch but not reproducing in the replay:
             # report it (that drift is itself a finding) and go on
@@ -907,6 +950,55 @@ def cmd_check(args) -> int:
     return 0
 
 
+def _serve_stats(args) -> int:
+    """`serve --service stats`: a small HTTP endpoint over the
+    StatsEmitter's files — GET /stats returns the latest run snapshot
+    (BASE.json), GET /metrics the Prometheus textfile (BASE.prom), GET
+    /healthz "ok" — so dashboards poll an endpoint instead of parsing
+    logs. Plain stdlib http.server; read-only; builds no engine."""
+    import http.server
+
+    base = args.stats or os.environ.get("MADSIM_TPU_STATS") or "madsim_stats"
+    routes = {
+        "/stats": (base + ".json", "application/json"),
+        "/metrics": (base + ".prom", "text/plain; version=0.0.4"),
+    }
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (stdlib API name)
+            path = self.path.split("?", 1)[0].rstrip("/") or "/stats"
+            if path == "/healthz":
+                body, ctype = b"ok\n", "text/plain"
+            elif path in routes:
+                fname, ctype = routes[path]
+                try:
+                    with open(fname, "rb") as f:
+                        body = f.read()
+                except OSError:
+                    self.send_error(404, f"no stats recorded yet ({fname} missing)")
+                    return
+            else:
+                self.send_error(404, "routes: /stats /metrics /healthz")
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *a):  # route access logs to logging
+            logging.getLogger("madsim_tpu.serve").debug(fmt, *a)
+
+    # --port-file writes the realized port atomically, so a supervisor
+    # discovers a host:0 bind without racing stdout; SIGTERM closes the
+    # server as Ctrl-C does
+    from .fleet import httpd
+
+    srv, host, port = httpd.bind(args.addr, Handler)
+    print(f"stats serving on {host}:{port} (GET /stats /metrics /healthz; files {base}.json/.prom)", flush=True)
+    return httpd.run_http_server(srv, port_file=args.port_file)
+
+
 def cmd_coverage(args) -> int:
     """Render a persisted coverage map (`hunt --coverage-out`): slots
     hit, per-band marginals, the thinnest (band x phase) cells and, with
@@ -1079,7 +1171,14 @@ def _parser() -> argparse.ArgumentParser:
                    help="with --coverage --stream: persist the hunt's cumulative coverage map")
     p.add_argument("--all-seeds", action="store_true",
                    help="shrink the first --limit failing seeds even when they share a fail code")
-    p.add_argument("--guided", action="store_true", help="not ported: coverage-feedback search")
+    p.add_argument("--guided", action="store_true",
+                   help="coverage-feedback search (needs --stream --coverage): every batch's seed vector is "
+                   "chosen — half mutated children of seeds that hit new coverage slots (candidates scored "
+                   "by a bias state fed from the live map's thin bands and, with --provenance, the fault "
+                   "kinds in failure lineages), half fresh sequential exploration; with --stop-on-plateau N "
+                   "a plateau escalates the fault vocabulary along the recorded ladder instead of stopping. "
+                   "The (seed schedule, bias state) trail is recorded in the checkpoint and stats feed, so a "
+                   "guided hunt resumes byte-identically")
     p.set_defaults(fn=cmd_hunt)
 
     p = sub.add_parser("regress", help="re-verify every corpus entry (open must reproduce, fixed must pass)")
@@ -1112,6 +1211,18 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--top", type=int, default=8, help="thinnest band x phase cells to list")
     p.add_argument("--json", action="store_true", help="machine-readable output")
     p.set_defaults(fn=cmd_coverage)
+
+    p = sub.add_parser("serve", help="`--service stats`: serve the last run's StatsEmitter snapshot over HTTP "
+                       "(/stats JSON, /metrics Prometheus, /healthz); the host services (etcd, kafka, s3) "
+                       "are the JAX package's `python -m madsim_tpu serve`")
+    p.add_argument("--service", default="etcd", choices=["etcd", "kafka", "s3", "stats"])
+    p.add_argument("--addr", default="127.0.0.1:23790", help="host:port (port 0 = ephemeral)")
+    p.add_argument("--stats", default=None, metavar="BASE",
+                   help="StatsEmitter base path to serve (default $MADSIM_TPU_STATS or ./madsim_stats)")
+    p.add_argument("--port-file", default=None, metavar="PATH",
+                   help="atomically write the realized port to PATH after binding (with --addr host:0, "
+                   "a supervisor discovers the daemon without racing its stdout)")
+    p.set_defaults(fn=_serve_stats)
 
     for name, (what, item) in _GATED_COMMANDS.items():
         sub.add_parser(name, help=f"not ported ({item})", add_help=False)

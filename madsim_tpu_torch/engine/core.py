@@ -413,7 +413,10 @@ class Engine:
         if fp.n_faults > 0 and not fp.enabled_kinds():
             raise ValueError("FaultPlan has n_faults > 0 but every kind disabled")
         if fp.allow_group and not 2 <= n <= 60:
-            raise ValueError("group partitions need 2 <= NUM_NODES <= 60 (two 30-bit mask words)")
+            raise ValueError(
+                "group partitions need 2 <= NUM_NODES <= 60 (two-word "
+                "int32 bitmask: payload args 1+2 carry 30 bits each)"
+            )
         if not 0 <= fp.storm_loss_u16 <= 65535:
             raise ValueError("storm_loss_u16 must be in [0, 65535]")
         if fp.n_faults > 0 and fp.uses_v2_kinds and n > CLOG_MAX_NODES + 1:
@@ -440,22 +443,33 @@ class Engine:
         if fp.allow_torn:
             self._check_torn_contract(machine)
         if config.cov_band_bits_min not in (0, 3, 4):
-            raise ValueError(f"cov_band_bits_min={config.cov_band_bits_min!r}: 0, 3 or 4")
+            raise ValueError(
+                f"cov_band_bits_min={config.cov_band_bits_min!r} — "
+                f"0 (derive), 3 or 4 are the known banded layouts"
+            )
         # the band field is 4 bits wide whenever a chaos-palette kind can
         # occur (the reference's layout v2), else 3
         palette = (fp.allow_pause or fp.allow_skew or fp.allow_dup or fp.strict_restart
                    or fp.allow_torn or fp.allow_heal_asym)
         self.cov_band_bits = max(config.cov_band_bits_min, 4 if palette else 3)
-        if config.coverage and not self.cov_band_bits + 4 <= config.cov_slots_log2 <= 20:
-            raise ValueError(f"coverage needs {self.cov_band_bits + 4} <= cov_slots_log2 <= 20")
+        min_log2 = self.cov_band_bits + 3 + 1
+        if config.coverage and not min_log2 <= config.cov_slots_log2 <= 20:
+            raise ValueError(
+                f"coverage needs {min_log2} <= cov_slots_log2 <= 20 "
+                f"({self.cov_band_bits} band bits + 3 phase bits + at "
+                f"least 1 mix bit; 2^20 slots = 1 MiB per lane is "
+                f"already past any sane map size)"
+            )
         # the step-prefix kernel: the megakernel computes the v3 word
         # block, so it serves the counter-based stream only; None means
         # "whenever it can", as the reference's auto setting on its chip
         mk = config.pallas_megakernel
         if mk and config.rng_stream != RNG_STREAM_COUNTER:
             raise ValueError(
-                "pallas_megakernel requires rng_stream=3 (the kernel computes the "
-                "counter-based word block; v2's per-step key split-chain is not a counter)"
+                "pallas_megakernel requires rng_stream=3 (the kernel "
+                "computes the counter-based v3 word block in the same "
+                "VMEM pass as the pop; v2's per-step key split-chain "
+                "cannot be expressed as a counter)"
             )
         self.use_megakernel = config.rng_stream == RNG_STREAM_COUNTER and mk is not False
         self._rng_layout = layout_for(
@@ -528,7 +542,10 @@ class Engine:
     @staticmethod
     def _check_slice(cfg: EngineConfig) -> None:
         if cfg.rng_stream not in RNG_STREAM_VERSIONS:
-            raise ValueError(f"rng_stream={cfg.rng_stream!r} unknown; supported: {RNG_STREAM_VERSIONS}")
+            raise ValueError(
+                f"rng_stream={cfg.rng_stream!r} unknown; supported "
+                f"versions: {RNG_STREAM_VERSIONS}"
+            )
         if cfg.compile_cache_dir is not None:
             raise _unported("compile_cache_dir (a JAX compile cache)")
 
@@ -1600,6 +1617,50 @@ class Engine:
             return self.run_batch(seeds, max_steps=max_steps)
 
         return run
+
+    def run_seed_batch(self, seeds, max_steps: int = 10_000) -> dict:
+        """Run an EXPLICIT seed vector — one lane per seed, every lane to
+        completion, no streaming refill — and decode the result to the
+        `run_stream` dict shape: the guided-search batch runner
+        (`search/guided.py`). A guided batch is a chosen set of seeds,
+        which the stream executor's contiguous seed counter cannot
+        express; `run_batch` takes any vector.
+
+        Returns {"completed", "failing": [(seed, code)...], "infra",
+        "abandoned": [seed...], "seeds_consumed", "stats": {}} plus, with
+        coverage on, "coverage_map" (bool[S], the OR of all lanes) and
+        "cov_lane_words" (the per-lane packed int32 [L, W] maps parent
+        detection diffs), and with provenance on "provenance" {seed:
+        violation word}, as uint32 values like the reference's (its
+        `fail_prov` is uint32; the port's planes hold int32 bit
+        patterns, so a word with bit 31, dup, is widened here)."""
+        seeds = np.asarray(list(seeds), dtype=np.int64) & 0xFFFFFFFF
+        res = self.make_runner(max_steps=max_steps)(seeds)
+        done = res.done.cpu().numpy()
+        failed = res.failed.cpu().numpy()
+        codes = res.fail_code.cpu().numpy()
+        failing, infra = [], []
+        for s, c in zip(seeds[failed].tolist(), codes[failed].tolist()):
+            (infra if c == OVERFLOW else failing).append((s, c))
+        out = {
+            "completed": len(seeds),
+            "failing": failing,
+            "infra": infra,
+            # over the step budget without finishing
+            "abandoned": seeds[~done & ~failed].tolist(),
+            "seeds_consumed": len(seeds),
+            "stats": {},
+        }
+        if self.config.coverage:
+            from ..runtime.coverage import unpack_map
+
+            lane_words = res.cov["map"].cpu().numpy()
+            out["cov_lane_words"] = lane_words
+            out["coverage_map"] = unpack_map(np.bitwise_or.reduce(lane_words, axis=0), self.config.cov_slots_log2)
+        if self.config.provenance:
+            words = res.fail_prov.cpu().numpy()[failed].astype(np.int64) & 0xFFFFFFFF
+            out["provenance"] = dict(zip(seeds[failed].tolist(), words.tolist()))
+        return out
 
     @staticmethod
     def failing_seeds(result: BatchResult) -> torch.Tensor:

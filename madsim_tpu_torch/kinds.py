@@ -54,3 +54,8 @@ COV_BAND_NAMES_V2 = COV_BAND_NAMES + (
 
 FLAG_BY_KIND = dict(KIND_TO_FLAG + EXTRA_FLAGS)
 KIND_BY_FLAG = {field: name for name, field in KIND_TO_FLAG + EXTRA_FLAGS}
+
+
+def band_name(kind_name: str) -> str:
+    """Coverage-band label for a fault-kind name."""
+    return kind_name.replace("-", "_")

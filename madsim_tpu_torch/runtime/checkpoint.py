@@ -49,8 +49,7 @@ _FINGERPRINT_FIELDS = (
     "strict_restart",
     "coverage",
     "stop_on_plateau",
-    # guided mode reshapes the seed schedule (the port refuses it, but
-    # the field stays so a checkpoint is the JAX package's, byte for byte)
+    # guided mode reshapes the seed schedule
     "guided",
 )
 

@@ -1,6 +1,7 @@
 """The port's command line where it refuses or stops: every gate the port
 has not lifted exits with status 2 and one line naming the gate and its
-ROADMAP item, before any engine is built; without a card and without
+ROADMAP item, before any engine is built, and the host services of
+`serve` exit 2 naming the JAX package's command line; without a card and without
 `--device cpu` a command exits non-zero and never falls back to the
 CPU; an unknown machine or fault kind exits as the reference's does.
 Then the short runs held against the JAX package's command line: the
@@ -23,10 +24,8 @@ GATES = [
     ("prof", ["prof", "compile"], "item 13"),
     ("bench", ["bench", "--lanes", "64"], "item 6"),
     ("bench-ab", ["bench-ab", "--gate", "coverage"], "item 6"),
-    ("serve", ["serve", "--service", "stats"], "item 9"),
     ("fleet", ["fleet", "queue"], "item 11"),
     ("lint", ["lint"], "item 14"),
-    ("--guided", ["hunt", *ECHO, "--stream", "--coverage", "--guided"], "item 10"),
     ("--devices", ["explore", *ECHO, "--stream", "--devices", "2"], "item 12"),
     ("--multihost", ["explore", *ECHO, "--multihost"], "item 12"),
     ("--perf-timeline", ["explore", *ECHO, "--stream", "--perf-timeline", "t.json"], "item 13"),
@@ -46,6 +45,22 @@ def test_gates_exit_2_naming_themselves(gate, argv, item, capsys, monkeypatch):
     assert main([*argv, "--device", "cpu"] if argv[0] in ("explore", "hunt", "replay") else argv) == 2
     err = capsys.readouterr().err.strip()
     assert len(err.splitlines()) == 1 and gate in err and item in err and "not ported" in err
+
+
+@pytest.mark.parametrize("service", ["etcd", "kafka", "s3"])
+def test_host_services_exit_2_naming_the_jax_command_line(service, capsys, monkeypatch):
+    """`serve --service etcd|kafka|s3` serves host services over real
+    TCP and runs no engine: the port leaves it to `python -m madsim_tpu
+    serve`, in one line, before anything is bound."""
+    from madsim_tpu_torch.fleet import httpd
+
+    def no_bind(*args, **kwargs):
+        raise AssertionError("a refused service bound a socket")
+
+    monkeypatch.setattr(httpd, "bind", no_bind)
+    assert main(["serve", "--service", service, "--addr", "127.0.0.1:0"]) == 2
+    err = capsys.readouterr().err.strip()
+    assert len(err.splitlines()) == 1 and "python -m madsim_tpu serve" in err and service in err
 
 
 @pytest.mark.parametrize("argv", [["explore", *ECHO], ["regress", "--corpus", "c.json"], ["check", *ECHO]],

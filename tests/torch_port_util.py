@@ -9,6 +9,7 @@ import dataclasses
 import io
 import json
 import re
+import types
 
 import numpy as np
 import torch
@@ -188,6 +189,79 @@ def run_pair(jax_argv, port_argv=None, port_extra=("--device", "cpu")):
     want = run_cli(jax_main, jax_argv)
     got = run_cli(port_main, list(jax_argv if port_argv is None else port_argv) + list(port_extra))
     return (want[0], cli_text(want[1])), (got[0], cli_text(got[1]))
+
+
+# -- guided search --------------------------------------------------------------
+
+
+def guided_args(**over):
+    """The arguments of the guided hunt of tests/test_search.py:247-256
+    (a 3-node Raft, 96 seeds in batches of 32, 600 steps), overridden by
+    `over`."""
+    d = dict(machine="raft", nodes=3, seed=0, seeds=96, batch=32,
+             max_steps=600, horizon=1.0, loss=0.0, faults=2,
+             fault_tmax=600_000, fault_kinds="pair,kill", rng_stream=2,
+             strict_restart=False, coverage=True, provenance=True,
+             stop_on_plateau=0, stats=None, stream=True, guided=True,
+             checkpoint=None, stop_after_batches=0)
+    d.update(over)
+    return types.SimpleNamespace(**d)
+
+
+def trail_key(agg):
+    """Everything the reproducibility contract pins, JSON-canonical."""
+    return json.dumps({
+        "completed": agg["completed"],
+        "failing": sorted(map(list, agg["failing"])),
+        "abandoned": sorted(agg["abandoned"]),
+        "provenance": {str(k): v for k, v in agg["provenance"].items()},
+        "guided": agg["guided"],
+        "slots": agg["stats"].get("coverage", {}).get("slots_hit"),
+    }, sort_keys=True)
+
+
+def guided_engines():
+    """(JAX engine, port engine on the CPU) of tests/test_search.py:233-244:
+    a 3-node Raft with coverage and provenance on, the 4-bit band layout."""
+    from madsim_tpu.models.raft import RaftMachine as JaxRaft
+    from madsim_tpu_torch.models.raft import RaftMachine
+
+    cfg = dict(horizon_us=1_000_000, queue_capacity=64, coverage=True, provenance=True, cov_slots_log2=10,
+               cov_band_bits_min=4)
+    faults = dict(n_faults=2, t_max_us=600_000)
+    return (
+        JaxEngine(JaxRaft(num_nodes=3, log_capacity=8), JaxConfig(faults=JaxFaultPlan(**faults), **cfg)),
+        Engine(RaftMachine(num_nodes=3, log_capacity=8), EngineConfig(faults=FaultPlan(**faults), **cfg),
+               device="cpu"),
+    )
+
+
+# -- the cross-engine differential ---------------------------------------------
+
+
+def differential_engines(jax_machine, machine, faults, horizon_us=5_000_000, **cfg):
+    """(JAX engine, port engine on the CPU) of the differential's config
+    (tests/test_differential.py:21-28: queue 96, the v2 stream)."""
+    return (
+        JaxEngine(jax_machine, JaxConfig(horizon_us=horizon_us, queue_capacity=96, faults=JaxFaultPlan(**faults),
+                                         **cfg)),
+        Engine(machine, EngineConfig(horizon_us=horizon_us, queue_capacity=96, faults=FaultPlan(**faults), **cfg),
+               device="cpu"),
+    )
+
+
+def raft_differential(engines, seeds, **kw):
+    """The port's `differential_raft` report on `seeds`, with the JAX
+    package's host Raft as `host_run`, held equal to the report of the
+    JAX package's `differential_raft`."""
+    from madsim_tpu.differential import differential_raft as jax_differential_raft
+    from madsim_tpu.differential import run_host_raft
+    from madsim_tpu_torch.differential import differential_raft
+
+    jax_eng, eng = engines
+    got = differential_raft(eng, seeds, run_host_raft, **kw)
+    assert got == jax_differential_raft(jax_eng, seeds, **kw)
+    return got
 
 
 def corpus_without_env(path):
