@@ -102,7 +102,7 @@ last line):
      pop_kernels adds pop_gather at the model leg's batch and
      pop_earliest at the triage replays' L = 1;
  11. the command line, `python -m madsim_tpu_torch`, in subprocesses on
-     the card (`cli`): a `hunt --stream` of 2 x 8192 lanes (the
+     the card (`cli`): a `hunt --stream` of one batch of 8192 lanes (the
      flagship's shape, rng_stream 3, strict restarts, on the
      volatile-commit Raft demo) finds, shrinks and records, with
      `--coverage-out` and `--checkpoint`, while `regress` and `audit` of
@@ -112,7 +112,7 @@ last line):
      `regress` and `audit` of the found corpus on the card and with
      `--device cpu`, `replay`, `replay --diff-seed`, `trace --perfetto
      --jsonl` (message flows), `shrink` and `coverage` run on what it
-     wrote; `explore --stream` of the flagship at 2 x 8192 lanes,
+     wrote; `explore --stream` of the flagship at one batch of 8192 lanes,
      pipelined and with `--no-pipeline` side by side, prints the same
      lines, with each one's seeds/s, host syncs, dispatches, and the
      segments issued (megakernel launches over 384) against those
@@ -120,7 +120,7 @@ last line):
      replays' L = 1, `check`'s 256 lanes and the small explore's 64, and
      the flush at 64 lanes. Beside the hunt runs the same hunt with
      `--provenance`, which must find the same seeds, print the fault
-     attribution line, harvest a word for every find (the first eight
+     attribution line, harvest a word for every find (the first four
      equal to one-lane replays on the card) and shrink its first find
      with provenance guidance in no more replays than `shrink` to the
      same config; `why` of that seed with `--json --perfetto` gives the
@@ -138,7 +138,7 @@ last line):
      streams against the CPU; `clog_kernels` holds and times the
      megakernel and pop_gather at its queue of 256;
  14. guided search (`guided`): `hunt --stream --coverage --provenance
-     --guided --stop-on-plateau 1` of phase 11's hunt at 3 x 8192 lanes
+     --guided --stop-on-plateau 1` of phase 11's hunt at 2 x 8192 lanes
      on the card, a `guided_batch` line a batch (seconds, seeds/s,
      mutants, new slots, finds so far, the rung); every batch after the
      first holds as many mutants as its heartbeat counts, every seed of
@@ -155,7 +155,32 @@ last line):
      megakernel and the flush at the escalated vocabulary's W (8192
      lanes), the megakernel at the 64-lane hunt's escalated W, and
      pop_gather at the differential's 64 lanes of Q = 96;
- 16. a `kernels` JSON line; the last line is {"ok": true, "device": ...}.
+ 16. the perf tooling (`perf`), the command line in subprocesses on the
+     card: `prof --merge` of one 256-step segment of 8192 lanes of the
+     flagship (the command line's shape, recorder and buffered coverage
+     on), alone on the card, its lanes cut at 256 events: at least two
+     sync points matched, the megakernel's and the flush's kernels
+     launched inside madsim.step (kineto's correlation of each kernel
+     with its launch), the card's busy time by device phase, the
+     capture's events, export seconds and bytes, and a virtual track
+     equal to the CPU's `prof --merge` of 8 lanes (`prof`); once that
+     capture has stopped, beside prof's host tail, `perf` of the flagship
+     at 2 x 8192 lanes, whose host timeline covers >= 90% of the wall with
+     every executor span (`perf_timeline`: each span's seconds and share,
+     the device wait, the dispatch gap, the verdict, the card's memory);
+     the v2 leg (`prof --rng-stream 2`, whose capture holds
+     pop_gather_kernel) and `bench-ab --gate coverage-unbuffered` and
+     `--gate rng-stream` at 256 lanes, one rep pair each, a check that
+     they run, started beside phase 7's card_vs_cpu_models, where nothing
+     is timed (`perf`); `perf_kernels` holds and times the shapes these
+     commands first launch: the megakernel with the digest and the flush
+     at bench-ab's 256 lanes, pop_gather there on the split chain, and
+     the megakernel with the digest at the prof replay's L = 1;
+ 17. a `kernels` JSON line (with each kernel's launches on the perf path,
+     `launches_perf`); the last line is {"ok": true, "device": ...}.
+
+From phase 4 on, the in-process CPU legs run on two intra-op threads
+(the clog matrix's phase 13 on the default).
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
@@ -172,7 +197,7 @@ just after; a kernel of the path that never launched fails the run.
 It needs a CUDA card and the repository beside it; with neither it
 exits non-zero and prints no result. `--only cli` builds the kernels and
 runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phases
-14-15 (short checks; they print no result line).
+14-15, `--only perf` phase 16 (short checks; they print no result line).
 """
 
 import argparse
@@ -215,7 +240,7 @@ REPLAY_STATE_STEPS = 300  # the replay state the pop is timed on: seed 66531 thi
 # the delay kind and the etcd-MVCC, S3 and gossip models
 # card_vs_cpu_delay: lanes, run_batch's step budget, and the steps over
 # which the sends that took a spike are counted
-DELAY_LANES, DELAY_STEPS, DELAY_SPIKE_STEPS = 256, 256, 128
+DELAY_LANES, DELAY_STEPS, DELAY_SPIKE_STEPS = 256, 192, 128
 # card_vs_cpu_models: lanes, and step budgets (mvcc and s3 lanes end in
 # ~70-120 events; gossip's run past the budget)
 MODEL_LANES, GOSSIP_LANES = 256, 64
@@ -265,7 +290,7 @@ PALETTE_REPLAY_STEPS = 40  # the hunt replay's state pop_earliest is timed on: t
 # consumer group with their demos, under the plans of
 # tests/test_engine_paxos.py, tests/test_engine_etcd.py and
 # tests/test_engine_group.py (lanes end in ~40, ~400 and ~220 events;
-# the honest etcd and group lanes are cut at 320 and 256 events)
+# the honest etcd and group lanes are cut at 192 and 160 events)
 PAXOS_PLAN = dict(horizon_us=8_000_000, queue_capacity=96)
 PAXOS_FAULTS = dict(n_faults=2, t_max_us=4_000_000, dur_min_us=200_000, dur_max_us=800_000)
 NOPROMISE_FAULTS = dict(n_faults=3, t_max_us=2_000_000, dur_min_us=150_000, dur_max_us=600_000)
@@ -291,7 +316,7 @@ SOAK_FAULTS = dict(n_faults=3, t_max_us=2_400_000, dur_min_us=100_000, dur_max_u
                    allow_dup=True, allow_torn=True, allow_heal_asym=True, strict_restart=True)
 STORAGE_LANES = 256
 # run_batch budgets: torn lanes fail LOG_MATCHING from ~200 events in
-TORN_CHECK_STEPS, HASYM_STEPS, SOAK_STEPS = 256, 160, 160
+TORN_CHECK_STEPS, HASYM_STEPS, SOAK_STEPS = 256, 128, 128
 TORN_REPLAY_STEPS = 150  # the torn replay's state its kernels are timed on: this far in
 # card_vs_cpu_models, new in phase 10: kv, mq and twopc with the three bug
 # variants of tests/test_engine.py, under its plans (Q = 64); kv on the
@@ -325,9 +350,9 @@ TRIAGE_DIGEST_EVERY = 4  # the recorded entry's checkpoint cadence (a shrunk ent
 # bit; duplicate copies queue with bit 31), and the 8192-lane profile of
 # the command-line hunt's engine with the gate on and off; the first
 # finds of the hunt replayed
-PROV_LANES, PROV_STEPS, PROV_Q = 256, 256, 96
+PROV_LANES, PROV_STEPS, PROV_Q = 256, 192, 96
 PROV_FAULTS = dict(VOLATILE_FAULTS, allow_pause=True, allow_skew=True, allow_dup=True, allow_heal_asym=True)
-PROV_PROFILE_STEPS, PROV_STATE_STEPS, PROV_REPLAYS = 8, 32, 8
+PROV_PROFILE_STEPS, PROV_STATE_STEPS, PROV_REPLAYS = 8, 32, 4
 # phase 13, the unpacked clog matrix: the flagship under every link kind
 # (packed against unpacked, and the matrix on the card against the CPU),
 # and a 64-node gossip cluster, which only the matrix holds, under pair
@@ -928,12 +953,14 @@ def spiked_sends(torch, eng, seeds, steps):
     return int(sends), int(spiked)
 
 
-def delay_and_model_phases(torch, np, kernels, dev):
+def delay_and_model_phases(torch, np, kernels, dev, beside=None):
     """Phase 7: the delay-spike kind and the MVCC, S3 and gossip models.
     card_vs_cpu_delay (the flagship Raft with delay faults on both
     streams, the megakernel at W = 18 held against its twin), then
-    card_vs_cpu_models, then stream_mvcc (the give-up hunt at 8192 lanes,
-    its first ABANDONED_WRITE seed replayed on the card and the CPU).
+    card_vs_cpu_models (with `beside`, a PerfChecks, running next to it
+    and waited for at its end), then stream_mvcc (the give-up hunt at
+    8192 lanes, its first ABANDONED_WRITE seed replayed on the card and
+    the CPU).
     Returns the hunt's launch counts and its batch state (8192 lanes,
     Q = 48, P = 5), where pop + gather is timed."""
     from collections import Counter
@@ -988,7 +1015,11 @@ def delay_and_model_phases(torch, np, kernels, dev):
             "launches": launches, "words": w, kernel: {"max_abs_err": err, **timing}}
     emit({"phase": "card_vs_cpu_delay", **out})
 
+    if beside is not None:
+        beside.start()
     model_states = card_vs_cpu_models(torch, np, kernels)
+    if beside is not None:
+        beside.join()  # before the timed stream
 
     # stream_mvcc: the give-up hunt at full width, through the entry points
     machine = build_machine("demo-giveup-mvcc")
@@ -1081,9 +1112,9 @@ def card_vs_cpu_models(torch, np, kernels):
         ("demo-dupack-gossip", GOSSIP, DUPACK_FAULTS, DUPACK_SEEDS, DUPACK_STEPS, 160),
         ("paxos", PAXOS_PLAN, PAXOS_FAULTS, range(64), 600, None),
         ("demo-nopromise-paxos", PAXOS_PLAN, NOPROMISE_FAULTS, range(128), 64, 140),
-        ("etcd", ETCD_PLAN, ETCD_FAULTS, range(64), 320, None),
+        ("etcd", ETCD_PLAN, ETCD_FAULTS, range(64), 192, None),
         ("demo-doublegrant-etcd", DOUBLEGRANT_PLAN, DOUBLEGRANT_FAULTS, range(100, 164), 200, 120),
-        ("group", GROUP_PLAN, GROUP_FAULTS, range(64), 256, None),
+        ("group", GROUP_PLAN, GROUP_FAULTS, range(64), 160, None),
         ("demo-nofencing-group", NOFENCING_PLAN, NOFENCING_FAULTS, range(500, 564), 160, 131),
     ):
         cfg = EngineConfig(**base, faults=FaultPlan(**faults))
@@ -1698,15 +1729,15 @@ def ptxas_line(build, libs):
 CLI_LANES = 8192
 CLI_SHAPE = ["--rng-stream", "3", "--queue", "32", "--horizon", "5", "--faults", "2", "--fault-tmax", "3000000"]
 CLI_HUNT = ["--machine", "demo-volatilecommit-raft", "--strict-restart", *CLI_SHAPE]
-CLI_EXPLORE = ["explore", "--stream", "--machine", "raft", "--seeds", str(2 * CLI_LANES), "--batch",
+CLI_EXPLORE = ["explore", "--stream", "--machine", "raft", "--seeds", str(CLI_LANES), "--batch",
                str(CLI_LANES), *CLI_SHAPE, "--flight-recorder", "--coverage", "--log-level", "INFO"]
 CLI_SMALL = ["explore", "--stream", "--machine", "raft", "--seeds", "64", "--batch", "64", "--max-steps", "768",
              *CLI_SHAPE, "--flight-recorder", "--coverage"]
 CLI_JOBS = 6  # commands run at once where nothing is timed (8 host cores)
 # runs the module as `python -m` does, then writes to the path given
 # first the wrappers' launch counts of that process, the executor
-# statistics of each of its run_stream calls and each guided batch's
-# (run_seed_batch's) word block, lanes and launches
+# statistics and launches of each of its run_stream calls and each guided
+# batch's (run_seed_batch's) word block, lanes and launches
 CLI_LAUNCHER = (
     "import atexit, json, runpy, sys\n"
     "out = sys.argv.pop(1)\n"
@@ -1714,8 +1745,10 @@ CLI_LAUNCHER = (
     "from madsim_tpu_torch.ops import kernels\n"
     "streams, run_stream = [], Engine.run_stream\n"
     "def counted(self, *args, **kwargs):\n"
+    "    before = dict(kernels.launches)\n"
     "    res = run_stream(self, *args, **kwargs)\n"
-    "    streams.append({k: v for k, v in res['stats'].items() if isinstance(v, (bool, int))})\n"
+    "    streams.append({**{k: v for k, v in res['stats'].items() if isinstance(v, (bool, int))},\n"
+    "                    'launches': {k: v - before.get(k, 0) for k, v in kernels.launches.items()}})\n"
     "    return res\n"
     "Engine.run_stream = counted\n"
     "batches, run_seed_batch = [], Engine.run_seed_batch\n"
@@ -1733,19 +1766,20 @@ CLI_LAUNCHER = (
 )
 
 # phase 14, guided search: phase 11's hunt arguments with coverage,
-# provenance and guidance at full width (three batches of 8192 lanes; a
+# provenance and guidance at full width (two batches of 8192 lanes; a
 # guided batch runs every lane to its end, so the batch lasts as long as
 # its longest lane: on the JAX package's CPU run of 2048 of these seeds
 # the median lane ends at 219 events, the 99th percentile at 1,829, the
-# longest at 2,655, so lanes are cut at 1,500 events); beside it the same
-# hunt at 64 lanes, five batches (the last under the escalated vocabulary:
-# on the CPU port the cell grid plateaus after the fourth), lanes cut at
-# 768 events, on the card and the CPU; the first finds of the full-width
-# hunt re-run on the CPU
+# longest at 2,655, so lanes are cut at 600 events, a depth that keeps the
+# smoke inside its time limit); beside it the same hunt at 64 lanes, five
+# batches (the last under the escalated vocabulary: on the CPU port the
+# cell grid plateaus after the fourth at this cut too), lanes cut at 384
+# events, on the card and the CPU; the first finds of the full-width hunt
+# re-run on the CPU
 GUIDED_ARGS = [*CLI_HUNT, "--stream", "--coverage", "--provenance", "--guided", "--stop-on-plateau", "1",
                "--limit", "0", "--log-level", "INFO"]
-GUIDED_LANES, GUIDED_BATCHES, GUIDED_STEPS = 8192, 3, 1500
-GUIDED_SMALL_LANES, GUIDED_SMALL_BATCHES, GUIDED_SMALL_STEPS = 64, 5, 768
+GUIDED_LANES, GUIDED_BATCHES, GUIDED_STEPS = 8192, 2, 600
+GUIDED_SMALL_LANES, GUIDED_SMALL_BATCHES, GUIDED_SMALL_STEPS = 64, 5, 384
 GUIDED_RERUN = 64
 GUIDED_STATE_STEPS = 64  # the escalated batch's state its kernels are timed on: this far in
 # phase 15, the Raft differential's device side at the fixture of
@@ -1753,6 +1787,30 @@ GUIDED_STATE_STEPS = 64  # the escalated batch's state its kernels are timed on:
 DIFF = dict(horizon_us=5_000_000, queue_capacity=96)
 DIFF_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
 DIFF_LANES, DIFF_STEPS = 64, 3000
+
+
+# phase 16, the perf tooling: the command line's perf commands on the
+# flagship (raft, the command line's flagship shape, the recorder and
+# buffered coverage on). `perf` streams 2 x 8192 lanes in 384-step
+# segments; `prof` captures one 256-step segment (its run_stream's
+# default) of 8192 lanes, its lanes cut at 256 events so that one
+# segment completes them all: ~1,050 kernels a step, their launches and
+# kineto's flow arrows make ~1.1 M events; the v2 leg the same on the
+# split chain; `bench-ab` of two gates at 256 lanes, one rep pair, lanes
+# cut at 128 events (a check that it runs, not a gate's cost). The CPU's
+# `prof --merge` of 8 lanes replays the same trace seed for the virtual
+# track.
+PERF_LANES = 8192
+PERF_ARGS = ["--machine", "raft", *CLI_SHAPE, "--flight-recorder", "--coverage"]
+PERF_ARGS_V2 = ["--machine", "raft", "--rng-stream", "2", *CLI_SHAPE[2:], "--flight-recorder", "--coverage"]
+PERF_SPANS = ("compile", "dispatch", "counters_poll", "ring_drain", "harvest", "run_stream", "engine_build")
+PROF_STEPS, PROF_TRACE_SEED, PROF_CPU_LANES = 256, 5, 8
+AB_LANES, AB_STEPS = 256, 128
+# the device phases whose busy time the capture is split by (the innermost
+# madsim.* range around each kernel's launch); `cov_flush` is the cadence
+# and exit flushes, `outside` no phase
+PROF_PHASES = ("step", "cov_flush", "refill", "harvest", "ring_append", "fr_fold", "cov_fold", "counters",
+               "dispatch", "compile", "init", "counters_poll", "ring_drain", "outside")
 
 
 def run_cli(tmp, name, argv, rc=0, cpu_threads=None, timeout=900):
@@ -1806,7 +1864,7 @@ def cli_rates(err):
 def cli_phase(torch, np):
     """Phase 11: the command line as a user runs it, in subprocesses on
     the card (`cli` line), in three stages. (1) A full-width `hunt
-    --stream` (2 x 8192 lanes, rng_stream 3) finds, shrinks and records,
+    --stream` (one batch of 8192 lanes, rng_stream 3) finds, shrinks and records,
     while the commands that need nothing of it run beside it: `regress`
     and `audit` of a copy of corpus.json, `check`, and the 64-lane
     explore on the card and on the CPU (equal stdout). (2) On what the
@@ -1814,7 +1872,7 @@ def cli_phase(torch, np):
     engine to the same codes; `regress` and `audit` of the found corpus
     on the card and with `--device cpu`; `replay`, `replay --diff-seed`,
     `trace --perfetto --jsonl` (message flows), `shrink` and `coverage`.
-    (3) `explore --stream` of the flagship at 2 x 8192 lanes, pipelined
+    (3) `explore --stream` of the flagship at one batch of 8192 lanes, pipelined
     and with `--no-pipeline`, the two at once and nothing else beside
     them, so both see the same host: the same lines, and each one's
     seeds/s, host syncs and steps issued."""
@@ -1837,7 +1895,7 @@ def cli_phase(torch, np):
         # 1. the hunt, with provenance and without, and beside them what
         #    needs nothing of them
         t0 = time.perf_counter()
-        hunt_argv = ["hunt", "--stream", *CLI_HUNT, "--seeds", str(2 * CLI_LANES), "--batch", str(CLI_LANES),
+        hunt_argv = ["hunt", "--stream", *CLI_HUNT, "--seeds", str(CLI_LANES), "--batch", str(CLI_LANES),
                      "--flight-recorder", "--coverage", "--log-level", "INFO"]
         with ThreadPoolExecutor(2) as pool:
             hunt_job = pool.submit(run_cli, tmp, "hunt", [
@@ -2262,7 +2320,7 @@ def guided_batches(err):
 def guided_phase(torch, np, kernels, dev):
     """Phases 14 and 15: guided search at full width (`guided`), and the
     Raft differential's device side (`differential`). At once: `hunt
-    --guided` of phase 11's hunt at 3 x 8192 lanes on the card (a
+    --guided` of phase 11's hunt at 2 x 8192 lanes on the card (a
     `guided_batch` line a batch: seconds, seeds/s, mutants, new slots,
     finds so far, the rung), the same at 64 lanes on the card and with
     `--device cpu` (equal stdout and checkpoints), the differential's
@@ -2445,15 +2503,317 @@ def guided_phase(torch, np, kernels, dev):
         (f"pop_gather_differential_L{DIFF_LANES}_Q{DIFF['queue_capacity']}", d_state, diff_launches["pop_gather"]),))
 
 
+def nest(ranges, points):
+    """{key: names of the ranges open at the point, outermost first} for
+    properly nested `ranges` (start, end, name) on one thread and
+    `points` (ts, key)."""
+    ranges, out, stack, i = sorted(ranges), {}, [], 0
+    for ts, key in sorted(points):
+        while i < len(ranges) and ranges[i][0] <= ts:
+            while stack and stack[-1][1] <= ranges[i][0]:
+                stack.pop()
+            stack.append(ranges[i])
+            i += 1
+        while stack and stack[-1][1] < ts:
+            stack.pop()
+        out[key] = tuple(r[2] for r in stack)
+    return out
+
+
+def device_phase_split(events):
+    """The card's busy time in a capture, by device phase: each device
+    event (kernel, memcpy, memset) is attributed to the innermost
+    madsim.* range around the runtime call that launched it (kineto links
+    the two by `correlation`). Returns {"busy_ms": {phase: ms}, "events":
+    {phase: n}, "kernels_under": {kernel: {phase: n}} (every enclosing
+    phase), "unlinked": n, "stream_ranges": the madsim.* ranges kineto
+    drew on the card's streams (`gpu_user_annotation`)}."""
+    prefix = "madsim."
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur") or 0.0), e["name"][len(prefix):])
+              for e in events if e.get("cat") == "user_annotation" and e.get("ph") == "X"
+              and str(e.get("name", "")).startswith(prefix) and not e["name"].startswith(prefix + "sync")]
+    calls = [(float(e["ts"]), e["args"]["correlation"]) for e in events
+             if e.get("cat") == "cuda_runtime" and "correlation" in (e.get("args") or {})]
+    at_launch = nest(ranges, calls)
+    out = {"busy_ms": {}, "events": {}, "kernels_under": {}, "unlinked": 0,
+           "stream_ranges": sum(1 for e in events if e.get("cat") == "gpu_user_annotation")}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset") or e.get("ph") != "X":
+            continue
+        names = at_launch.get((e.get("args") or {}).get("correlation"))
+        out["unlinked"] += names is None
+        phase = names[-1] if names else "outside"
+        out["busy_ms"][phase] = out["busy_ms"].get(phase, 0.0) + float(e.get("dur") or 0.0) / 1e3
+        out["events"][phase] = out["events"].get(phase, 0) + 1
+        if e.get("cat") == "kernel":
+            for key in ("step_megakernel_kernel", "cov_flush_kernel", "pop_gather_kernel", "pop_earliest_kernel"):
+                if key in str(e.get("name", "")):
+                    under = out["kernels_under"].setdefault(key, {})
+                    for name in set(names or ("outside",)):
+                        under[name] = under.get(name, 0) + 1
+    return out
+
+
+def virtual_track(doc):
+    """The virtual-time events of a merged plane, their pids numbered
+    from 0 in order of first appearance."""
+    pids = [e["pid"] for e in doc["traceEvents"]
+            if e.get("ph") == "M" and "VIRTUAL" in (e.get("args") or {}).get("name", "")]
+    return [dict(e, pid=pids.index(e["pid"])) for e in doc["traceEvents"] if e.get("pid") in pids]
+
+
+def capture_holds_kernel(path, kernel):
+    """Whether a gzipped kineto capture holds a `kernel` event whose name
+    holds `kernel` (a streamed search: the v2 capture is ~1 M events)."""
+    import gzip
+
+    pat = re.compile(r'"cat":\s*"kernel",\s*"name":\s*"[^"]*' + re.escape(kernel))
+    tail = ""
+    with gzip.open(path, "rt") as f:
+        while True:
+            chunk = f.read(1 << 22)
+            if not chunk:
+                return False
+            if pat.search(tail + chunk):
+                return True
+            tail = chunk[-4096:]
+
+
+EXPORT_LOG = re.compile(r"device capture: (\d+) bytes of trace \((\d+) gzipped\) exported in ([0-9.]+)s")
+
+
+class PerfChecks:
+    """Phase 16's commands that time nothing, in subprocesses on the card:
+    the v2 leg (`prof --rng-stream 2` of one 8192-lane segment) and
+    `bench-ab --gate coverage-unbuffered` and `--gate rng-stream` at 256
+    lanes, one rep pair each (a check that they run, not a gate's cost).
+    The full run starts them beside card_vs_cpu_models, where nothing is
+    timed and most cores are idle, and reads them in phase 16."""
+
+    def __init__(self):
+        self.res = None
+        self.futures = None
+
+    def start(self):
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.tmp = tempfile.mkdtemp(prefix="madsim_perf_checks_")
+        self.prof_dir = str(pathlib.Path(self.tmp) / "prof_v2")
+        ab = [*PERF_ARGS, "--lanes", str(AB_LANES), "--seeds", str(AB_LANES), "--reps", "1", "--max-steps",
+              str(AB_STEPS)]
+        jobs = {
+            "prof_v2": (["prof", *PERF_ARGS_V2, "--max-steps", str(PROF_STEPS), "--seeds", str(PERF_LANES), "--batch",
+                         str(PERF_LANES), "--out", "v2_host.json", "--profile-dir", self.prof_dir,
+                         "--log-level", "INFO"], 0),
+            "ab_cov": (["bench-ab", "--gate", "coverage-unbuffered", *ab], 0),
+            "ab_rng": (["bench-ab", "--gate", "rng-stream", *ab], 0),
+        }
+        self.t0 = time.perf_counter()
+        self.pool = ThreadPoolExecutor(len(jobs))
+        self.futures = {name: self.pool.submit(run_cli, self.tmp, name, *job) for name, job in jobs.items()}
+
+    def join(self):
+        if self.res is None:
+            self.res = {name: f.result() for name, f in self.futures.items()}
+            self.pool.shutdown()
+            self.s = round(time.perf_counter() - self.t0, 3)
+        return self.res
+
+    def read(self):
+        """Fails unless the v2 capture holds pop_gather_kernel and both
+        bench-ab runs printed their line on the card with their kernels
+        launched; returns the `perf` line's fields."""
+        import shutil
+
+        from madsim_tpu_torch.perf import xprof
+
+        res = self.join()
+        v2 = res["prof_v2"]
+        v2_path = xprof.find_device_trace(self.prof_dir)
+        if not v2_path or not capture_holds_kernel(v2_path, "pop_gather_kernel") or \
+                v2["launches"].get("pop_gather", 0) <= 0:
+            fail(f"prof --rng-stream 2: no pop_gather_kernel in the capture {v2_path}: {v2['launches']}")
+        v2_export = EXPORT_LOG.search(v2["err"])
+        ab = {}
+        for name, gate in (("ab_cov", "coverage-unbuffered"), ("ab_rng", "rng-stream")):
+            lines = [json.loads(ln) for ln in res[name]["out"].splitlines() if ln.startswith("{")]
+            if not lines or lines[0]["gate"] != gate or lines[0]["platform"] != "cuda" or lines[0]["pairs"] != 1:
+                fail(f"bench-ab --gate {gate}:\n{res[name]['out']}")
+            ab[gate] = {**lines[0], "subprocess_s": res[name]["s"], "launches": res[name]["launches"]}
+        if not (res["ab_rng"]["launches"].get("step_megakernel") and res["ab_rng"]["launches"].get("pop_gather")
+                and res["ab_cov"]["launches"].get("cov_flush")):
+            fail(f"bench-ab: a kernel of its engines never launched: {res['ab_rng']['launches']}, "
+                 f"{res['ab_cov']['launches']}")
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        return {"checks_s": self.s,
+                "prof_v2": {"subprocess_s": v2["s"], "pop_gather_kernel": True, "launches": v2["launches"],
+                            "trace_bytes": int(v2_export.group(1)) if v2_export else None,
+                            "export_s": float(v2_export.group(3)) if v2_export else None},
+                "bench_ab": ab}
+
+
+def perf_phase(torch, np, kernels, dev, checks=None):
+    """Phase 16: the perf tooling, `python -m madsim_tpu_torch` in
+    subprocesses on the card. (1) `prof --merge` of one 256-step segment
+    of 8192 lanes, alone on the card, with the CPU's `prof --merge` of 8
+    lanes beside it: at least two sync points matched, the megakernel's
+    and the flush's kernels launched inside madsim.step, the card's busy
+    time by device phase, and a virtual track equal to the CPU's (`prof`
+    line). (2) Once that capture has stopped, beside prof's host tail
+    (its export, its JSON, its one-lane replay), `perf` of the flagship at
+    2 x 8192 lanes: the host timeline is written, its spans cover >= 90%
+    of the wall and name every executor span (`perf_timeline` line: each
+    span's seconds and share, the device wait, the dispatch gap, the
+    verdict and the card's memory). (3) `PerfChecks` (the v2 leg and
+    bench-ab), started here unless the run started them earlier (`perf`
+    line). Returns the commands' launches for `perf_kernels`."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    with tempfile.TemporaryDirectory(prefix="madsim_perf_") as tmp:
+        t = pathlib.Path(tmp)
+        files = {k: str(t / f) for k, f in (("timeline", "host.json"), ("merged", "merged.json"),
+                                             ("merged_cpu", "merged_cpu.json"))}
+        dirs = {k: str(t / k) for k in ("prof", "prof_cpu")}
+        prof_argv = ["prof", "--merge", "--max-steps", str(PROF_STEPS), "--trace-seed", str(PROF_TRACE_SEED),
+                     "--log-level", "INFO"]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            jobs = {
+                "prof": pool.submit(run_cli, tmp, "prof", [
+                    *prof_argv, *PERF_ARGS, "--seeds", str(PERF_LANES), "--batch", str(PERF_LANES), "--out",
+                    files["merged"], "--profile-dir", dirs["prof"]], 0),
+                "prof_cpu": pool.submit(run_cli, tmp, "prof_cpu", [
+                    *prof_argv, *PERF_ARGS, "--seeds", str(PROF_CPU_LANES), "--batch", str(PROF_CPU_LANES), "--out",
+                    files["merged_cpu"], "--profile-dir", dirs["prof_cpu"], "--device", "cpu"], 0, 2),
+            }
+            # the capture's directory appears when the profiler has stopped
+            stopped = pathlib.Path(dirs["prof"]) / "plugins" / "profile"
+            while not stopped.exists() and not jobs["prof"].done():
+                time.sleep(0.2)
+            capture_s = round(time.perf_counter() - t0, 3)
+
+            # 2. the host timeline of a full-width run
+            t1 = time.perf_counter()
+            perf = run_cli(tmp, "perf", ["perf", files["timeline"], *PERF_ARGS, "--seeds", str(2 * PERF_LANES),
+                                         "--batch", str(PERF_LANES), "--log-level", "INFO"], 0)
+            perf_s = round(time.perf_counter() - t1, 3)
+            if checks is None:
+                checks = PerfChecks()
+                checks.start()
+            res = {name: f.result() for name, f in jobs.items()}
+        stage_s = round(time.perf_counter() - t0, 3)
+
+        s = json.loads(pathlib.Path(files["timeline"]).read_text())["madsim_perf_summary"]
+        missing = [n for n in PERF_SPANS if n not in s["spans"]]
+        verdict = re.search(r"host verdict: (.*)", perf["out"])
+        mem = re.search(r"device memory: (.*)", perf["out"])
+        rate = re.search(r"streamed (\d+) seeds in ([0-9.]+)s \((\d+) seeds/s\)", perf["out"])
+        if missing or s["span_coverage"] < 0.9 or not verdict or not mem or not rate:
+            fail(f"perf: spans {missing} missing or coverage {s['span_coverage']} < 0.9:\n{perf['out']}")
+        for name in ("step_megakernel", "cov_flush"):
+            if perf["launches"].get(name, 0) <= 0:
+                fail(f"perf never launched {name}: {perf['launches']}")
+        emit({"phase": "perf_timeline", "lanes": PERF_LANES, "seeds": int(rate.group(1)),
+              "seconds": float(rate.group(2)), "seeds_per_s": int(rate.group(3)), "subprocess_s": perf["s"],
+              "wall_s": s["wall_s"], "span_coverage": s["span_coverage"],
+              "spans": {k: {"s": v["total_s"], "count": v["count"], "share": round(v["pct_of_wall"] / 100, 4)}
+                        for k, v in s["spans"].items()},
+              "device_wait_s": s["device_wait_s"], "device_wait_share": round(s["device_wait_pct"] / 100, 4),
+              "dispatch_gap_s": s["dispatch_gap_s"], "dispatch_gap_share": round(s["dispatch_gap_pct"] / 100, 4),
+              "verdict": verdict.group(1),
+              "device_memory": mem and {k: int(v) for k, v in (kv.split("=") for kv in mem.group(1).split(", "))},
+              "counters": s["counters"], "launches": perf["launches"],
+              **{key: [c[key] for c in perf["streams"]] for key in ("device_segments", "dispatches", "host_syncs")},
+              "stage_s": perf_s})
+
+        prof = res["prof"]
+        merge = [json.loads(ln) for ln in prof["out"].splitlines() if ln.startswith('{"metric": "prof_merge"')]
+        events_n = re.search(r"device profile: (\d+) events", prof["out"])
+        export = EXPORT_LOG.search(prof["err"])
+        if not merge or not events_n or not export:
+            fail(f"prof --merge printed no merge line, event count or export:\n{prof['out']}\n{prof['err'][-3000:]}")
+        merge = merge[0]
+        if merge["sync_points"] < 2 or not all(merge["tracks"].values()):
+            fail(f"prof --merge: {merge}")
+        t1 = time.perf_counter()
+        doc = json.loads(pathlib.Path(files["merged"]).read_text())
+        cpu_doc = json.loads(pathlib.Path(files["merged_cpu"]).read_text())
+        load_s = round(time.perf_counter() - t1, 3)
+        vtrack = virtual_track(doc)
+        if not vtrack or vtrack != virtual_track(cpu_doc):
+            fail("prof --merge: the card's virtual track differs from the CPU's")
+        split = device_phase_split(doc["traceEvents"])
+        under = split["kernels_under"]
+        if not under.get("step_megakernel_kernel", {}).get("step") or \
+                not under.get("cov_flush_kernel", {}).get("step"):
+            fail(f"prof: the capture holds no step_megakernel_kernel and cov_flush_kernel inside madsim.step: "
+                 f"{under}, {split['unlinked']} device events unlinked")
+        steps_wall_ms = sum(float(e["dur"]) for e in doc["traceEvents"] if e.get("cat") == "user_annotation"
+                            and e.get("name") == "madsim.step") / 1e3
+        busy = split["busy_ms"]
+        emit({"phase": "prof", "lanes": PERF_LANES, "max_steps": PROF_STEPS, "capture_stopped_s": capture_s,
+              "subprocess_s": prof["s"], "cpu_subprocess_s": res["prof_cpu"]["s"],
+              "device_events": int(events_n.group(1)), "merged_events": len(doc["traceEvents"]),
+              "export_s": float(export.group(3)), "trace_bytes": int(export.group(1)),
+              "trace_gz_bytes": int(export.group(2)), "merged_bytes": pathlib.Path(files["merged"]).stat().st_size,
+              "load_s": load_s, "merge": merge, "virtual_events": len(vtrack), "virtual_equal": True,
+              "busy_ms_by_phase": {k: round(busy.get(k, 0.0), 3) for k in PROF_PHASES if k in busy},
+              "events_by_phase": split["events"], "busy_ms": round(sum(busy.values()), 3),
+              "step_ranges_ms": round(steps_wall_ms, 3),
+              "step_idle_share": round(1 - busy.get("step", 0.0) / steps_wall_ms, 4) if steps_wall_ms else None,
+              "kernels_under": under, "unlinked": split["unlinked"], "stream_ranges": split["stream_ranges"],
+              "launches": prof["launches"]})
+        del doc, cpu_doc
+
+    # 3. the commands that time nothing
+    emit({"phase": "perf", "stage_s": stage_s, **checks.read()})
+    # the launches of the main path's kernels, for the kernels line; the
+    # prof's single-lane replay's, its launches outside its stream
+    stream_mega = sum(c["launches"].get("step_megakernel", 0) for c in prof["streams"])
+    return {"perf": perf["launches"], "prof_v2": checks.res["prof_v2"]["launches"], "prof": prof["launches"],
+            "replay_megakernel": prof["launches"].get("step_megakernel", 0) - stream_mega,
+            "ab_cov": checks.res["ab_cov"]["launches"], "ab_rng": checks.res["ab_rng"]["launches"]}
+
+
+def perf_kernels(kernels, np, dev, perf):
+    """Each kernel shape phase 16 first launches, held against its twin
+    and timed on a state of the engine the command builds (`perf_kernels`
+    line): bench-ab's 256 lanes (the megakernel with the digest and the
+    flush from both gates' engines, pop_gather from rng-stream's v2
+    engine) and `prof --merge`'s single-lane replay (the megakernel with
+    the digest at L = 1)."""
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+
+    def state_of(args, lanes, seed0=0):
+        eng = _build_engine(_parser().parse_args(["explore", *args]))
+        state = eng.run_segment(eng.init_batch(np.arange(seed0, seed0 + lanes, dtype=np.uint32)), 64)
+        for _ in range(eng._cov_flush_every):  # coverage buffers a flush period in
+            state = eng.step_batch(state)
+        return state, eng._rng_layout.total_words
+
+    ab_state, words = state_of(PERF_ARGS, AB_LANES)
+    ab_v2, _ = state_of(PERF_ARGS_V2, AB_LANES)
+    replay_state, _ = state_of(PERF_ARGS, 1, PROF_TRACE_SEED)
+    cov, rng = perf["ab_cov"], perf["ab_rng"]
+    time_kernel_shapes(kernels, dev, "perf_kernels", (
+        (f"step_megakernel_L{AB_LANES}_Q32_W{words}", ab_state, words,
+         cov.get("step_megakernel", 0) + rng.get("step_megakernel", 0)),
+        (f"step_megakernel_L1_Q32_W{words}", replay_state, words, perf["replay_megakernel"]),
+    ), ((f"cov_flush_L{AB_LANES}", ab_state.cov, cov.get("cov_flush", 0) + rng.get("cov_flush", 0)),),
+        pops=((f"pop_gather_L{AB_LANES}_Q32", ab_v2, rng.get("pop_gather", 0)),))
+
+
 def main(argv=None):
     import torch
 
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
-    args.add_argument("--only", choices=("cli", "prov", "guided"), default=None,
-                      help="build, then run phase 11 alone (cli), phases 11-13 (prov) or phases 14-15 (guided): "
-                      "a short check that prints no result line")
+    args.add_argument("--only", choices=("cli", "prov", "guided", "perf"), default=None,
+                      help="build, then run phase 11 alone (cli), phases 11-13 (prov), phases 14-15 (guided) or "
+                      "phase 16 (perf): a short check that prints no result line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -2483,6 +2843,11 @@ def main(argv=None):
           "ptxas": ptxas_line(build, libs)})
     if args.only == "guided":
         guided_phase(torch, np, kernels, torch.device("cuda"))
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
+    if args.only == "perf":
+        perf = perf_phase(torch, np, kernels, torch.device("cuda"))
+        perf_kernels(kernels, np, torch.device("cuda"), perf)
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
     if args.only:
@@ -2566,6 +2931,12 @@ def main(argv=None):
                                          "flagship")
     emit({"phase": "card_vs_cpu", "lanes": CHECK_LANES, "equal": True, "card_s": round(t_card, 3),
           "cpu_s": round(t_cpu, 3), "max_steps": int(on_card["steps"].max())})
+    # the CPU legs from here on run on two intra-op threads: their tensors
+    # are a few hundred lanes wide, where more threads only add the cost
+    # of waking them (this phase's CPU seconds, the host's gauge, and the
+    # clog matrix's 64-node planes keep the default)
+    default_threads = torch.get_num_threads()
+    torch.set_num_threads(2)
 
     # 4b. the card against the CPU where lanes fail: the overcommit bug
     #     (COMMIT_TO_LOG_LEN) on seeds that hold its known failures, through
@@ -2630,8 +3001,10 @@ def main(argv=None):
     v2_launches, replay_launches, v2_state, v2_eng, replay_state, corpus_states = split_chain_phases(
         torch, np, kernels)
 
-    # 7. the delay-spike kind and the MVCC, S3 and gossip models
-    _, hunt_state, model_states = delay_and_model_phases(torch, np, kernels, dev)
+    # 7. the delay-spike kind and the MVCC, S3 and gossip models; phase
+    #    16's commands that time nothing run beside the models' checks
+    perf_checks = PerfChecks()
+    _, hunt_state, model_states = delay_and_model_phases(torch, np, kernels, dev, beside=perf_checks)
 
     # 8. the chaos palette: pause, skew, dup and strict restarts
     _, palette_states = palette_phases(torch, np, kernels)
@@ -2696,10 +3069,22 @@ def main(argv=None):
 
     # 12. causal provenance; 13. the unpacked clog matrix
     provenance_phase(torch, np, cli)
+    torch.set_num_threads(default_threads)
     clog_phase(torch, np, kernels, dev)
+    torch.set_num_threads(2)
 
     # 14. guided search at full width; 15. the Raft differential's device side
     guided_phase(torch, np, kernels, dev)
+
+    # 16. the perf tooling: the host timeline, the three clocks, bench-ab
+    perf = perf_phase(torch, np, kernels, dev, perf_checks)
+    perf_kernels(kernels, np, dev, perf)
+    # each kernel's launches on the perf path: perf's stream, the v2
+    # prof's stream, the prof replay's pops
+    perf_launches = {"step_megakernel": perf["perf"].get("step_megakernel", 0),
+                     "cov_flush": perf["perf"].get("cov_flush", 0),
+                     "pop_gather": perf["prof_v2"].get("pop_gather", 0),
+                     "pop_earliest": perf["prof"].get("pop_earliest", 0)}
 
     emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
 
@@ -2708,17 +3093,19 @@ def main(argv=None):
         {"name": "step_megakernel", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/step_megakernel.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:310", "launches": launches["step_megakernel"],
          "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
-         "bound_by": s_bound[1], "library_ms": None, "floor_ms": s_floor},
+         "bound_by": s_bound[1], "library_ms": None, "floor_ms": s_floor,
+         "launches_perf": perf_launches["step_megakernel"]},
         {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
-         "bound_by": c_bound[1], "library_ms": None, "floor_ms": c_floor},
+         "bound_by": c_bound[1], "library_ms": None, "floor_ms": c_floor,
+         "launches_perf": perf_launches["cov_flush"]},
         # each at the shape where its launches run: pop_earliest's are the
         # single-lane replay's
         *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
            "replaces": replaces, "launches": n, "max_abs_err": k["err"], "ms": k["ms"],
            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
-           "floor_ms": k["floor_ms"], "lanes": k["lanes"]}
+           "floor_ms": k["floor_ms"], "lanes": k["lanes"], "launches_perf": perf_launches[name]}
           for name, replaces, n, k in (
               ("pop_gather", "madsim_tpu/ops/pallas_pop.py:172", v2_launches["pop_gather"], pops["pop_gather"]),
               ("pop_earliest", "madsim_tpu/ops/pallas_pop.py:143", replay_launches["pop_earliest"],

@@ -10,23 +10,31 @@ reports and the stats endpoint.
     python -m madsim_tpu_torch regress --corpus corpus.json
     python -m madsim_tpu_torch check   --machine kv --seeds 64
     python -m madsim_tpu_torch serve   --service stats --stats BASE --addr 127.0.0.1:0
+    python -m madsim_tpu_torch perf    host.json --machine raft --seeds 16384 --batch 8192
+    python -m madsim_tpu_torch prof    --merge --out m.json --machine raft --seeds 8192 --batch 8192
+    python -m madsim_tpu_torch bench-ab --gate coverage --lanes 1024 --reps 4
 
 The port of `madsim_tpu/__main__.py`: the same subcommands, flags,
 defaults, printed lines and exit codes for explore, hunt (with
-`--guided`), replay, trace, why, shrink, regress, audit, check, coverage
-and `serve --service stats`, `--provenance` among the flags, and the
-same files (corpus, checkpoint with its guided trail, coverage doc,
-exports, attribution JSON). Every command runs on the CUDA card unless
-given `--device cpu`; without a card it exits non-zero and never falls
-back to the CPU. What the port does not run yet (several devices, the
-perf tooling, the compile cache, bench, fleet, lint) and the host
-services `serve --service etcd|kafka|s3` exit with status 2 and one
-line naming the gate, before any engine is built.
+`--guided`), replay, trace, why, shrink, regress, audit, check, coverage,
+`serve --service stats`, and the perf tooling (`perf`, `prof`,
+`bench-ab`, `--perf-timeline`, `--xla-profile`), `--provenance` among
+the flags, and the same files (corpus, checkpoint with its guided trail,
+coverage doc, exports, attribution JSON, host timeline, merged plane).
+`--xla-profile DIR` keeps the reference's spelling; here it is a
+`torch.profiler` capture of the card (`perf/xprof.py`). Every command
+runs on the CUDA card unless given `--device cpu`; without a card it
+exits non-zero and never falls back to the CPU. What the port does not
+run yet (several devices, the compile cache and its autopsy `prof
+compile`, bench, fleet, lint) and the host services `serve --service
+etcd|kafka|s3` exit with status 2 and one line naming the gate, before
+any engine is built.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -37,20 +45,14 @@ PROG = "madsim_tpu_torch"
 
 # what the port refuses, and the ROADMAP.md item (queue 1) it waits for
 _ITEM_MESH = "ROADMAP.md queue 1, item 12"
-_ITEM_PERF = "ROADMAP.md queue 1, item 13"
 _GATED_COMMANDS = {
-    "perf": ("the `perf` command", _ITEM_PERF),
-    "prof": ("the `prof` command", _ITEM_PERF),
     "bench": ("the `bench` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
-    "bench-ab": ("the `bench-ab` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
     "fleet": ("the `fleet` command", "ROADMAP.md queue 1, item 11"),
     "lint": ("the `lint` command", "ROADMAP.md queue 1, item 14"),
 }
 _GATED_FLAGS = (
     ("devices", "--devices N", _ITEM_MESH),
     ("multihost", "--multihost", _ITEM_MESH),
-    ("perf_timeline", "--perf-timeline", _ITEM_PERF),
-    ("xla_profile", "--xla-profile", _ITEM_PERF),
     ("compile_cache", "--compile-cache (a JAX compile cache)", "no port item: the port compiles no graph"),
 )
 
@@ -62,6 +64,11 @@ def _gate(args) -> str:
         # JAX package's command line serves them
         return (f"{PROG}: `serve --service {args.service}` is a host service, not ported "
                 f"(run python -m madsim_tpu serve --service {args.service})")
+    if args.cmd == "prof" and args.action == "compile":
+        # the reference's compile autopsy splits a jitted function's
+        # compile into its trace, lowering and backend stages
+        return (f"{PROG}: `prof compile` is not ported: it reads the JAX compile autopsy, and eager "
+                f"PyTorch has no trace, lowering or backend stage (no port item)")
     if args.cmd in _GATED_COMMANDS:
         what, item = _GATED_COMMANDS[args.cmd]
     else:
@@ -89,6 +96,16 @@ def _machine(name: str, nodes: int = 0):
 
 
 def _build_engine(args):
+    # engine construction (model init, device constants, the card's
+    # first touch) lands on the host timeline: it is real wall time a
+    # --perf-timeline run would otherwise report as unattributed
+    from .perf.recorder import maybe_span
+
+    with maybe_span("engine_build"):
+        return _build_engine_inner(args)
+
+
+def _build_engine_inner(args):
     from .engine import Engine, EngineConfig, FaultPlan
 
     machine = _machine(args.machine, args.nodes)
@@ -165,6 +182,50 @@ def _repro_line(args, seed) -> str:
         + ("--strict-restart " if getattr(args, "strict_restart", False) else "")
         + f"--max-steps {args.max_steps}"
     )
+
+
+@contextlib.contextmanager
+def _perf_session(args):
+    """`--perf-timeline PATH` / `--xla-profile DIR` around a whole
+    subcommand: a PerfRecorder publishes itself for the engine's spans
+    (`perf/recorder.py`), and the Chrome/Perfetto host timeline and its
+    verdict land AFTER the command's own output. `--xla-profile` turns
+    the device-phase gate on and wraps the run in `xprof.device_trace`
+    (a `torch.profiler` capture; `perf/xprof.py`), then names the trace
+    file it wrote. The timeline is written even when the command fails:
+    a failing run's wall-clock profile is exactly what one wants."""
+    path = getattr(args, "perf_timeline", None)
+    xla_dir = getattr(args, "xla_profile", None)
+    if not path and not xla_dir:
+        yield None
+        return
+    from .perf import xprof
+
+    rec = None
+    try:
+        with contextlib.ExitStack() as stack:
+            if xla_dir:
+                # before the engine is built: its phases are named from
+                # the first segment on
+                os.environ[xprof.ENV_GATE] = "1"
+                stack.enter_context(xprof.device_trace(xla_dir, cuda=_device(args) != "cpu"))
+            if path:
+                from .perf.recorder import PerfRecorder
+
+                rec = stack.enter_context(PerfRecorder(meta={"cmd": getattr(args, "cmd", None)}))
+            yield rec
+    finally:
+        if rec is not None and rec.wall_us:
+            n = rec.write(path)
+            s = rec.summary()
+            print(
+                f"host timeline: {n} spans, "
+                f"{100 * s['span_coverage']:.0f}% of {s['wall_s']:.1f}s "
+                f"wall attributed -> {path} (open in https://ui.perfetto.dev)"
+            )
+            print(f"host verdict: {rec.verdict()}")
+        if xla_dir:
+            print(f"device profile -> {xprof.find_device_trace(xla_dir)} (open in https://ui.perfetto.dev)")
 
 
 def _stream_kwargs(args) -> dict:
@@ -1033,6 +1094,186 @@ def cmd_coverage(args) -> int:
     return 0
 
 
+def cmd_perf(args) -> int:
+    """Host wall-clock observatory: run a streaming workload with the
+    PerfRecorder active (main() sets `args.perf_timeline = args.out`
+    before the command runs) and report what the wall clock went to:
+    the first run of each stream function, blocked on the card
+    (counters_poll / ring_drain / harvest), or the host launching kernels
+    and running Python between them. The Perfetto timeline and verdict
+    print through the shared --perf-timeline epilogue."""
+    eng = _build_engine(args)
+    agg = _stream_batches(eng, args, purpose="perf")
+    st = agg["stats"]
+    el = agg["elapsed_s"]
+    print(
+        f"streamed {agg['completed']} seeds in {el:.1f}s "
+        f"({agg['completed'] / max(el, 1e-9):.0f} seeds/s), "
+        f"{len(agg['failing'])} failing"
+    )
+    print(
+        f"executor: {st['device_segments']} segments, "
+        f"{st['host_syncs']} host syncs, {st['drains']} drains "
+        f"(pipelined={st['pipelined']}, donation={st['donation']})"
+    )
+    if "device_memory" in st:
+        mem = st["device_memory"]
+        print("device memory: " + ", ".join(f"{k}={v}" for k, v in sorted(mem.items())))
+    return 0
+
+
+def cmd_prof(args) -> int:
+    """The three-clock profiler (`perf/xprof.py`): stream a hunt batch
+    with MADSIM_TPU_XPROF on (device-phase ranges, clock-sync markers at
+    dispatch and poll boundaries, a torch.profiler capture of the card)
+    and, with --merge, align host wall-clock spans, the device capture
+    and a failing lane's virtual-time trace into ONE Perfetto session.
+    (`prof compile` is refused before this runs.)"""
+    import tempfile
+
+    from .perf import xprof
+    from .perf.recorder import PerfRecorder
+
+    # the gate must be on before the engine runs a segment
+    os.environ[xprof.ENV_GATE] = "1"
+    eng = _build_engine(args)
+    sk = _stream_kwargs(args)
+    logdir = args.profile_dir or tempfile.mkdtemp(prefix="madsim-xprof-")
+    rec = PerfRecorder(meta={
+        "cmd": "prof", "machine": args.machine, "seeds": args.seeds,
+        "batch": args.batch,
+    })
+    # recorder INSIDE the capture: the profiler's stop and export stay
+    # off the hunt's wall clock, so the attribution fraction measures
+    # the hunt, not the profiler
+    with xprof.device_trace(logdir, cuda=eng.device.type == "cuda"):
+        with rec:
+            out = eng.run_stream(
+                args.seeds, batch=args.batch, seed_start=args.seed,
+                max_steps=args.max_steps, **sk,
+            )
+    wall_s = rec.wall_us / 1e6
+    print(
+        f"streamed {out['completed']} seeds in {wall_s:.1f}s "
+        f"({out['completed'] / max(wall_s, 1e-9):.0f} seeds/s), "
+        f"{len(out['failing'])} failing"
+    )
+    artifact = xprof.find_device_trace(logdir)
+    dev = xprof.load_device_events(artifact) if artifact else []
+    if dev:
+        print(f"device profile: {len(dev)} events ({artifact})")
+    else:
+        print("device profile: no artifact (backend without profiler export)")
+
+    if not args.merge:
+        n = rec.write(args.out)
+        print(
+            f"host timeline: {n} spans -> {args.out} "
+            f"(pass --merge for the three-clock plane)"
+        )
+        print(f"host verdict: {rec.verdict()}")
+        return 0
+
+    # virtual-time track: the failing lane when the hunt surfaced one,
+    # else the batch's first seed; timestamps stay in VIRTUAL us
+    vseed = args.trace_seed
+    if vseed is None:
+        vseed = out["failing"][0][0] if out["failing"] else args.seed
+    from .engine import replay
+    from .engine.trace_export import trace_event_dict
+
+    rp = replay(eng, int(vseed), max_steps=args.max_steps)
+    vdoc = trace_event_dict(
+        rp.trace, machine=args.machine, seed=int(vseed),
+        num_nodes=eng.machine.NUM_NODES,
+    )
+    doc = xprof.merge_plane(
+        rec.chrome_trace(), dev, vdoc,
+        meta={"machine": args.machine, "virtual_seed": int(vseed)},
+    )
+    n = xprof.write_doc(doc, args.out)
+    s = doc["madsim_xprof_summary"]
+    print(json.dumps({"metric": "prof_merge", **s}))
+    tracks = "+".join(k for k, v in s["tracks"].items() if v)
+    print(
+        f"merged plane: {n} events ({tracks}), "
+        f"{100 * s['attribution']:.0f}% of {s['host_wall_us'] / 1e6:.1f}s "
+        f"wall attributed across {s['sync_points']} sync points "
+        f"-> {args.out} (open in https://ui.perfetto.dev)"
+    )
+    return 0
+
+
+_AB_GATES = ("flight_recorder", "coverage", "provenance", "clog-packed",
+             "rng-stream", "coverage-unbuffered")
+
+
+def cmd_bench_ab(args) -> int:
+    """Interleaved A/B cost of ONE engine gate: ABAB... alternating reps
+    in one process over identical seed ranges, median of PAIRED deltas
+    with a seeded-bootstrap 95% CI and an exact sign test
+    (`perf/ab.py`). Both engines run on the command's device and are
+    warmed (one run plus one untimed rep) first. Prints one JSON line
+    and a summary."""
+    from .engine import Engine
+    from .perf.ab import interleaved_ab
+    from .perf.recorder import current_recorder
+
+    eng = _build_engine(args)
+    base = eng.config
+    if args.gate == "rng-stream":
+        cfg_a = dataclasses.replace(base, rng_stream=3)
+        cfg_b = dataclasses.replace(base, rng_stream=2)
+        label_a, label_b = "rng_stream=3", "rng_stream=2"
+    elif args.gate == "coverage-unbuffered":
+        # the buffered fold (the cov_buffer default) against the
+        # per-event fold (cov_buffer=0), coverage on in both: the maps
+        # are equal, so the delta is the fold's mechanics
+        cfg_a = dataclasses.replace(base, coverage=True)
+        cfg_b = dataclasses.replace(base, coverage=True, cov_buffer=0)
+        label_a, label_b = "cov_buffer=on", "cov_buffer=0"
+    else:
+        field = args.gate.replace("-", "_")
+        cfg_a = dataclasses.replace(base, **{field: True})
+        cfg_b = dataclasses.replace(base, **{field: False})
+        label_a, label_b = f"{field}=on", f"{field}=off"
+    lanes = args.lanes or 1024
+    n_rep = args.seeds or 2 * lanes
+    sk = _stream_kwargs(args)
+    runs = {}
+    for tag, cfg in (("a", cfg_a), ("b", cfg_b)):
+        run = Engine(eng.machine, cfg, device=eng.device).make_stream_runner(
+            batch=lanes, segment_steps=384, max_steps=args.max_steps, **sk
+        )
+        # the first run and one full untimed rep: the harness measures
+        # steady state, never the first run or a cold first rep
+        run(1)
+        run(n_rep, seed_start=500_000)
+        runs[tag] = run
+
+    res = interleaved_ab(
+        lambda s: runs["a"](n_rep, seed_start=s)["completed"],
+        lambda s: runs["b"](n_rep, seed_start=s)["completed"],
+        pairs=args.reps,
+        seed_start=args.seed,
+        seeds_per_rep=4 * n_rep,
+        label_a=label_a,
+        label_b=label_b,
+        recorder=current_recorder(),
+    )
+    print(json.dumps({
+        "metric": f"{args.gate}_ab_delta_pct",
+        "gate": args.gate,
+        "machine": args.machine,
+        "platform": eng.device.type,
+        "lanes": lanes,
+        "seeds_per_rep": n_rep,
+        **res.to_dict(),
+    }))
+    print(res.summary())
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog=PROG)
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -1108,8 +1349,14 @@ def _parser() -> argparse.ArgumentParser:
                        help="with --coverage: stop when N consecutive seed batches add no new slot")
         p.add_argument("--stop-after-batches", type=int, default=0, metavar="N",
                        help="stop after N seed batches (resumable via --checkpoint)")
-        p.add_argument("--perf-timeline", default=None, metavar="PATH", help="not ported: the host timeline")
-        p.add_argument("--xla-profile", default=None, metavar="DIR", help="not ported: an XLA profile")
+        p.add_argument("--perf-timeline", default=None, metavar="PATH",
+                       help="record the HOST wall-clock timeline of this run (compile / dispatch / "
+                       "counters_poll / ring_drain / harvest / checkpoint / stats spans and the gaps between "
+                       "them) as Chrome/Perfetto trace_event JSON at PATH, with a verdict (compile- vs device- "
+                       "vs dispatch-gap-bound) printed after the run")
+        p.add_argument("--xla-profile", default=None, metavar="DIR",
+                       help="also capture the card with torch.profiler into DIR, the stream's device phases "
+                       "named (the reference's spelling; heavier than --perf-timeline)")
 
     p = sub.add_parser("explore", help="run a seed batch, report failing seeds")
     common(p)
@@ -1224,6 +1471,51 @@ def _parser() -> argparse.ArgumentParser:
                    "a supervisor discovers the daemon without racing its stdout)")
     p.set_defaults(fn=_serve_stats)
 
+    p = sub.add_parser("bench-ab", help="interleaved A/B cost of one engine gate: ABAB... paired reps over "
+                       "identical seed ranges in one process; median paired delta with bootstrap 95%% CI and "
+                       "sign test (one JSON line)")
+    common(p)
+    p.add_argument("--gate", required=True, choices=_AB_GATES,
+                   help="the gate to cost: A runs it on, B off (rng-stream: A = v3, B = v2); every other "
+                   "engine flag comes from the usual options")
+    p.add_argument("--lanes", type=int, default=1024, help="lanes per streaming batch")
+    p.add_argument("--seeds", type=int, default=0, help="seeds per rep (0 = 2*lanes)")
+    p.add_argument("--reps", type=int, default=4, metavar="PAIRS", help="A/B rep PAIRS")
+    stream_flags(p)
+    p.set_defaults(fn=cmd_bench_ab, seed=3_000_000)
+
+    p = sub.add_parser("perf", help="host wall-clock observatory: stream a workload with the PerfRecorder on "
+                       "and write the Perfetto host timeline, with a compile- vs device- vs dispatch-gap-bound "
+                       "verdict")
+    common(p)
+    p.add_argument("out", help="host-timeline Perfetto JSON output path")
+    p.add_argument("--seeds", type=int, default=2048)
+    p.add_argument("--batch", type=int, default=512, help="lanes per streaming batch")
+    stream_flags(p)
+    p.set_defaults(fn=cmd_perf)
+
+    p = sub.add_parser("prof", help="the three-clock profiler: stream a hunt batch with device-phase ranges and "
+                       "a torch.profiler capture on (MADSIM_TPU_XPROF), and with --merge align host spans, the "
+                       "device capture and a failing lane's virtual-time trace into one Perfetto session; "
+                       "`prof compile` (the JAX compile autopsy) is not ported")
+    common(p)
+    p.add_argument("action", nargs="?", choices=("compile",), default=None,
+                   help="compile: the JAX package's compile autopsy (refused: eager PyTorch has no compile)")
+    p.add_argument("--out", default="prof.perfetto.json",
+                   help="output trace path (host timeline, or the merged three-clock plane with --merge; "
+                   ".gz compresses)")
+    p.add_argument("--merge", action="store_true",
+                   help="write ONE merged Perfetto session: host + device + virtual tracks, clock-sync aligned")
+    p.add_argument("--seeds", type=int, default=2048)
+    p.add_argument("--batch", type=int, default=512, help="lanes per streaming batch")
+    p.add_argument("--trace-seed", type=int, default=None,
+                   help="seed for the virtual-time track (default: first failing seed of the profiled batch, "
+                   "else --seed)")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="keep the raw torch.profiler capture here (default: a throwaway tempdir)")
+    stream_flags(p)
+    p.set_defaults(fn=cmd_prof)
+
     for name, (what, item) in _GATED_COMMANDS.items():
         sub.add_parser(name, help=f"not ported ({item})", add_help=False)
     return parser
@@ -1250,7 +1542,12 @@ def main(argv=None) -> int:
         except RuntimeError as exc:
             print(f"{PROG}: {exc} (here: --device cpu)", file=sys.stderr)
             return 2
-    return args.fn(args)
+    if args.cmd == "perf":
+        # the out positional IS the host timeline: cmd_perf runs under
+        # the same --perf-timeline session as explore and hunt
+        args.perf_timeline = args.out
+    with _perf_session(args):
+        return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ eager step of a few thousand small ops pays for.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional
 
@@ -68,6 +69,8 @@ from ..ops.step_rng import (
     RNG_STREAM_COUNTER, RNG_STREAM_LEGACY, RNG_STREAM_VERSIONS, layout_for, restart_key, step_words,
 )
 from ..ops.threefry import bits32, prng_key, split
+from ..perf import xprof as _xprof
+from ..perf.recorder import current_recorder
 from ..utils import gather_at, set2d, take, tree_where
 from .machine import TORN_CLASSES, Machine, state_leaf_names
 
@@ -1249,9 +1252,10 @@ class Engine:
         live counts; stale buffer entries stay, as in the reference. The
         map is updated in place: `run_segment` hands it a map the segment
         owns."""
-        cov = state.cov
-        new_map = cov_flush_batch(cov["map"], cov["buf"], cov["buf_n"])
-        return dataclasses.replace(state, cov=dict(cov, map=new_map, buf_n=torch.zeros_like(cov["buf_n"])))
+        with _xprof.scope("cov_flush"):
+            cov = state.cov
+            new_map = cov_flush_batch(cov["map"], cov["buf"], cov["buf_n"])
+            return dataclasses.replace(state, cov=dict(cov, map=new_map, buf_n=torch.zeros_like(cov["buf_n"])))
 
     @torch.inference_mode()
     def run_segment(self, state: LaneState, segment_steps: int, go=None, parked=None) -> Optional[LaneState]:
@@ -1277,17 +1281,19 @@ class Engine:
         buffered = self._cov_buffered
         if buffered:
             state = dataclasses.replace(state, cov=dict(state.cov, map=state.cov["map"].clone()))
-        for it in range(1, segment_steps + 1):
-            if parked is not None and parked():
-                return None
-            running = None
-            if buffered:
-                running = (~(state.done | state.failed)).any()
-                if go is not None:
-                    running = running & go
-            state = self.step_batch(state, running, go)
-            if buffered and it % self._cov_flush_every == 0:
-                state = self._cov_flush_batch(state)
+        with _xprof.scope("step"):
+            for it in range(1, segment_steps + 1):
+                if parked is not None and parked():
+                    return None
+                running = None
+                if buffered:
+                    running = (~(state.done | state.failed)).any()
+                    if go is not None:
+                        running = running & go
+                state = self.step_batch(state, running, go)
+                if buffered and it % self._cov_flush_every == 0:
+                    state = self._cov_flush_batch(state)
+        # the exit flush, as the reference's, outside the step phase
         return self._cov_flush_batch(state) if buffered else state
 
     @torch.inference_mode()
@@ -1359,12 +1365,13 @@ class Engine:
         issued so far were no-ops and `c` itself is returned."""
         # 1. refill lanes harvested at the end of the previous segment
         #    (cumsum ranks + the device seed counter: gapless, in lane order)
-        refill = c.done if go is None else c.done & go
-        ranks = torch.cumsum(refill.to(torch.int64), dim=0) - 1
-        fresh_seeds = (c.next_seed + ranks) & u32.MASK
-        state = tree_where(refill, self.init_batch(fresh_seeds), c.state)
-        seeds = torch.where(refill, fresh_seeds, c.seeds)
-        next_seed = (c.next_seed + refill.sum()) & u32.MASK
+        with _xprof.scope("refill"):
+            refill = c.done if go is None else c.done & go
+            ranks = torch.cumsum(refill.to(torch.int64), dim=0) - 1
+            fresh_seeds = (c.next_seed + ranks) & u32.MASK
+            state = tree_where(refill, self.init_batch(fresh_seeds), c.state)
+            seeds = torch.where(refill, fresh_seeds, c.seeds)
+            next_seed = (c.next_seed + refill.sum()) & u32.MASK
 
         # 2. advance the batch one segment
         state = self.run_segment(state, segment_steps, go=go, parked=parked)
@@ -1373,41 +1380,46 @@ class Engine:
 
         # 3. harvest: count completions, ring-append failing seeds/codes
         #    and abandoned (over-cap) seeds
-        over_cap = state.step >= max_steps
-        done = state.done | state.failed | over_cap
-        # a parked segment harvests nothing (its lanes are the last
-        # harvest's, whose `done` this recomputes)
-        harvest = done if go is None else done & go
-        fail_mask = harvest & state.failed
-        fail_seeds, fail_count = _append_ring(c.fail_seeds, c.fail_count, fail_mask, seeds, cap)
-        fail_codes, _ = _append_ring(c.fail_codes, c.fail_count, fail_mask, state.fail_code.to(torch.int64), cap)
-        fail_provs = c.fail_provs
-        if self.config.provenance:
-            # violation words ride the failure ring, as uint32 values
-            fail_provs, _ = _append_ring(c.fail_provs, c.fail_count, fail_mask, u32.from_i32(state.fail_prov), cap)
-        ab_mask = harvest & ~state.failed & over_cap
-        ab_seeds, ab_count = _append_ring(c.ab_seeds, c.ab_count, ab_mask, seeds, cap)
+        with _xprof.scope("harvest"):
+            over_cap = state.step >= max_steps
+            done = state.done | state.failed | over_cap
+            # a parked segment harvests nothing (its lanes are the last
+            # harvest's, whose `done` this recomputes)
+            harvest = done if go is None else done & go
+            fail_mask = harvest & state.failed
+            fail_seeds, fail_count = _append_ring(c.fail_seeds, c.fail_count, fail_mask, seeds, cap)
+            fail_codes, _ = _append_ring(c.fail_codes, c.fail_count, fail_mask, state.fail_code.to(torch.int64),
+                                         cap)
+            fail_provs = c.fail_provs
+            if self.config.provenance:
+                # violation words ride the failure ring, as uint32 values
+                fail_provs, _ = _append_ring(c.fail_provs, c.fail_count, fail_mask, u32.from_i32(state.fail_prov),
+                                             cap)
+            ab_mask = harvest & ~state.failed & over_cap
+            ab_seeds, ab_count = _append_ring(c.ab_seeds, c.ab_count, ab_mask, seeds, cap)
 
         # flight-recorder totals of the lanes finishing this segment
         fr_metrics = c.fr_metrics
         if self.config.flight_recorder:
-            frs, nk, ne = state.fr, len(FAULT_KIND_NAMES), len(FR_EXTRA_NAMES)
-            done_i = harvest.to(torch.int64)
-            inj_tot = fr_metrics[:nk] + (frs["inj"].to(torch.int64) * done_i[:, None]).sum(dim=0)
-            extra_tot = torch.stack([
-                fr_metrics[nk + i] + (frs[k].to(torch.int64) * done_i).sum()
-                for i, k in enumerate(FR_EXTRA_NAMES)
-            ])
-            hwm = torch.stack([
-                torch.maximum(fr_metrics[nk + ne + i], torch.where(harvest, frs[k], 0).amax().to(torch.int64))
-                for i, k in enumerate(("q_hwm", "clog_hwm", "kill_hwm"))
-            ])
-            fr_metrics = torch.cat([inj_tot, extra_tot, hwm])
+            with _xprof.scope("fr_fold"):
+                frs, nk, ne = state.fr, len(FAULT_KIND_NAMES), len(FR_EXTRA_NAMES)
+                done_i = harvest.to(torch.int64)
+                inj_tot = fr_metrics[:nk] + (frs["inj"].to(torch.int64) * done_i[:, None]).sum(dim=0)
+                extra_tot = torch.stack([
+                    fr_metrics[nk + i] + (frs[k].to(torch.int64) * done_i).sum()
+                    for i, k in enumerate(FR_EXTRA_NAMES)
+                ])
+                hwm = torch.stack([
+                    torch.maximum(fr_metrics[nk + ne + i], torch.where(harvest, frs[k], 0).amax().to(torch.int64))
+                    for i, k in enumerate(("q_hwm", "clog_hwm", "kill_hwm"))
+                ])
+                fr_metrics = torch.cat([inj_tot, extra_tot, hwm])
         # every lane's map, done or not: maps only gain bits (and the OR
         # is idempotent, so a parked segment adds nothing)
         cov_map = c.cov_map
         if self.config.coverage:
-            cov_map = cov_map | cov_fold_words(state.cov["map"])
+            with _xprof.scope("cov_fold"):
+                cov_map = cov_map | cov_fold_words(state.cov["map"])
         new = StreamCarry(
             state=state,
             seeds=seeds,
@@ -1428,7 +1440,19 @@ class Engine:
         return _with_counters(new, cap)
 
     @torch.inference_mode()
-    def run_stream(
+    def run_stream(self, n_seeds: int, *args, **kwargs) -> dict:
+        """See `_run_stream_impl` (the real docstring). This wrapper puts
+        the whole streaming call on the host timeline as one outer
+        `run_stream` span when a PerfRecorder is active: time inside it
+        that no inner span covers is reported as `device_wait`."""
+        perf = current_recorder()
+        if perf is None:
+            return self._run_stream_impl(n_seeds, *args, **kwargs)
+        batch = kwargs.get("batch", args[0] if args else 1024)
+        with perf.span("run_stream", n_seeds=n_seeds, batch=batch):
+            return self._run_stream_impl(n_seeds, *args, **kwargs)
+
+    def _run_stream_impl(
         self,
         n_seeds: int,
         batch: int = 1024,
@@ -1468,6 +1492,17 @@ class Engine:
         PyTorch one carry is alive at a time either way, so it changes
         nothing on the card.
 
+        Under an active PerfRecorder (`perf/recorder.py`) every executor
+        operation is a host span with the reference's name: `compile` on
+        the first call of each stream function on this engine, `init` /
+        `dispatch` on later ones, `counters_poll`,
+        `ring_drain` and `harvest`; `stats["device_memory"]` then holds
+        the card's peak and live bytes and its total memory. With
+        MADSIM_TPU_XPROF set (`perf/xprof.py`) each is also a capture
+        range, the segment's device phases are named and a clock-sync
+        marker is stamped at each dispatch and poll. Neither changes a
+        result.
+
         Returns the reference's dict: {"completed", "failing": [(seed,
         code)...], "infra": [(seed, code)...] (OVERFLOW lanes),
         "abandoned": [seed...], "seeds_consumed", "stats": {host_syncs,
@@ -1488,15 +1523,37 @@ class Engine:
             raise ValueError("segments_per_dispatch and dispatch_depth must be >= 1")
         cap = 2 * batch
         drain_mark = cap - batch
+
+        # Host-timeline spans (a PerfRecorder in this context) and
+        # capture ranges (MADSIM_TPU_XPROF): host-side accounting only,
+        # no device-visible value. `warmed` holds the stream functions
+        # this engine has run: the first call of each is `compile`, later
+        # ones `init` or `dispatch`, the reference's names. Eager PyTorch
+        # compiles nothing, at a new batch size neither: a first call is
+        # the first run of its ops, which on the card also builds and
+        # loads the CUDA kernels at first use (ops/build.py).
+        perf = current_recorder()
+        warmed = self.__dict__.setdefault("_perf_warmed", set())
+
+        def op(name):
+            return _xprof.annotation(name) if perf is None else _timed(perf, name)
+
+        def first_or(fn, hot):
+            return "compile" if fn not in warmed else hot
+
         seeds = torch.arange(seed_start, seed_start + batch, dtype=torch.int64, device=self.device) & u32.MASK
-        carry = self._init_carry(seeds, cap)
+        with op(first_or("init_carry", "init")):
+            carry = self._init_carry(seeds, cap)
+        warmed.add("init_carry")
         failing, infra, abandoned, cov_curve = [], [], [], []
         prov_by_seed = {}  # seed -> violation word (provenance on)
         prov_on = self.config.provenance
         stats = {"host_syncs": 0, "drains": 0, "dispatches": 0, "dispatch_retries": 0}
 
         def poll(c):
-            counters = c.counters.cpu().numpy()  # the blocking read
+            _xprof.sync_marker("counters_poll")
+            with op("counters_poll"):
+                counters = c.counters.cpu().numpy()  # the blocking read
             stats["host_syncs"] += 1
             if counters[4]:
                 raise RuntimeError("run_stream result ring overflowed (drain policy bug)")
@@ -1504,9 +1561,10 @@ class Engine:
             return counters
 
         def drain(c):
-            rings = torch.cat([
-                c.fail_seeds, c.fail_codes, c.fail_provs, c.ab_seeds, c.fail_count[None], c.ab_count[None],
-            ]).cpu().numpy()
+            with op("ring_drain"):
+                rings = torch.cat([
+                    c.fail_seeds, c.fail_codes, c.fail_provs, c.ab_seeds, c.fail_count[None], c.ab_count[None],
+                ]).cpu().numpy()
             stats["drains"] += 1
             stats["host_syncs"] += 1
             f_n, a_n = int(rings[-2]), int(rings[-1])
@@ -1516,8 +1574,11 @@ class Engine:
                 if prov_on:
                     prov_by_seed[int(s_)] = int(rings[2 * cap + i])
             abandoned.extend(int(s_) for s_ in rings[ab_at : ab_at + a_n])
-            zero = torch.zeros_like(c.fail_count)
-            return _with_counters(dataclasses.replace(c, fail_count=zero, ab_count=zero), cap)
+            with op(first_or("reset_rings", "dispatch")):
+                zero = torch.zeros_like(c.fail_count)
+                reset = _with_counters(dataclasses.replace(c, fail_count=zero, ab_count=zero), cap)
+            warmed.add("reset_rings")
+            return reset
 
         def pressure(counters) -> bool:
             return int(counters[1]) > drain_mark or int(counters[2]) > drain_mark
@@ -1535,14 +1596,18 @@ class Engine:
                 # one dispatch: up to segments_per_dispatch predicated
                 # segments; the condition is monotone between drains, so
                 # once it is known False the rest are skipped
-                for _ in range(segments_per_dispatch):
-                    if watch.parked():
-                        break
-                    go = (carry.completed < need) & (carry.fail_count <= drain_mark) & (carry.ab_count <= drain_mark)
-                    nxt = self._segment(carry, segment_steps, max_steps, cap, go=go, parked=watch.parked)
-                    if nxt is not carry:
-                        carry = nxt
-                        watch.record(carry.counters)
+                _xprof.sync_marker("dispatch")
+                with op(first_or("supersegment", "dispatch")):
+                    for _ in range(segments_per_dispatch):
+                        if watch.parked():
+                            break
+                        go = ((carry.completed < need) & (carry.fail_count <= drain_mark)
+                              & (carry.ab_count <= drain_mark))
+                        nxt = self._segment(carry, segment_steps, max_steps, cap, go=go, parked=watch.parked)
+                        if nxt is not carry:
+                            carry = nxt
+                            watch.record(carry.counters)
+                warmed.add("supersegment")
                 stats["dispatches"] += 1
                 in_flight += 1
                 if in_flight >= dispatch_depth:
@@ -1556,7 +1621,10 @@ class Engine:
                     watch.reset(counters)
         else:
             while completed < n_seeds and stats["dispatches"] < max_segments:
-                carry = self._segment(carry, segment_steps, max_steps, cap)
+                _xprof.sync_marker("dispatch")
+                with op(first_or("segment", "dispatch")):
+                    carry = self._segment(carry, segment_steps, max_steps, cap)
+                warmed.add("segment")
                 stats["dispatches"] += 1
                 counters = poll(carry)
                 completed = int(counters[0])
@@ -1579,15 +1647,34 @@ class Engine:
                 "pipelined": bool(pipelined),
             },
         }
+        fr_stats, cov_stats = {}, {}
         if self.config.flight_recorder:
-            out["stats"]["flight_recorder"] = fr_metrics_dict(carry.fr_metrics.cpu().numpy())
+            # one extra small transfer, after streaming is over
+            with op("harvest"):
+                fr_vec = carry.fr_metrics.cpu().numpy()
+            fr_stats = {"flight_recorder": fr_metrics_dict(fr_vec)}
         if self.config.coverage:
-            cov_map = unpack_map(carry.cov_map.cpu().numpy(), self.config.cov_slots_log2)
-            out["stats"]["coverage"] = {
+            with op("harvest"):
+                cov_words = carry.cov_map.cpu().numpy()
+            cov_map = unpack_map(cov_words, self.config.cov_slots_log2)
+            cov_stats = {"coverage": {
                 **coverage_dict(cov_map, self.config.cov_slots_log2, band_bits=self.cov_band_bits),
                 "curve": cov_curve,
-            }
+            }}
             out["coverage_map"] = cov_map
+        if perf is not None and self.device.type == "cuda":
+            # the card's memory high-water mark beside the timeline: one
+            # host call, no device work (the reference reads its
+            # backend's memory_stats; on the CPU it has none, and the
+            # key stays out here too)
+            mem = {
+                "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(self.device)),
+                "bytes_in_use": int(torch.cuda.memory_allocated(self.device)),
+                "bytes_limit": int(torch.cuda.get_device_properties(self.device).total_memory),
+            }
+            out["stats"]["device_memory"] = mem
+            perf.count("device_peak_bytes", mem["peak_bytes_in_use"])
+        out["stats"].update({**fr_stats, **cov_stats})
         if prov_on:
             out["provenance"] = prov_by_seed
         return out
@@ -1757,13 +1844,14 @@ def _append_ring(buf, count, mask, values, cap: int):
     with searchsorted on the mask's inclusive cumsum. Entries past
     capacity are dropped (the host's drain policy keeps that
     unreachable)."""
-    csum = torch.cumsum(mask.to(torch.int64), dim=0)
-    n_new = csum[-1]
-    want_rank = torch.arange(cap, device=buf.device, dtype=torch.int64) - count + 1
-    src = torch.searchsorted(csum, want_rank, side="left")
-    fills = (want_rank >= 1) & (want_rank <= n_new)
-    vals = values[src.clamp(0, mask.shape[0] - 1)]
-    return torch.where(fills, vals, buf), count + n_new
+    with _xprof.scope("ring_append"):
+        csum = torch.cumsum(mask.to(torch.int64), dim=0)
+        n_new = csum[-1]
+        want_rank = torch.arange(cap, device=buf.device, dtype=torch.int64) - count + 1
+        src = torch.searchsorted(csum, want_rank, side="left")
+        fills = (want_rank >= 1) & (want_rank <= n_new)
+        vals = values[src.clamp(0, mask.shape[0] - 1)]
+        return torch.where(fills, vals, buf), count + n_new
 
 
 class _CounterWatch:
@@ -1792,6 +1880,7 @@ class _CounterWatch:
         self.pending.append((event, host))
 
     def parked(self) -> bool:
+        # an event query, not a blocking sync: no `counters_poll` span
         while self.pending and self.pending[0][0].query():
             self.known = self.pending.pop(0)[1].numpy()
         return self.known is not None and not self.go(self.known)
@@ -1802,11 +1891,19 @@ class _CounterWatch:
 
 
 def _with_counters(c: StreamCarry, cap: int) -> StreamCarry:
-    over = (c.fail_count > cap) | (c.ab_count > cap)
-    cov_hit = u32.popcount(c.cov_map).sum()
-    counters = torch.stack([
-        c.completed, c.fail_count, c.ab_count, c.next_seed, over.to(torch.int64),
-        c.segments, cov_hit.to(torch.int64),
-    ])
-    return dataclasses.replace(c, counters=counters)
+    with _xprof.scope("counters"):
+        over = (c.fail_count > cap) | (c.ab_count > cap)
+        cov_hit = u32.popcount(c.cov_map).sum()
+        counters = torch.stack([
+            c.completed, c.fail_count, c.ab_count, c.next_seed, over.to(torch.int64),
+            c.segments, cov_hit.to(torch.int64),
+        ])
+        return dataclasses.replace(c, counters=counters)
+
+
+@contextlib.contextmanager
+def _timed(perf, name: str):
+    """One executor operation on the host timeline and in the capture."""
+    with perf.span(name), _xprof.annotation(name):
+        yield
 

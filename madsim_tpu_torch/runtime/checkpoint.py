@@ -61,11 +61,14 @@ def fingerprint_from_args(args) -> dict:
 def save_checkpoint(path: str, state: dict) -> None:
     """Atomic write (`runtime/atomicio`: tmp + fsync + rename +
     dir-fsync): a kill mid-write leaves the previous checkpoint intact,
-    never a truncated JSON."""
+    never a truncated JSON. Rides the host timeline as a
+    `checkpoint_write` span when a PerfRecorder is active."""
+    from ..perf.recorder import maybe_span
     from .atomicio import atomic_write_json
 
     doc = {"version": CKPT_VERSION, **state}
-    atomic_write_json(path, doc)
+    with maybe_span("checkpoint_write"):
+        atomic_write_json(path, doc)
 
 
 def load_checkpoint(path: str) -> Optional[dict]:

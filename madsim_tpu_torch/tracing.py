@@ -137,10 +137,15 @@ class StatsEmitter:
 
     def emit(self, record: dict) -> dict:
         """Emit one record (a plain dict of stats). Returns the record
-        as written (with `ts`/`seq` stamped)."""
+        as written (with `ts`/`seq` stamped). The write rides the host
+        timeline as a `stats_emit` span when a PerfRecorder is active
+        (`perf/recorder.py`): emitter I/O is part of the wall clock."""
+        from .perf.recorder import maybe_span
+
         self.seq += 1
         row = {"ts": round(time.time(), 6), "seq": self.seq, **record}
-        return self._emit_row(row)
+        with maybe_span("stats_emit"):
+            return self._emit_row(row)
 
     def _emit_row(self, row: dict) -> dict:
         try:

@@ -20,16 +20,14 @@ from torch_port_util import run_pair
 
 ECHO = ["--machine", "echo", "--seeds", "8", "--faults", "0", "--max-steps", "50"]
 GATES = [
-    ("perf", ["perf", "out.json"], "item 13"),
-    ("prof", ["prof", "compile"], "item 13"),
+    # `prof compile` reads the JAX compile autopsy: eager PyTorch has no
+    # stage for it to time, so it stays refused with a line of its own
+    ("prof", ["prof", "compile"], "no trace, lowering or backend stage"),
     ("bench", ["bench", "--lanes", "64"], "item 6"),
-    ("bench-ab", ["bench-ab", "--gate", "coverage"], "item 6"),
     ("fleet", ["fleet", "queue"], "item 11"),
     ("lint", ["lint"], "item 14"),
     ("--devices", ["explore", *ECHO, "--stream", "--devices", "2"], "item 12"),
     ("--multihost", ["explore", *ECHO, "--multihost"], "item 12"),
-    ("--perf-timeline", ["explore", *ECHO, "--stream", "--perf-timeline", "t.json"], "item 13"),
-    ("--xla-profile", ["explore", *ECHO, "--stream", "--xla-profile", "prof"], "item 13"),
     ("--compile-cache", ["replay", "--machine", "echo", "--compile-cache", "cache"], "compile"),
 ]
 
@@ -42,7 +40,7 @@ def test_gates_exit_2_naming_themselves(gate, argv, item, capsys, monkeypatch):
         raise AssertionError("a gated command built an engine")
 
     monkeypatch.setattr(core.Engine, "__init__", no_engine)
-    assert main([*argv, "--device", "cpu"] if argv[0] in ("explore", "hunt", "replay") else argv) == 2
+    assert main([*argv, "--device", "cpu"] if argv[0] in ("explore", "hunt", "replay", "prof") else argv) == 2
     err = capsys.readouterr().err.strip()
     assert len(err.splitlines()) == 1 and gate in err and item in err and "not ported" in err
 

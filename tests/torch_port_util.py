@@ -273,3 +273,52 @@ def corpus_without_env(path):
         for key in ("madsim_tpu", "madsim_tpu_torch", "jax", "jaxlib", "torch", "cuda"):
             entry.get("meta", {}).pop(key, None)
     return doc
+
+
+# -- the perf tooling ----------------------------------------------------------
+
+_PERF_MASKS = (
+    # the host timeline epilogue: its span count stays, the share of the
+    # wall it covers, the wall and the file's path are times and paths
+    (re.compile(r"(host timeline: \d+ spans, )\d+% of [0-9.]+s wall attributed -> \S+"),
+     r"\1<pct> of <wall> wall attributed -> <path>"),
+    (re.compile(r"(host timeline: \d+ spans) -> \S+"), r"\1 -> <path>"),
+    (re.compile(r"host verdict: .*"), "host verdict: <verdict>"),
+    # each profiler's capture: how many events it holds, and where
+    (re.compile(r"device profile: \d+ events \(.*\)"), "device profile: <n> events (<path>)"),
+    (re.compile(r"merged plane: \d+ events \(([a-z+]+)\), \d+% of [0-9.]+s wall attributed across \d+ sync "
+                r"points -> \S+"),
+     r"merged plane: <n> events (\1), <pct> of <wall> wall attributed across <n> sync points -> <path>"),
+    # bench-ab's summary: rates and deltas
+    (re.compile(r"median paired delta .*"), "median paired delta <timed>"),
+)
+
+# keys of the prof_merge and bench-ab JSON lines that are times, rates
+# or properties of a profiler's capture
+_TIMED_KEYS = {"attribution", "host_wall_us", "clock_offset_us", "sync_points", "rates_a", "rates_b",
+               "deltas_pct", "median_a", "median_b", "median_delta_pct", "ci95_pct", "sign_p"}
+
+
+def perf_text(out: str) -> str:
+    """`cli_text` of a perf command's stdout with its timings, the
+    profiler's event and sync-point counts and the artifacts' paths
+    masked; JSON lines keep every other key."""
+    lines = []
+    for line in cli_text(out).splitlines():
+        if line.startswith("{"):
+            doc = json.loads(line)
+            line = json.dumps({k: ("<timed>" if k in _TIMED_KEYS else v) for k, v in doc.items()})
+        for pat, rep in _PERF_MASKS:
+            line = pat.sub(rep, line)
+        lines.append(line)
+    return "\n".join(lines)
+
+
+def virtual_track(path):
+    """The virtual-time events of a merged plane, their pids numbered
+    from 0 in order of first appearance."""
+    doc = json.load(open(path))
+    pids = [e["pid"] for e in doc["traceEvents"]
+            if e.get("ph") == "M" and "VIRTUAL" in (e.get("args") or {}).get("name", "")]
+    events = [e for e in doc["traceEvents"] if e.get("pid") in pids]
+    return [dict(e, pid=pids.index(e["pid"])) for e in events]
