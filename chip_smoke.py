@@ -49,7 +49,8 @@ last line):
   7. the delay-spike kind and the etcd-MVCC, S3 and gossip models:
      run_batch of 256 flagship seeds with delay faults on both streams
      equal to the CPU, with the sends that took a spike counted and the
-     megakernel held against its twin at W = 18 (card_vs_cpu_delay); each
+     megakernel held against its twin at W = 18 (card_vs_cpu_delay; at
+     8192 lanes, and timed there, in delay_kernels); each
      model and its corpus demo on the card against the CPU, the demo
      failing with its code (card_vs_cpu_models: mvcc and s3 at Q = 48,
      gossip at 33 nodes and Q = 256); the MVCC give-up hunt at 8192 lanes
@@ -106,13 +107,14 @@ last line):
      flagship's shape, rng_stream 3, strict restarts, on the
      volatile-commit Raft demo) finds, shrinks and records, with
      `--coverage-out` and `--checkpoint`, while `regress` and `audit` of
-     a copy of corpus.json (all eight entries), `check` of 256 seeds and a
-     64-lane explore on the card and the CPU (equal stdout) run beside
-     it; its first four finds replay on the CPU engine to the same codes;
-     `regress` and `audit` of the found corpus on the card and with
-     `--device cpu`, `replay`, `replay --diff-seed`, `trace --perfetto
-     --jsonl` (message flows), `shrink` and `coverage` run on what it
-     wrote; `explore --stream` of the flagship at one batch of 8192 lanes,
+     a copy of corpus.json (all eight entries), `check` of 256 seeds, a
+     64-lane explore on the card and the CPU (equal stdout) and, on its
+     first find (seed 19, checked against it), `replay`, `replay
+     --diff-seed`, `trace --perfetto --jsonl` (message flows) and `shrink`
+     run beside it; its first four finds replay on the CPU engine to the
+     same codes; `regress` and `audit` of the found corpus on the card
+     and with `--device cpu` and `coverage` run on what it wrote;
+     `explore --stream` of the flagship at one batch of 8192 lanes,
      pipelined and with `--no-pipeline` side by side, prints the same
      lines, with each one's seeds/s, host syncs, dispatches, and the
      segments issued (megakernel launches over 384) against those
@@ -171,16 +173,43 @@ last line):
      the v2 leg (`prof --rng-stream 2`, whose capture holds
      pop_gather_kernel) and `bench-ab --gate coverage-unbuffered` and
      `--gate rng-stream` at 256 lanes, one rep pair each, a check that
-     they run, started beside phase 7's card_vs_cpu_models, where nothing
-     is timed (`perf`); `perf_kernels` holds and times the shapes these
+     they run, started with the other work that times nothing (below)
+     (`perf`); `perf_kernels` holds and times the shapes these
      commands first launch: the megakernel with the digest and the flush
      at bench-ab's 256 lanes, pop_gather there on the split chain, and
      the megakernel with the digest at the prof replay's L = 1;
- 17. a `kernels` JSON line (with each kernel's launches on the perf path,
-     `launches_perf`); the last line is {"ok": true, "device": ...}.
+ 17. the hunt fleet (`fleet`), `python -m madsim_tpu_torch fleet` in
+     subprocesses on the card against `fleet serve`, driven from a thread
+     with the other work that times nothing (below): the flagship hunt as a
+     job (two units of 8192 lanes, coverage and provenance) through `fleet
+     worker --drain` to `filed`, its one find shrunk, explained and filed
+     with `filed_by`, a repro line and `why_kinds`, `regress` of the fleet
+     corpus and that repro line (`replay`) on the card; beside it, the same
+     job without shrink on a second worker SIGKILLed after its first batch,
+     reclaimed by a new worker process that resumes one batch back at most,
+     its report equal to the first job's; a guided 64-lane job on the split
+     chain, lanes cut at 384 events, whose first unit runs on the card and
+     the rest on a `--device cpu` worker, equal to a CPU-only oracle, with
+     failing seeds and an escalation; a one-batch profile job on a store of
+     its own under MADSIM_TPU_XPROF=1 (the capture holds kernel events,
+     `fleet profile` merges it); `fleet fsck` clean and `fleet chaos --seed
+     3 --profile claims --workers 2` passing; each job's seconds, units
+     (seeds/s, engine built or cached), warm-ups and shrink seconds;
+     `fleet_kernels` holds and times pop_gather and the flush at the guided
+     job's 64 lanes;
+ 18. a `kernels` JSON line (with each kernel's launches on the perf path,
+     `launches_perf`, and on the fleet's card workers, `launches_fleet`);
+     the last line is {"ok": true, "device": ...}.
 
-From phase 4 on, the in-process CPU legs run on two intra-op threads
-(the clog matrix's phase 13 on the default).
+From phase 4 on, the in-process CPU legs run on two intra-op threads.
+The work that times nothing runs at once, after phase 6's stream, with
+nothing timed beside it (`--only window` runs it alone): phase 17 from a
+thread, phase 16's checks, phase 6's single-lane replays in the main
+process, and in three processes of their own (niced) phase 4b, phase 6's
+card_vs_cpu_v2 and card_vs_cpu_multipaxos and the card-against-CPU checks
+of phases 7-9, 12 and 13; the states the timed phases need from those
+checks are rebuilt in the main process. The delay engine's megakernel at
+8192 lanes is timed after it (`delay_kernels`).
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
 an earlier commit's `madsim_tpu_torch/ops/csrc` unpacked under the
@@ -197,7 +226,8 @@ just after; a kernel of the path that never launched fails the run.
 It needs a CUDA card and the repository beside it; with neither it
 exits non-zero and prints no result. `--only cli` builds the kernels and
 runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phases
-14-15, `--only perf` phase 16 (short checks; they print no result line).
+14-15, `--only perf` phase 16, `--only fleet` phase 17, `--only window`
+the work that times nothing (short checks; they print no result line).
 """
 
 import argparse
@@ -221,9 +251,13 @@ FLAGSHIP = dict(
 )
 FLAGSHIP_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
 LANES, SEGMENT_STEPS = 8192, 384
+# the seeds of the v2, mvcc, palette and torn streams: one batch of
+# 8192 lanes (the flagship stream keeps two), which keeps the smoke
+# inside its time limit
+HUNT_SEEDS = LANES
 # phases 4 and 6: lanes and run_batch's step budget (flagship lanes run
 # it out); small enough that the script fits half its time limit
-CHECK_LANES, CHECK_STEPS = 256, 384
+CHECK_LANES, CHECK_STEPS = 256, 256
 # phase 4b: OvercommitRaft fails these seeds with LOG_MATCHING under the
 # flagship config (the first at step 364, the last two by step 533)
 OVERCOMMIT_SEEDS, OVERCOMMIT_STEPS = [232949, 134519, 143336], 640
@@ -240,7 +274,7 @@ REPLAY_STATE_STEPS = 300  # the replay state the pop is timed on: seed 66531 thi
 # the delay kind and the etcd-MVCC, S3 and gossip models
 # card_vs_cpu_delay: lanes, run_batch's step budget, and the steps over
 # which the sends that took a spike are counted
-DELAY_LANES, DELAY_STEPS, DELAY_SPIKE_STEPS = 256, 192, 128
+DELAY_LANES, DELAY_STEPS, DELAY_SPIKE_STEPS = 256, 128, 128
 # card_vs_cpu_models: lanes, and step budgets (mvcc and s3 lanes end in
 # ~70-120 events; gossip's run past the budget)
 MODEL_LANES, GOSSIP_LANES = 256, 64
@@ -360,11 +394,12 @@ PROV_PROFILE_STEPS, PROV_STATE_STEPS, PROV_REPLAYS = 8, 32, 4
 # fault); its queue is the smallest power of two from 256 that overflows
 # no lane over its steps
 CLOG_FAULTS = dict(FLAGSHIP_FAULTS, n_faults=3, allow_dir_clog=True, allow_group=True, allow_heal_asym=True)
-CLOG_STEPS = 160
+CLOG_STEPS = 128
 GOSSIP64 = dict(horizon_us=5_000_000, clog_packed=False, flight_recorder=True, coverage=False)
 GOSSIP64_FAULTS = dict(n_faults=3, t_max_us=3_000_000, dur_min_us=100_000, dur_max_us=800_000)
-GOSSIP64_NODES, GOSSIP64_LANES, GOSSIP64_STEPS, GOSSIP64_MIN_Q = 64, 256, 128, 256
+GOSSIP64_NODES, GOSSIP64_LANES, GOSSIP64_STEPS, GOSSIP64_MIN_Q = 64, 256, 96, 256
 STARTED = time.perf_counter()
+STARTED_WALL = time.time()  # the same instant on the clock child processes share
 
 
 def card_line():
@@ -384,7 +419,9 @@ def emit(obj):
     since the script started."""
     if "phase" in obj:
         obj = {**obj, "at_s": round(time.perf_counter() - STARTED, 3)}
-    print(json.dumps(obj), flush=True)
+    # one write: phase 17's thread emits beside the main thread's phases
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def fail(msg):
@@ -800,27 +837,60 @@ def card_vs_cpu(make_engine, seeds, max_steps, what):
     return on_card, t_card, t_cpu
 
 
-def split_chain_phases(torch, np, kernels):
-    """Phase 6: the default split-chain stream on the card. Returns the
-    timed v2 stream's launch counts, the replay's, the v2 flagship state
-    the pop kernels are checked on, its engine, the replay's state of
-    seed 66531 REPLAY_STATE_STEPS events in, where the pop is timed, and
-    the mvcc and gossip corpus replays' states (CORPUS_STATE_STEPS)."""
+def card_vs_cpu_failing(torch, np, kernels):
+    """Phase 4b, the card against the CPU where lanes fail: the overcommit
+    bug (COMMIT_TO_LOG_LEN) on seeds that hold its known failures,
+    through run_batch (fail codes, digest trail) and a short stream
+    (fail ring)."""
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
-    from madsim_tpu_torch.engine import corpus
-    from madsim_tpu_torch.engine.replay import replay
-    from madsim_tpu_torch.interop import tree_to_numpy
-    from madsim_tpu_torch.models import MultiPaxosMachine, RaftMachine, build_machine
-    from madsim_tpu_torch.models.multipaxos import AGREEMENT_MULTI
+    from madsim_tpu_torch.models import RaftMachine
     from madsim_tpu_torch.models.raft import LOG_MATCHING
 
-    raft = RaftMachine(num_nodes=5, log_capacity=8)
-    faults = FaultPlan(**FLAGSHIP_FAULTS)
+    cfg = EngineConfig(**FLAGSHIP, faults=FaultPlan(**FLAGSHIP_FAULTS))
 
-    def v2(recorder, device=None):
-        cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": 2, "flight_recorder": recorder, "coverage": recorder},
-                           faults=faults)
-        return Engine(raft, cfg, device=device)
+    class OvercommitRaft(RaftMachine):
+        COMMIT_TO_LOG_LEN = True
+
+    over = OvercommitRaft(num_nodes=5, log_capacity=8)
+    over_card, over_cpu = Engine(over, cfg), Engine(over, cfg, device="cpu")
+    seeds = np.array(OVERCOMMIT_SEEDS + list(range(OVERCOMMIT_SEEDS[0] - 61, OVERCOMMIT_SEEDS[0])), np.uint32)
+    on_card, _, _ = card_vs_cpu(lambda d: over_card if d is None else over_cpu, seeds, OVERCOMMIT_STEPS,
+                                "overcommit")
+    codes = on_card["fail_code"][: len(OVERCOMMIT_SEEDS)].tolist()
+    if not on_card["failed"][: len(OVERCOMMIT_SEEDS)].all() or set(codes) != {LOG_MATCHING}:
+        fail(f"the known overcommit seeds {OVERCOMMIT_SEEDS} did not all fail LOG_MATCHING: {codes}")
+    kw = dict(batch=32, segment_steps=64, seed_start=OVERCOMMIT_SEEDS[0] - 40, max_steps=384, pipelined=False)
+    s_card, s_cpu = over_card.run_stream(64, **kw), over_cpu.run_stream(64, **kw)
+    keys = ("completed", "failing", "infra", "abandoned", "seeds_consumed")
+    bad = [k for k in keys if s_card[k] != s_cpu[k]]
+    bad += [k for k in ("coverage", "flight_recorder") if s_card["stats"][k] != s_cpu["stats"][k]]
+    if bad or (OVERCOMMIT_SEEDS[0], LOG_MATCHING) not in s_card["failing"]:
+        fail(f"overcommit stream: card and CPU differ in {bad}, or seed {OVERCOMMIT_SEEDS[0]} was missed: "
+             f"{s_card['failing']}")
+    emit({"phase": "card_vs_cpu_failing", "lanes": len(seeds), "equal": True,
+          "n_failed": int(on_card["failed"].sum()), "stream_failing": s_card["failing"]})
+    return {}
+
+
+def v2_engine(recorder, device=None):
+    """The flagship on the split chain (rng_stream=2), the recorder and
+    coverage on or off."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+
+    cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": 2, "flight_recorder": recorder, "coverage": recorder},
+                       faults=FaultPlan(**FLAGSHIP_FAULTS))
+    return Engine(RaftMachine(num_nodes=5, log_capacity=8), cfg, device=device)
+
+
+def split_chain_checks(torch, np, kernels):
+    """Phase 6's checks on the split chain, which time nothing:
+    card_vs_cpu_v2 (256 flagship seeds with the recorder and coverage
+    off, 64 with both on) and card_vs_cpu_multipaxos."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import MultiPaxosMachine
+
+    v2 = v2_engine
 
     # card_vs_cpu_v2: the recorder and coverage off, then both on
     seeds = np.arange(V2_CHECK_LANES, dtype=np.uint32) + 20_000
@@ -839,9 +909,25 @@ def split_chain_phases(torch, np, kernels):
     emit({"phase": "card_vs_cpu_multipaxos", "lanes": MULTIPAXOS_LANES, "equal": True,
           "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3), "max_steps": int(mp["steps"].max()),
           "n_done": int(mp["done"].sum()), "n_failed": int(mp["failed"].sum())})
+    return {}
+
+
+def replay_and_corpus(torch, np, kernels):
+    """Phase 6's single-lane replays: seed 66531 (replay_66531) and the
+    corpus's traced replays, on the card against the CPU. Returns the
+    replay's launch counts, its state of seed 66531 REPLAY_STATE_STEPS
+    events in, where the pop is timed, and the mvcc and gossip corpus
+    replays' states (CORPUS_STATE_STEPS)."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.engine import corpus
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import build_machine
+    from madsim_tpu_torch.models.multipaxos import AGREEMENT_MULTI
+    from madsim_tpu_torch.models.raft import LOG_MATCHING
 
     # replay_66531: the single-lane replay on the card, against the CPU's
-    rp_cfg = EngineConfig(**REPLAY_CONFIG, faults=faults)
+    rp_cfg = EngineConfig(**REPLAY_CONFIG, faults=FaultPlan(**FLAGSHIP_FAULTS))
     kernels.reset_launches()
     t0 = time.perf_counter()
     replays = {name: replay(Engine(build_machine(name), rp_cfg), REPLAY_SEED, max_steps=REPLAY_STEPS)
@@ -906,16 +992,22 @@ def split_chain_phases(torch, np, kernels):
             c_eng = Engine(build_machine(entry.machine, entry.nodes), entry.config)
             corpus_states[entry.machine] = c_eng.run_segment(c_eng.init_batch([entry.seed]),
                                                              CORPUS_STATE_STEPS[entry.machine])
+    return replay_launches, replay_state, corpus_states
 
+
+def stream_v2_phase(torch, np, kernels):
+    """Phase 6's stream_v2: the flagship hunt at 8192 lanes on the
+    split-chain stream. Returns its launch counts, the v2 flagship state
+    the pop kernels are checked on and its engine."""
     # stream_v2: the flagship hunt on the split-chain stream
-    eng = v2(True)
+    eng = v2_engine(True)
     state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
     run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS, pipelined=False)
     # no warm stream run: the state run above warmed the batch's shapes
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = run(2 * LANES, seed_start=LANES)
+    res = run(HUNT_SEEDS, seed_start=LANES)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -930,9 +1022,9 @@ def split_chain_phases(torch, np, kernels):
           "seconds": round(elapsed, 3), "seeds_per_s": round(res["completed"] / elapsed, 2),
           "segments": segments, "ms_per_step": round(elapsed * 1e3 / (segments * SEGMENT_STEPS), 3),
           "slots_hit": res["stats"]["coverage"]["slots_hit"], "launches": launches})
-    if res["completed"] < 2 * LANES:
-        fail(f"the v2 stream completed {res['completed']} < {2 * LANES} seeds")
-    return launches, replay_launches, state, eng, replay_state, corpus_states
+    if res["completed"] < HUNT_SEEDS:
+        fail(f"the v2 stream completed {res['completed']} < {HUNT_SEEDS} seeds")
+    return launches, state, eng
 
 
 def spiked_sends(torch, eng, seeds, steps):
@@ -953,33 +1045,26 @@ def spiked_sends(torch, eng, seeds, steps):
     return int(sends), int(spiked)
 
 
-def delay_and_model_phases(torch, np, kernels, dev, beside=None):
-    """Phase 7: the delay-spike kind and the MVCC, S3 and gossip models.
-    card_vs_cpu_delay (the flagship Raft with delay faults on both
-    streams, the megakernel at W = 18 held against its twin), then
-    card_vs_cpu_models (with `beside`, a PerfChecks, running next to it
-    and waited for at its end), then stream_mvcc (the give-up hunt at
-    8192 lanes, its first ABANDONED_WRITE seed replayed on the card and
-    the CPU).
-    Returns the hunt's launch counts and its batch state (8192 lanes,
-    Q = 48, P = 5), where pop + gather is timed."""
-    from collections import Counter
-
+def delay_engine(stream, device=None):
+    """The flagship Raft with delay faults on `stream`."""
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
-    from madsim_tpu_torch.engine.replay import replay
-    from madsim_tpu_torch.interop import tree_to_numpy
-    from madsim_tpu_torch.models import RaftMachine, build_machine
-    from madsim_tpu_torch.models.etcd_mvcc import ABANDONED_WRITE
+    from madsim_tpu_torch.models import RaftMachine
 
-    # card_vs_cpu_delay: both streams; v3 launches the megakernel at W = 18
-    raft, out = RaftMachine(num_nodes=5, log_capacity=8), {}
+    cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": stream}, faults=FaultPlan(**FLAGSHIP_FAULTS, allow_delay=True))
+    return Engine(RaftMachine(num_nodes=5, log_capacity=8), cfg, device=device)
+
+
+def delay_checks(torch, np, kernels):
+    """Phase 7: the delay-spike kind (card_vs_cpu_delay: the flagship Raft
+    with delay faults on both streams, card against CPU, the sends that
+    took a spike counted, the megakernel at W = 18 and pop_gather held
+    against their twins on its state)."""
+    out = {}
     seeds = np.arange(DELAY_LANES, dtype=np.uint32) + 30_000
     for stream, kernel in ((3, "step_megakernel"), (2, "pop_gather")):
-        cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": stream},
-                           faults=FaultPlan(**FLAGSHIP_FAULTS, allow_delay=True))
-        card = Engine(raft, cfg)
+        card = delay_engine(stream)
         kernels.reset_launches()
-        res, t_card, t_cpu = card_vs_cpu(lambda d: card if d is None else Engine(raft, cfg, device="cpu"), seeds,
+        res, t_card, t_cpu = card_vs_cpu(lambda d: card if d is None else delay_engine(stream, "cpu"), seeds,
                                          DELAY_STEPS, f"delay spikes, rng_stream={stream}")
         launches = dict(kernels.launches)
         if launches[kernel] <= 0:
@@ -993,33 +1078,53 @@ def delay_and_model_phases(torch, np, kernels, dev, beside=None):
             ins, d = step_kernel_ins(state)
             err = max_abs_err(flat_prefix(kernels.step_megakernel(*ins, w, *d)),
                               flat_prefix(kernels.step_prefix_plain(*ins, w, *d)))
-            # timed at the hunt's width: 8192 lanes of the same config
-            big = card.run_segment(card.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
-            big_ins, big_d = step_kernel_ins(big)
-            err = max(err, max_abs_err(flat_prefix(kernels.step_megakernel(*big_ins, w, *big_d)),
-                                       flat_prefix(kernels.step_prefix_plain(*big_ins, w, *big_d))))
-            nbytes, ops = step_kernel_cost(LANES, big.eq_time.shape[1], big.eq_payload.shape[2], w)
-            timing = {"lanes": LANES, "ms": device_time_ms(lambda: kernels.step_megakernel(*big_ins, w, *big_d)),
-                      "floor_ms": floor_ms(kernels, "step_megakernel", LANES, dev),
-                      "bound_ms": bound(nbytes, ops)[0], "bytes": nbytes, "ops": ops}
         else:
             planes = pop_planes(state)
             got, want = kernels.pop_gather_batch(*planes), kernels.pop_gather_plain(*planes)
-            err, timing = max_abs_err([got[0], got[1], *got[2], got[3]], [want[0], want[1], *want[2], want[3]]), {}
+            err = max_abs_err([got[0], got[1], *got[2], got[3]], [want[0], want[1], *want[2], want[3]])
         if err:
             fail(f"{kernel} disagrees with its twin on the delay state (rng_stream={stream}): max abs err {err}")
         out[f"rng_stream={stream}"] = {
             "lanes": DELAY_LANES, "equal": True, "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3),
             "max_steps": int(res["steps"].max()), "n_failed": int(res["failed"].sum()),
             "delay_windows": int(res["fr"]["inj"][:, 5].sum()), "sends": sends, "spiked_sends": spiked,
-            "launches": launches, "words": w, kernel: {"max_abs_err": err, **timing}}
+            "launches": launches, "words": w, kernel: {"max_abs_err": err}}
     emit({"phase": "card_vs_cpu_delay", **out})
+    return {}
 
-    if beside is not None:
-        beside.start()
-    model_states = card_vs_cpu_models(torch, np, kernels)
-    if beside is not None:
-        beside.join()  # before the timed stream
+
+def delay_kernels(np, kernels, dev):
+    """The delay engine's megakernel (v3, W = 18) at the hunt's width,
+    8192 lanes 96 steps in: held against its twin and timed
+    (`delay_kernels`)."""
+    card = delay_engine(3)
+    w = card._rng_layout.total_words
+    big = card.run_segment(card.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
+    big_ins, big_d = step_kernel_ins(big)
+    err = max_abs_err(flat_prefix(kernels.step_megakernel(*big_ins, w, *big_d)),
+                      flat_prefix(kernels.step_prefix_plain(*big_ins, w, *big_d)))
+    if err:
+        fail(f"step_megakernel disagrees with its twin on the 8192-lane delay state: max abs err {err}")
+    nbytes, ops = step_kernel_cost(LANES, big.eq_time.shape[1], big.eq_payload.shape[2], w)
+    emit({"phase": "delay_kernels", f"step_megakernel_L{LANES}_W{w}": {
+        "lanes": LANES, "words": w, "max_abs_err": err,
+        "ms": device_time_ms(lambda: kernels.step_megakernel(*big_ins, w, *big_d)),
+        "floor_ms": floor_ms(kernels, "step_megakernel", LANES, dev), "bound_ms": bound(nbytes, ops)[0],
+        "bytes": nbytes, "ops": ops}})
+
+
+def stream_mvcc_phase(torch, np, kernels):
+    """Phase 7's stream_mvcc: the give-up hunt at 8192 lanes, its first
+    ABANDONED_WRITE seed replayed on the card and the CPU. Returns the
+    hunt's launch counts and its batch state (8192 lanes, Q = 48, P = 5),
+    where pop + gather is timed."""
+    from collections import Counter
+
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models import build_machine
+    from madsim_tpu_torch.models.etcd_mvcc import ABANDONED_WRITE
 
     # stream_mvcc: the give-up hunt at full width, through the entry points
     machine = build_machine("demo-giveup-mvcc")
@@ -1031,7 +1136,7 @@ def delay_and_model_phases(torch, np, kernels, dev, beside=None):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = run(2 * LANES, seed_start=LANES)
+    res = run(HUNT_SEEDS, seed_start=LANES)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -1040,7 +1145,7 @@ def delay_and_model_phases(torch, np, kernels, dev, beside=None):
             fail(f"the mvcc hunt never launched {name}")
     by_code = Counter(code for _, code in res["failing"])
     first = next((seed for seed, code in res["failing"] if code == ABANDONED_WRITE), None)
-    if first is None or res["completed"] < 2 * LANES:
+    if first is None or res["completed"] < HUNT_SEEDS:
         fail(f"the mvcc hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: no "
              f"ABANDONED_WRITE seed")
     t1 = time.perf_counter()
@@ -1062,14 +1167,14 @@ def delay_and_model_phases(torch, np, kernels, dev, beside=None):
           "replay": {"seed": first, "fail_code": on_card.fail_code, "events": len(on_card.trace),
                      "pop_earliest": pops, "card_s": round(t_replay, 3), "equal": True},
           "profile": profile_steps(eng, state, steps=8)})
-    return launches, state, model_states
+    return launches, state
 
 
 def card_vs_cpu_models(torch, np, kernels):
     """card_vs_cpu_models: run_batch of each model and its corpus demo or
-    bug variant on the card against the CPU. Returns the states the model
-    leg's prefix kernels are timed on: the counter-stream models' (with
-    their word blocks and launches) and mq's on the split chain."""
+    bug variant on the card against the CPU. Returns the prefix kernel's
+    launches of kv, mq and twopc, the models whose kernels are timed on
+    their own states (model_states_of)."""
     from collections import Counter
 
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
@@ -1095,7 +1200,7 @@ def card_vs_cpu_models(torch, np, kernels):
 
     bugs = {"DurabilityBugKv": DurabilityBugKv(4), "NoDedupBroker": NoDedupBroker(4),
             "EagerCommitTwoPc": EagerCommitTwoPc(4)}
-    out, model_states = {}, {"v3": [], "v2": None}
+    out, launches_of = {}, {}
     lanes = range(MODEL_LANES)
     for name, base, faults, model_seeds, steps, code in (
         ("kv", {**KV_PLAN, "rng_stream": 3}, KV_FAULTS, lanes, 160, None),
@@ -1135,15 +1240,34 @@ def card_vs_cpu_models(torch, np, kernels):
                      "equal": True, "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3),
                      "max_steps": int(res["steps"].max()), "n_done": int(res["done"].sum()),
                      "fail_codes": dict(codes), kernel: launches[kernel]}
-        if name in ("kv", "mq", "twopc"):
-            # the state its prefix kernel is held and timed on, a third of its budget in
-            card = Engine(machine, cfg)
-            state = card.run_segment(card.init_batch(np.array(model_seeds, dtype=np.uint32)), steps // 3)
-            if kernel == "pop_gather":
-                model_states["v2"] = (state, launches[kernel])
-            else:
-                model_states["v3"].append((name, state, card._rng_layout.total_words, launches[kernel]))
+        if name in KERNEL_MODELS:
+            launches_of[name] = launches[kernel]
     emit({"phase": "card_vs_cpu_models", **out})
+    return launches_of
+
+
+# the models whose prefix kernel is held and timed on their own state
+# (triage_kernels, pop_kernels): plan, faults and card_vs_cpu_models' step
+# budget; the state is a third of that budget in
+KERNEL_MODELS = {"kv": ({**KV_PLAN, "rng_stream": 3}, KV_FAULTS, 160), "mq": (MQ_PLAN, MQ_FAULTS, 256),
+                 "twopc": ({**TWOPC_PLAN, "rng_stream": 3}, TWOPC_FAULTS, 128)}
+
+
+def model_states_of(np, launches_of):
+    """The states the model leg's prefix kernels are timed on, with the
+    check's launches: the counter-stream models' (with their word
+    blocks) and mq's on the split chain."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import build_machine
+
+    model_states = {"v3": [], "v2": None}
+    for name, (base, faults, steps) in KERNEL_MODELS.items():
+        card = Engine(build_machine(name), EngineConfig(**base, faults=FaultPlan(**faults)))
+        state = card.run_segment(card.init_batch(np.arange(MODEL_LANES, dtype=np.uint32)), steps // 3)
+        if card.config.rng_stream == 2:
+            model_states["v2"] = (state, launches_of[name])
+        else:
+            model_states["v3"].append((name, state, card._rng_layout.total_words, launches_of[name]))
     return model_states
 
 
@@ -1165,15 +1289,12 @@ def palette_hunt_engine(device=None):
                   EngineConfig(**PALETTE_HUNT, faults=FaultPlan(**PALETTE_HUNT_FAULTS)), device=device)
 
 
-def palette_phases(torch, np, kernels):
+def palette_checks(torch, np, kernels):
     """Phase 8: the chaos palette. card_vs_cpu_palette (the flagship Raft
-    at Q = 96 under pause, skew, dup and strict restarts, both streams),
-    card_vs_cpu_demos (VolatileCommit under strict restarts, the
-    dup-vote tally under dup, with a traced replay), then stream_palette
-    (the dup-vote hunt at 8192 lanes). Returns the hunt's launch counts
-    and the states the pops are timed on: the palette's v2 batch (256
-    lanes, Q = 96), the dup-vote demo replay's lane (v2) and the hunt
-    replay's lane (v3), each at Q = 96."""
+    at Q = 96 under pause, skew, dup and strict restarts, both streams)
+    and card_vs_cpu_demos (VolatileCommit under strict restarts, the
+    dup-vote tally under dup, with a traced replay). Returns the traced
+    replay's events, for palette_states_of."""
     from collections import Counter
 
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
@@ -1184,7 +1305,7 @@ def palette_phases(torch, np, kernels):
     from madsim_tpu_torch.models.raft import ELECTION_SAFETY, LOG_MATCHING
 
     # card_vs_cpu_palette: both streams; v3 launches the megakernel at W = 18
-    raft, out, states = RaftMachine(num_nodes=5, log_capacity=8), {}, {}
+    raft, out = RaftMachine(num_nodes=5, log_capacity=8), {}
     seeds = np.arange(PALETTE_LANES, dtype=np.uint32) + 50_000
     for stream, kernel in ((3, "step_megakernel"), (2, "pop_gather")):
         cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": stream, "queue_capacity": PALETTE_Q},
@@ -1206,8 +1327,6 @@ def palette_phases(torch, np, kernels):
             "lanes": PALETTE_LANES, "q": PALETTE_Q, "words": card._rng_layout.total_words, "equal": True,
             "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3), "max_steps": int(res["steps"].max()),
             "n_failed": int(res["failed"].sum()), "counts": counts, "bands": bands, "launches": launches}
-        if stream == 2:
-            states["palette_v2"] = card.run_segment(card.init_batch(seeds), 96)
     emit({"phase": "card_vs_cpu_palette", **out})
 
     # card_vs_cpu_demos: the two demos only these gates reach, each under its
@@ -1251,8 +1370,33 @@ def palette_phases(torch, np, kernels):
                                 "replay": {"seed": DUPVOTE_SEEDS[0], "events": len(on_card.trace),
                                            "launches": replay_launches, "equal": True}}
     emit({"phase": "card_vs_cpu_demos", **out})
-    d_eng = Engine(machine, dupvote_cfg)
-    states["dupvote_replay"] = d_eng.run_segment(d_eng.init_batch(DUPVOTE_SEEDS[:1]), len(on_card.trace) // 2)
+    return {"dupvote_events": len(on_card.trace)}
+
+
+def palette_states_of(np, info):
+    """The states the pops are timed on: the palette's v2 batch (256
+    lanes, Q = 96, 96 steps in) and the dup-vote demo replay's lane (v2,
+    Q = 96, half its traced replay's events in)."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine, build_machine
+
+    cfg = EngineConfig(**{**FLAGSHIP, "rng_stream": 2, "queue_capacity": PALETTE_Q}, faults=FaultPlan(**PALETTE_FAULTS))
+    card = Engine(RaftMachine(num_nodes=5, log_capacity=8), cfg)
+    d_eng = Engine(build_machine("demo-dupvote-raft"), EngineConfig(**DUPVOTE, faults=FaultPlan(**DUPVOTE_FAULTS)))
+    return {"palette_v2": card.run_segment(card.init_batch(np.arange(PALETTE_LANES, dtype=np.uint32) + 50_000), 96),
+            "dupvote_replay": d_eng.run_segment(d_eng.init_batch(DUPVOTE_SEEDS[:1]), info["dupvote_events"] // 2)}
+
+
+def stream_palette_phase(torch, np, kernels, states):
+    """Phase 8's stream_palette: the dup-vote hunt at 8192 lanes, its first
+    ELECTION_SAFETY seed replayed on the card and the CPU. Adds to
+    `states` the hunt replay's lane (v3, Q = 96), where the pops are
+    timed; returns the hunt's launch counts."""
+    from collections import Counter
+
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models.raft import ELECTION_SAFETY
 
     # stream_palette: the dup-vote hunt at full width, through the entry points
     eng = palette_hunt_engine()
@@ -1263,7 +1407,7 @@ def palette_phases(torch, np, kernels):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = run(2 * LANES, seed_start=LANES)
+    res = run(HUNT_SEEDS, seed_start=LANES)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -1272,7 +1416,7 @@ def palette_phases(torch, np, kernels):
             fail(f"the palette hunt never launched {name}")
     by_code = Counter(code for _, code in res["failing"])
     first = next((seed for seed, code in res["failing"] if code == ELECTION_SAFETY), None)
-    if first is None or res["completed"] < 2 * LANES:
+    if first is None or res["completed"] < HUNT_SEEDS:
         fail(f"the palette hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: no "
              f"ELECTION_SAFETY seed")
     t1 = time.perf_counter()
@@ -1312,7 +1456,7 @@ def palette_phases(torch, np, kernels):
     states["palette_replay"] = eng.run_segment(eng.init_batch([first]), PALETTE_REPLAY_STEPS)
     states["palette_replay_launches"] = replay_steps
     states["palette_words"] = eng._rng_layout.total_words
-    return launches, states
+    return launches
 
 
 def torn_hunt_engine(device=None):
@@ -1324,21 +1468,15 @@ def torn_hunt_engine(device=None):
                   EngineConfig(**TORN_HUNT, faults=FaultPlan(**TORN_FAULTS)), device=device)
 
 
-def storage_phases(torch, np, kernels):
+def storage_checks(torch, np, kernels):
     """Phase 9: the storage kinds. card_vs_cpu_storage (the torn plan on
     TornSnapshotRaftCompact, heal-asym on honest Raft at Q = 48, honest
-    raft-compact under every kind, each on both streams), then
-    stream_torn (the torn-snapshot hunt at 8192 lanes). Returns the
-    states and launch counts the new kernel shapes are timed at: the
-    hunt's batch (8192 lanes, Q = 64, W = 11) with its buffers a flush
-    period in, the soak's v3 batch (256 lanes, Q = 96, W = 31) and the
-    hunt replay's lane (Q = 64)."""
+    raft-compact under every kind, each on both streams). Returns the
+    soak's v3 launches and word block, for soak_state_of."""
     from collections import Counter
 
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
     from madsim_tpu_torch.engine.core import K_HEAL_ASYM, K_TORN
-    from madsim_tpu_torch.engine.replay import replay
-    from madsim_tpu_torch.interop import tree_to_numpy
     from madsim_tpu_torch.models import build_machine
     from madsim_tpu_torch.models.raft import LOG_MATCHING
 
@@ -1379,10 +1517,35 @@ def storage_phases(torch, np, kernels):
                 "counts": counts, "bands": {b: all_bands[b] for b in ("torn", "heal_asym", "amnesia")},
                 "launches": launches}
             if name == "soak" and stream == 3:
-                found["soak_state"] = card.run_segment(card.init_batch(seeds), 96)
                 found["soak_launches"] = launches["step_megakernel"]
                 found["soak_words"] = card._rng_layout.total_words
     emit({"phase": "card_vs_cpu_storage", **out})
+    return found
+
+
+def soak_state_of(np):
+    """The soak's v3 batch (raft-compact, 256 lanes, Q = 96, W = 31, 96
+    steps in), where the megakernel is timed."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import build_machine
+
+    flags = {k: FLAGSHIP[k] for k in ("flight_recorder", "coverage")}
+    card = Engine(build_machine("raft-compact"),
+                  EngineConfig(**{**SOAK, **flags, "rng_stream": 3}, faults=FaultPlan(**SOAK_FAULTS)))
+    return card.run_segment(card.init_batch(np.arange(STORAGE_LANES, dtype=np.uint32) + 60_000), 96)
+
+
+def stream_torn_phase(torch, np, kernels, found):
+    """Phase 9's stream_torn: the torn-snapshot hunt at 8192 lanes, its
+    first seed replayed on the card and the CPU. Adds to `found` the
+    states and launch counts the new kernel shapes are timed at: the
+    hunt's batch (8192 lanes, Q = 64, W = 11) with its buffers a flush
+    period in and the hunt replay's lane (Q = 64)."""
+    from collections import Counter
+
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.interop import tree_to_numpy
+    from madsim_tpu_torch.models.raft import LOG_MATCHING
 
     # stream_torn: the torn-snapshot hunt at full width, through the entry points
     eng = torn_hunt_engine()
@@ -1392,7 +1555,7 @@ def storage_phases(torch, np, kernels):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = run(2 * LANES, seed_start=LANES)
+    res = run(HUNT_SEEDS, seed_start=LANES)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -1400,7 +1563,7 @@ def storage_phases(torch, np, kernels):
         if launches[name] <= 0:
             fail(f"the torn hunt never launched {name}")
     by_code = Counter(code for _, code in res["failing"])
-    if set(by_code) != {LOG_MATCHING} or res["completed"] < 2 * LANES:
+    if set(by_code) != {LOG_MATCHING} or res["completed"] < HUNT_SEEDS:
         fail(f"the torn hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: not "
              f"LOG_MATCHING alone")
     first = res["failing"][0][0]
@@ -1734,6 +1897,10 @@ CLI_EXPLORE = ["explore", "--stream", "--machine", "raft", "--seeds", str(CLI_LA
 CLI_SMALL = ["explore", "--stream", "--machine", "raft", "--seeds", "64", "--batch", "64", "--max-steps", "768",
              *CLI_SHAPE, "--flight-recorder", "--coverage"]
 CLI_JOBS = 6  # commands run at once where nothing is timed (8 host cores)
+# the hunt's first failing seed (code 102), so the commands that take only
+# a seed (shrink, replay, trace, why) start beside the hunt; a hunt that
+# finds another first fails the phase
+CLI_FIRST_FIND = 19
 # runs the module as `python -m` does, then writes to the path given
 # first the wrappers' launch counts of that process, the executor
 # statistics and launches of each of its run_stream calls and each guided
@@ -1813,25 +1980,103 @@ PROF_PHASES = ("step", "cov_flush", "refill", "harvest", "ring_append", "fr_fold
                "dispatch", "compile", "init", "counters_poll", "ring_drain", "outside")
 
 
-def run_cli(tmp, name, argv, rc=0, cpu_threads=None, timeout=900):
-    """One `python -m madsim_tpu_torch` run in a subprocess, in `tmp`:
-    {"rc", "out", "err", "s", "launches", "streams"}; fails unless it
-    exits `rc`."""
+# phase 17, the hunt fleet: `fleet serve` over one store root, and the
+# jobs through `fleet worker` subprocesses. The flagship job is phase
+# 11's hunt (CLI_HUNT: rng_stream 3, Q = 32, 5 s horizon, strict
+# restarts) as a job spec with coverage and provenance, two units of 8192
+# lanes, one find shrunk and filed; the replacement job is the same spec
+# without shrink, at a lower priority so the first worker never takes it.
+# The handover job is a guided 64-lane hunt on the spec's default split
+# chain (pop_gather), lanes cut at 384 events as phase 14's 64-lane twin:
+# on the CPU port its first batch already fails seeds and its cell grid
+# plateaus after the sixth, so the seventh runs under escalation step 1;
+# the card's worker runs its first unit, a CPU worker the other six and
+# the closing unit. The profile job is one 64-lane batch of it cut at 12
+# events under MADSIM_TPU_XPROF=1: a v2 step is ~1,690 kernels, ~7,000
+# capture events with their launches and flow arrows, so the unit's
+# capture (its warm-up and its batch) stays near 0.17 M events, which
+# `fleet profile` merges inside the client's 30 s on a busy host. Every worker runs with
+# --log-level INFO (warm-ups and heartbeats on stderr).
+FLEET_LANES, FLEET_UNITS = 8192, 2
+FLEET_SPEC = {"machine": "demo-volatilecommit-raft", "strict_restart": True, "rng_stream": 3, "queue": 32,
+              "horizon": 5.0, "faults": 2, "fault_tmax": 3_000_000, "coverage": True, "provenance": True,
+              "batch": FLEET_LANES, "seeds": FLEET_UNITS * FLEET_LANES, "shrink_limit": 1}
+FLEET_GUIDED_BATCHES = 7
+FLEET_GUIDED = {"machine": "demo-volatilecommit-raft", "strict_restart": True, "queue": 32, "horizon": 5.0,
+                "faults": 2, "fault_tmax": 3_000_000, "coverage": True, "provenance": True, "guided": True,
+                "stop_on_plateau": 1, "batch": 64, "seeds": FLEET_GUIDED_BATCHES * 64, "max_steps": 384,
+                "shrink_limit": 0}
+FLEET_PROFILE = {**FLEET_GUIDED, "seeds": 64, "max_steps": 12}
+FLEET_TTL = 5  # the killed worker's lease: it lapses inside a unit, and no one reclaims it there
+FLEET_UNIT = re.compile(r"unit (\S+): batch (\d+)/(\d+), (\d+) seeds total in ([0-9.]+)s, engine (\w+), "
+                        r"(\d+) failing so far")
+
+
+# every process spawn_cli starts, killed at exit if still running (a
+# failure elsewhere must not leave phase 17's workers behind)
+_CHILDREN = []
+
+
+def _kill_children():
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _track(proc):
+    """Kill `proc` at exit if it still runs."""
+    if not _CHILDREN:
+        import atexit
+
+        atexit.register(_kill_children)
+    _CHILDREN.append(proc)
+
+
+def spawn_cli(tmp, name, argv, cpu_threads=None, extra_env=None):
+    """Start one `python -m madsim_tpu_torch` run (the launch-counting
+    launcher) in `tmp` without waiting, its output to files: a handle for
+    `reap_cli`."""
     import os
 
-    env = dict(os.environ, PYTHONPATH=str(pathlib.Path(__file__).resolve().parent))
+    env = dict(os.environ, PYTHONPATH=str(pathlib.Path(__file__).resolve().parent), **(extra_env or {}))
     if cpu_threads:
         env["OMP_NUM_THREADS"] = str(cpu_threads)
-    counts = pathlib.Path(tmp) / f"{name}.launches.json"
-    t0 = time.perf_counter()
-    done = subprocess.run([sys.executable, "-c", CLI_LAUNCHER, str(counts), *argv], cwd=tmp, env=env,
-                          capture_output=True, text=True, timeout=timeout)
-    res = {"rc": done.returncode, "out": done.stdout, "err": done.stderr, "s": round(time.perf_counter() - t0, 3),
+    t = pathlib.Path(tmp)
+    with open(t / f"{name}.out", "w") as out, open(t / f"{name}.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", CLI_LAUNCHER, str(t / f"{name}.launches.json"), *argv],
+                                cwd=tmp, env=env, stdout=out, stderr=err)
+    _track(proc)
+    return {"name": name, "argv": argv, "proc": proc, "t0": time.perf_counter(), "t0_wall": time.time(), "tmp": t}
+
+
+def reap_cli(job, rc=0, timeout=900):
+    """Wait for a `spawn_cli` run: run_cli's dict; fails unless it exits
+    `rc` (None: any code)."""
+    proc, t, name = job["proc"], job["tmp"], job["name"]
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    counts = t / f"{name}.launches.json"
+    # the launcher writes its counts as it exits: their file's time is the
+    # run's end, however late it is reaped
+    s = counts.stat().st_mtime - job["t0_wall"] if counts.exists() else time.perf_counter() - job["t0"]
+    res = {"name": name, "rc": proc.returncode, "out": (t / f"{name}.out").read_text(),
+           "err": (t / f"{name}.err").read_text(), "s": round(s, 3),
            **(json.loads(counts.read_text()) if counts.exists() else {"launches": {}, "streams": [], "batches": []})}
-    if done.returncode != rc:
-        fail(f"cli {name}: `{' '.join(argv)}` exited {done.returncode}, expected {rc}:\n"
-             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    if rc is not None and proc.returncode != rc:
+        fail(f"cli {name}: `{' '.join(job['argv'])}` exited {proc.returncode}, expected {rc}:\n"
+             f"{res['out'][-3000:]}\n{res['err'][-3000:]}")
     return res
+
+
+def run_cli(tmp, name, argv, rc=0, cpu_threads=None, timeout=900):
+    """One `python -m madsim_tpu_torch` run in a subprocess, in `tmp`:
+    {"name", "rc", "out", "err", "s", "launches", "streams", "batches"};
+    fails unless it exits `rc`."""
+    return reap_cli(spawn_cli(tmp, name, argv, cpu_threads), rc, timeout)
 
 
 def run_cli_jobs(tmp, jobs):
@@ -1864,18 +2109,19 @@ def cli_rates(err):
 def cli_phase(torch, np):
     """Phase 11: the command line as a user runs it, in subprocesses on
     the card (`cli` line), in three stages. (1) A full-width `hunt
-    --stream` (one batch of 8192 lanes, rng_stream 3) finds, shrinks and records,
-    while the commands that need nothing of it run beside it: `regress`
-    and `audit` of a copy of corpus.json, `check`, and the 64-lane
-    explore on the card and on the CPU (equal stdout). (2) On what the
-    hunt wrote, at once: its first four failing seeds replay on the CPU
-    engine to the same codes; `regress` and `audit` of the found corpus
-    on the card and with `--device cpu`; `replay`, `replay --diff-seed`,
-    `trace --perfetto --jsonl` (message flows), `shrink` and `coverage`.
-    (3) `explore --stream` of the flagship at one batch of 8192 lanes, pipelined
-    and with `--no-pipeline`, the two at once and nothing else beside
-    them, so both see the same host: the same lines, and each one's
-    seeds/s, host syncs and steps issued."""
+    --stream` (one batch of 8192 lanes, rng_stream 3) finds, shrinks and
+    records, while the commands that need nothing of it or only its
+    first find (CLI_FIRST_FIND, checked against it) run beside it:
+    `regress` and `audit` of a copy of corpus.json, `check`, the 64-lane
+    explore on the card and on the CPU (equal stdout), `replay`, `replay
+    --diff-seed`, `trace --perfetto --jsonl` (message flows), `shrink` and
+    `why` on the card and the CPU. (2) On what the hunt wrote, at once:
+    its first four failing seeds replay on the CPU engine to the same
+    codes; `regress` and `audit` of the found corpus on the card and with
+    `--device cpu`, and `coverage`. (3) `explore --stream` of the flagship at one batch of 8192
+    lanes, pipelined and with `--no-pipeline`, the two at once and
+    nothing else beside them, so both see the same host: the same lines,
+    and each one's seeds/s, host syncs and steps issued."""
     import re
     import shutil
     import tempfile
@@ -1893,7 +2139,8 @@ def cli_phase(torch, np):
         shutil.copy(pathlib.Path(__file__).resolve().parent / "corpus.json", files["repo_corpus"])
 
         # 1. the hunt, with provenance and without, and beside them what
-        #    needs nothing of them
+        #    needs nothing of them or only its first find
+        one = [*CLI_HUNT, "--seed", str(CLI_FIRST_FIND)]
         t0 = time.perf_counter()
         hunt_argv = ["hunt", "--stream", *CLI_HUNT, "--seeds", str(CLI_LANES), "--batch", str(CLI_LANES),
                      "--flight-recorder", "--coverage", "--log-level", "INFO"]
@@ -1903,12 +2150,20 @@ def cli_phase(torch, np):
                 "--corpus", files["corpus"]], 1)
             prov_job = pool.submit(run_cli, tmp, "hunt_prov", [
                 *hunt_argv, "--provenance", "--checkpoint", files["prov_ckpt"], "--corpus", files["prov_corpus"]], 1)
-            res = run_cli_jobs(tmp, {  # name: (argv, exit code, CPU threads)
-                "corpus_regress": (["regress", "--corpus", files["repo_corpus"]], 0),
+            res = run_cli_jobs(tmp, {  # name: (argv, exit code, CPU threads), the longest first
+                "shrink": (["shrink", *one], 0),
                 "corpus_audit": (["audit", "--corpus", files["repo_corpus"]], 0),
-                "check": (["check", *CLI_HUNT, "--seeds", "256", "--max-steps", "384"], 0),
                 "small_card": (CLI_SMALL, 0),
+                "corpus_regress": (["regress", "--corpus", files["repo_corpus"]], 0),
+                "check": (["check", *CLI_HUNT, "--seeds", "256", "--max-steps", "384"], 0),
                 "small_cpu": ([*CLI_SMALL, "--device", "cpu"], 0, 2),
+                "replay_diff": (["replay", *one, "--diff-seed", str(CLI_FIRST_FIND + 1)], 0),
+                "replay": (["replay", *one, "--tail", "5"], 1),
+                "trace": (["trace", *one, "--perfetto", files["perfetto"], "--jsonl", files["jsonl"]], 1),
+                "why": (["why", str(CLI_FIRST_FIND), *CLI_HUNT, "--json", files["why_json"], "--perfetto",
+                         files["why_perfetto"]], 0),
+                "why_cpu": (["why", str(CLI_FIRST_FIND), *CLI_HUNT, "--json", files["why_json_cpu"], "--perfetto",
+                             files["why_perfetto_cpu"], "--device", "cpu"], 0, 2),
             })
             hunt, hunt_prov = hunt_job.result(), prov_job.result()
         stage1_s = round(time.perf_counter() - t0, 3)
@@ -1924,6 +2179,9 @@ def cli_phase(torch, np):
         if not ckpt["done"] or len(failing) != int(m.group(2)):
             fail(f"cli hunt's checkpoint: done={ckpt['done']}, {len(failing)} failing, printed {m.group(2)}")
         seed, code = failing[0]
+        if seed != CLI_FIRST_FIND:
+            fail(f"cli hunt's first find is seed {seed}, not {CLI_FIRST_FIND}, which shrink, replay, trace and why "
+                 f"ran on")
         prov = cli_provenance_hunt(hunt, hunt_prov, files, failing)
         for name in ("corpus_regress", "corpus_audit"):
             if "8/8 entries satisfied" not in res[name]["out"]:
@@ -1935,7 +2193,6 @@ def cli_phase(torch, np):
                  f"{res['small_cpu']['out']}")
 
         # 2. on what the hunt wrote
-        one = [*CLI_HUNT, "--seed", str(seed)]
         t0 = time.perf_counter()
         with ThreadPoolExecutor(1) as pool:
             jobs = pool.submit(run_cli_jobs, tmp, {
@@ -1943,15 +2200,7 @@ def cli_phase(torch, np):
                 "audit": (["audit", "--corpus", files["corpus"]], 0),
                 "regress_cpu": (["regress", "--corpus", files["corpus"], "--device", "cpu"], 0, 2),
                 "audit_cpu": (["audit", "--corpus", files["corpus"], "--device", "cpu"], 0, 2),
-                "replay": (["replay", *one, "--tail", "5"], 1),
-                "replay_diff": (["replay", *one, "--diff-seed", str(seed + 1)], 0),
-                "trace": (["trace", *one, "--perfetto", files["perfetto"], "--jsonl", files["jsonl"]], 1),
-                "shrink": (["shrink", *one], 0),
                 "coverage": (["coverage", files["cov"]], 0),
-                "why": (["why", str(seed), *CLI_HUNT, "--json", files["why_json"], "--perfetto",
-                         files["why_perfetto"]], 0),
-                "why_cpu": (["why", str(seed), *CLI_HUNT, "--json", files["why_json_cpu"], "--perfetto",
-                             files["why_perfetto_cpu"], "--device", "cpu"], 0, 2),
             })
             # the first four finds on the CPU engine, meanwhile
             cpu_eng = _build_engine(_parser().parse_args(["explore", *CLI_HUNT, "--device", "cpu"]))
@@ -2144,19 +2393,13 @@ def without(tree, names):
     return {k: v for k, v in tree.items() if k not in names}
 
 
-def provenance_phase(torch, np, cli):
-    """Phase 12: causal provenance. What the command line did with it in
-    phase 11 (the 8192-lane `hunt --stream --provenance` beside the
-    gate-off hunt: the same finds, the attribution line, the guided
-    shrink against the unguided one, the hunt's words of its first finds
-    against one-lane replays on the card, `why` on the card and the CPU),
-    then in process: 256 lanes of the volatile-commit demo under the
-    whole palette with heal-asym and 2% loss on both streams, every lane
-    leaf on the card equal to the CPU's with the gate on, and every leaf
-    but the three provenance planes equal with the gate on and off on
-    the card; and the 8192-lane profile of the hunt's engine with the
-    gate on and off (kernels and busy ms a step, idle share)."""
-    from madsim_tpu_torch.__main__ import _build_engine, _parser
+def provenance_legs(np):
+    """Phase 12's in-process checks, which time nothing: 256 lanes of the
+    volatile-commit demo under the whole palette with heal-asym and 2%
+    loss on both streams, every lane leaf on the card equal to the CPU's
+    with the gate on, and every leaf but the three provenance planes
+    equal with the gate on and off on the card. Returns each stream's
+    figures."""
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
     from madsim_tpu_torch.engine.core import PROV_BIT_AMNESIA, PROV_BIT_DUP
     from madsim_tpu_torch.models import build_machine
@@ -2194,6 +2437,20 @@ def provenance_phase(torch, np, cli):
                               "words_dup": int((words >> PROV_BIT_DUP & 1).sum()),
                               "queued_dup_words": int((states["card"]["eq_prov"] >> PROV_BIT_DUP & 1).sum()),
                               "card_s": secs["card"], "cpu_s": secs["cpu"], "off_card_s": secs["off"]}
+    return legs
+
+
+def provenance_phase(np, cli, legs):
+    """Phase 12: causal provenance. What the command line did with it in
+    phase 11 (the 8192-lane `hunt --stream --provenance` beside the
+    gate-off hunt: the same finds, the attribution line, the guided
+    shrink against the unguided one, the hunt's words of its first finds
+    against one-lane replays on the card, `why` on the card and the CPU),
+    the in-process `legs` (provenance_legs), and the 8192-lane profile of
+    the hunt's engine with the gate on and off (kernels and busy ms a
+    step, idle share)."""
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+
     # the gate's cost a step, at the command-line hunt's full width
     profiles = {}
     for name, extra in (("on", ["--provenance"]), ("off", [])):
@@ -2205,16 +2462,15 @@ def provenance_phase(torch, np, cli):
           "profile_off": profiles["off"]})
 
 
-def clog_phase(torch, np, kernels, dev):
+def clog_checks(torch, np, kernels):
     """Phase 13: the unpacked clog matrix (`card_vs_cpu_clog`). The
     flagship at 256 lanes under pair, kill, dir, group and heal-asym
     faults on both streams: packed against unpacked on the card (every
     leaf but the clog state), and the matrix's lanes on the card against
     the CPU's, matrix included. Then a 64-node gossip cluster at 256 lanes
     on both streams, card against CPU, at the smallest power-of-two queue
-    from 256 that overflows no lane; the megakernel (v3) and pop_gather
-    (v2) at its shapes are held against their twins and timed
-    (`clog_kernels`)."""
+    from 256 that overflows no lane. Returns its queue, word block and
+    launches by stream, for clog_states_of."""
     from madsim_tpu_torch.engine import OVERFLOW, Engine, EngineConfig, FaultPlan
     from madsim_tpu_torch.interop import tree_to_numpy
     from madsim_tpu_torch.models import RaftMachine
@@ -2273,12 +2529,35 @@ def clog_phase(torch, np, kernels, dev):
         bad = tree_diff(tree_to_numpy(state), cpu)
         if bad:
             fail(f"gossip 64 v{stream}: the card's lanes differ from the CPU's in {bad[:8]}")
-        kernel_states[stream] = (state, card_eng._rng_layout.total_words, launches[kernel])
+        kernel_states[stream] = [q, card_eng._rng_layout.total_words, launches[kernel]]
         out[f"gossip64_v{stream}"] = {"nodes": GOSSIP64_NODES, "lanes": GOSSIP64_LANES, "steps": GOSSIP64_STEPS,
                                       "q": q, "tried_q_overflow": tried, "card_s": round(t_card, 3),
                                       "cpu_s": round(t_cpu, 3), "failed": int(state.failed.sum()),
                                       "queue_max": int(state.eq_valid.sum(dim=1).max()), "launches": launches}
     emit({"phase": "card_vs_cpu_clog", "equal": True, **out})
+    return kernel_states
+
+
+def clog_states_of(np, info):
+    """The 64-node gossip states clog_kernels times at, by stream: the
+    check's first queue that overflowed no lane, GOSSIP64_STEPS in, with
+    its word block and launches."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models.gossip import GossipMachine
+
+    out = {}
+    for stream, (q, words, n) in info.items():
+        cfg = EngineConfig(**GOSSIP64, rng_stream=int(stream), queue_capacity=q, faults=FaultPlan(**GOSSIP64_FAULTS))
+        card = Engine(GossipMachine(num_nodes=GOSSIP64_NODES), cfg)
+        seeds = np.arange(GOSSIP64_LANES, dtype=np.uint32) + 80_000
+        out[int(stream)] = (card.run_segment(card.init_batch(seeds), GOSSIP64_STEPS), words, n)
+    return out
+
+
+def clog_kernels(kernels, dev, kernel_states):
+    """The 64-node gossip shapes of phase 13, the megakernel (v3) and
+    pop_gather (v2), held against their twins and timed
+    (`clog_kernels`)."""
     (v3_state, words, v3_n), (v2_state, _, v2_n) = kernel_states[3], kernel_states[2]
     time_kernel_shapes(kernels, dev, "clog_kernels", (
         (f"step_megakernel_gossip64_L{GOSSIP64_LANES}_Q{v3_state.eq_time.shape[1]}_W{words}", v3_state, words, v3_n),
@@ -2587,8 +2866,8 @@ class PerfChecks:
     the v2 leg (`prof --rng-stream 2` of one 8192-lane segment) and
     `bench-ab --gate coverage-unbuffered` and `--gate rng-stream` at 256
     lanes, one rep pair each (a check that they run, not a gate's cost).
-    The full run starts them beside card_vs_cpu_models, where nothing is
-    timed and most cores are idle, and reads them in phase 16."""
+    The full run starts them with the other work that times nothing
+    (window_phase) and reads them in phase 16."""
 
     def __init__(self):
         self.res = None
@@ -2805,15 +3084,447 @@ def perf_kernels(kernels, np, dev, perf):
         pops=((f"pop_gather_L{AB_LANES}_Q32", ab_v2, rng.get("pop_gather", 0)),))
 
 
+def fleet_flags(spec):
+    """The `fleet submit` flags of a job spec."""
+    out = []
+    for key, value in spec.items():
+        flag = "--" + key.replace("_", "-")
+        if value is True:
+            out.append(flag)
+        elif value is not False:
+            out += [flag, str(value)]
+    return out
+
+
+def fleet_job_line(store, job_id, workers):
+    """A job's figures: its seconds from submit to its terminal state, each
+    unit's (from the workers' unit lines and the store's batch_done
+    events: seeds so far, seconds, the unit's seeds/s warm-up included,
+    engine built or cached), the shrink's seconds and the finds."""
+    job = store.get(job_id)
+    events = store.read_events(job_id)
+    units = []
+    for w in workers:
+        for m in FLEET_UNIT.finditer(w["out"]):
+            if m.group(1) == job_id:
+                units.append({"worker": w["name"], "batch": int(m.group(2)), "seeds_total": int(m.group(4)),
+                              "unit_s": float(m.group(5)), "engine": m.group(6), "failing": int(m.group(7))})
+    done = [e for e in events if e.get("type") == "batch_done"]
+    for u, e in zip(units, done):
+        u["unit_seeds_per_s"] = e.get("seeds_per_sec")
+    shrink = {e["type"]: e["ts"] for e in events if e.get("type") in ("shrink_started", "shrink_done")}
+    result = job.result or {}
+    return {"id": job_id, "state": job.state, "seconds": round(job.history[-1][0] - job.ts_submit, 3),
+            "units": units,
+            "shrink_s": round(shrink["shrink_done"] - shrink["shrink_started"], 3) if len(shrink) == 2 else None,
+            "failing": len((result.get("report") or {}).get("failing") or []),
+            "completed": (result.get("report") or {}).get("completed"),
+            "finds": len(result.get("finds") or []), "corpus_added": result.get("corpus_added")}
+
+
+def fleet_worker_line(w):
+    """A worker's seconds, its streamed batches' seconds and seeds/s (the
+    heartbeats, warm-up excluded) and its warm-ups' seconds."""
+    rates = cli_rates(w["err"])
+    return {"s": w["s"], "batch_s": rates["batch_s"], "batch_seeds_per_s": rates["batch_seeds_per_s"],
+            "warm_s": [float(x) for x in re.findall(r"warm-up run_stream\(1, batch=\d+\): ([0-9.]+)s", w["err"])]}
+
+
+def fleet_jobs():
+    """Phase 17: the hunt fleet, `python -m madsim_tpu_torch fleet` in
+    subprocesses on the card (`fleet` line). Against one `fleet serve`:
+    (1) the flagship job (two units of 8192 lanes) through `fleet worker
+    --drain` to `filed`: one corpus entry with `filed_by`, a repro line
+    and `why_kinds`; `regress` of the fleet corpus and the entry's repro
+    line (a traced one-lane `replay`, failing with its code) on the card.
+    (2) The same job without shrink on a second worker, SIGKILLed once the store shows its first batch done; a new
+    worker process reclaims it and resumes one batch back at most, to a
+    report equal to the first job's byte for byte. (3) The guided
+    handover job: its first unit on the card, the rest on a `--device
+    cpu` worker, equal to a CPU-only oracle run beside it in a store of
+    its own, with failing seeds and an escalation. Against a second
+    `fleet serve` over a store of its own: (4) the profile job's unit on
+    the card under MADSIM_TPU_XPROF=1, whose capture holds kernel events
+    and which `fleet profile` merges (its closing unit on a CPU worker).
+    Then (5) `fleet fsck` of both
+    stores finds nothing corrupt, and `fleet chaos --seed 3 --profile
+    claims --workers 2` (host processes only, started with the oracle)
+    passes. The calling thread only waits here, so the full run drives
+    this from a thread (FleetPhase) beside checks that time nothing.
+    Returns the card workers' launches, all and the handover's card
+    unit's."""
+    import os
+    import signal
+    import tempfile
+
+    from madsim_tpu_torch.fleet.store import JobStore
+    from madsim_tpu_torch.perf import xprof
+
+    spawned = []
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="madsim_fleet_") as tmp:
+        t = pathlib.Path(tmp)
+        root, oracle_root, profile_root = str(t / "farm"), str(t / "oracle"), str(t / "profile")
+        pf, profile_pf = str(t / "farm.port"), str(t / "profile.port")
+
+        def spawn(name, argv, **kw):
+            job = spawn_cli(tmp, name, argv, **kw)
+            spawned.append(job)
+            return job
+
+        def worker(name, wid, *extra, at=root, **kw):
+            return spawn(name, ["fleet", "worker", "--root", at, "--worker-id", wid, "--poll", "0.2",
+                                "--log-level", "INFO", *extra], **kw)
+
+        def serve(name, at, port_file):
+            return spawn(name, ["fleet", "serve", "--root", at, "--addr", "127.0.0.1:0", "--port-file", port_file,
+                                "--sweep-interval", "0"])
+
+        def submit(spec, *extra, port_file=pf):
+            return run_cli(tmp, "submit", ["fleet", "submit", "--port-file", port_file, *fleet_flags(spec),
+                                           *extra])["out"].strip()
+
+        def until(cond, watched, what, timeout=600):
+            deadline = time.perf_counter() + timeout
+            while not cond():
+                for w in watched:
+                    if w["proc"].poll() is not None:
+                        reap_cli(w, rc=None)
+                        fail(f"fleet: {w['name']} exited {w['proc'].returncode} while waiting for {what}:\n"
+                             f"{(w['tmp'] / (w['name'] + '.err')).read_text()[-3000:]}")
+                if time.perf_counter() > deadline:
+                    fail(f"fleet: no {what} in {timeout} s")
+                time.sleep(0.1)
+
+        try:
+            servers = [serve("serve", root, pf), serve("serve_profile", profile_root, profile_pf)]
+            until(lambda: os.path.exists(pf) and os.path.exists(profile_pf), servers, "port files", 60)
+            store, pstore = JobStore(root), JobStore(profile_root)
+
+            def lease_of(job_id):
+                return (store.get(job_id).lease or {}).get("worker")
+
+            def batches(job_id):
+                return store.get(job_id).progress.get("batches_run") or 0
+
+            # Each worker on the farm's store is started once the one
+            # before holds its job, and priorities keep it there: the
+            # flagship 1, the handover job 0, the replacement job -1. No
+            # worker but the replacement runs the reclaim sweep
+            # (--no-reclaim), so no one requeues job 2 while its short
+            # lease has lapsed inside a unit (a worker renews at unit
+            # ends); --max-units ends a worker with its job.
+            # 1. the flagship job
+            j1 = submit(FLEET_SPEC, "--priority", "1")
+            w1 = worker("w1", "card-w1", "--drain", "--max-units", str(FLEET_UNITS + 1), "--lease-ttl", "900",
+                        "--no-reclaim")
+            until(lambda: lease_of(j1) == "card-w1", [w1], "w1's lease")
+            # on the CPU: the handover job's oracle and the synthetic chaos run
+            ostore = JobStore(oracle_root)
+            oracle_id = ostore.submit(dict(FLEET_GUIDED)).id
+            oracle = worker("oracle", "cpu-oracle", "--drain", "--device", "cpu", at=oracle_root, cpu_threads=2)
+            chaos = spawn("chaos", ["fleet", "chaos", "--seed", "3", "--profile", "claims", "--workers", "2"])
+            # 4. the profile job, alone on its store: its batch on the card
+            #    under the capture; its closing unit (which launches no
+            #    kernel, and whose capture would replace the batch's) on a
+            #    CPU worker of the same identity, without it
+            j4 = submit(FLEET_PROFILE, port_file=profile_pf)
+            w5 = worker("w5", "card-profile", "--max-units", "1", "--no-reclaim", at=profile_root,
+                        extra_env={"MADSIM_TPU_XPROF": "1"})
+            # 2. the replacement job
+            j2 = submit({**FLEET_SPEC, "shrink_limit": 0}, "--priority", "-1")
+            w2 = worker("w2", "card-w2", "--drain", "--lease-ttl", str(FLEET_TTL), "--no-reclaim")
+            until(lambda: lease_of(j2) == "card-w2", [w2], "w2's lease")
+            # 3. the handover job's first unit on the card; then the CPU
+            #    worker for its other batches and the closing unit. The two
+            #    share one worker identity, so the job's lease never lapses
+            #    between them, where a card worker could take it
+            j3 = submit(FLEET_GUIDED)
+            w3 = worker("w3", "handover", "--max-units", "1", "--no-reclaim")
+            r3 = reap_cli(w3)
+            w4 = worker("w4", "handover", "--max-units", str(FLEET_GUIDED_BATCHES), "--no-reclaim", "--device",
+                        "cpu", cpu_threads=2)
+            # 2. w2 killed after its first batch; the replacement, a new
+            #    process (its own CUDA context), reclaims job 2 when w2's
+            #    lease lapses
+            until(lambda: batches(j2) >= 1, [w2], "job 2's first batch")
+            os.kill(w2["proc"].pid, signal.SIGKILL)
+            w2["proc"].wait()
+            killed_ts = time.time()
+            with open(store.ckpt_path(j2)) as f:
+                ck_batch = json.load(f)["batch"]
+            w2b = worker("w2b", "card-w2b", "--drain", "--backoff-base", "0")
+
+            # 3. the handover job against its CPU oracle
+            r4, ro = reap_cli(w4, timeout=600), reap_cli(oracle, timeout=600)
+            job3, ojob = store.get(j3), ostore.get(oracle_id)
+
+            def result_of(job):
+                return json.dumps({**job.result, "corpus": os.path.basename(job.result.get("corpus") or "")},
+                                  sort_keys=True)
+
+            units3 = [len([m for m in FLEET_UNIT.finditer(w["out"]) if m.group(1) == j3]) for w in (r3, r4)]
+            if not job3.terminal or result_of(job3) != result_of(ojob) or units3 != [1, FLEET_GUIDED_BATCHES]:
+                fail(f"fleet: the guided job handed from the card to the CPU (units {units3}) differs from the CPU "
+                     f"oracle:\n{result_of(job3)}\n{result_of(ojob)}")
+            report3 = job3.result["report"]
+            escalation3 = (report3.get("guided") or {}).get("escalation")
+            escalated_at = [r["batch"] for r in (report3.get("guided") or {}).get("trail", []) if r["escalated_to"]]
+            if not report3.get("failing") or not escalation3 or not escalated_at:
+                fail(f"fleet: the handover job found {len(report3.get('failing') or [])} failing seeds and reached "
+                     f"escalation step {escalation3}: its check needs both")
+            emit({"phase": "fleet_stage", "stage": "handover", "s": round(time.perf_counter() - t_phase, 3),
+                  "w3_s": r3["s"], "w4_s": r4["s"], "oracle_s": ro["s"]})
+
+            # 4. the profile job's capture, merged by `fleet profile`
+            r5 = reap_cli(w5)
+            r6 = reap_cli(worker("w6", "card-profile", "--max-units", "1", "--no-reclaim", "--device", "cpu",
+                                 at=profile_root, cpu_threads=2))
+            job4 = pstore.get(j4)
+            trace = pstore.device_trace_path(j4)
+            if not job4.terminal or not os.path.exists(trace) or not xprof.has_kernel_events(trace):
+                fail(f"fleet: the XPROF unit ({job4.state}) left no device capture with kernel events at {trace}")
+            prof = run_cli(tmp, "profile", ["fleet", "profile", "--port-file", profile_pf, "--no-retry", j4, "--out",
+                                            str(t / "p.json")])
+            tracks = re.search(r"tracks present: ([a-z, ]+)", prof["out"])
+            if not tracks or "device" not in tracks.group(1):
+                fail(f"fleet profile merged no device track:\n{prof['out']}")
+
+            # 1. job 1 filed: regress of the fleet corpus and the filed
+            #    find's repro line (a traced one-lane replay, pop_earliest
+            #    at L = 1) on the card, as a user runs them
+            r1 = reap_cli(w1)
+            job1 = store.get(j1)
+            if job1.state != "filed" or job1.result["corpus_added"] != 1:
+                fail(f"fleet: job 1 ended {job1.state} with {job1.result}:\n{r1['out'][-3000:]}")
+            with open(os.path.join(root, "corpus.json")) as f:
+                [entry] = json.load(f)["entries"]
+            meta = entry["meta"]
+            if meta["filed_by"]["job"] != j1 or "replay --machine" not in meta["repro"] or not meta.get("why_kinds"):
+                fail(f"fleet: the filed entry's meta lacks filed_by, repro or why_kinds: {meta}")
+            regress = spawn("regress", ["regress", "--corpus", os.path.join(root, "corpus.json")])
+            repro_argv = meta["repro"].split()
+            if repro_argv[:3] != ["python", "-m", "madsim_tpu_torch"]:
+                fail(f"fleet: the filed repro line names another program: {meta['repro']}")
+            repro = spawn("repro", [*repro_argv[3:], "--tail", "1"])
+
+            # 2. the replaced job equals job 1, resumed one batch back at
+            #    most by the new process
+            r2b = reap_cli(w2b)
+            job2 = store.get(j2)
+            want, got = (json.dumps(j.result["report"], sort_keys=True) for j in (job1, job2))
+            if job2.state != "filed" or got != want or job2.n_lease_reclaims != 1:
+                fail(f"fleet: the replaced job 2 ({job2.state}, {job2.n_lease_reclaims} reclaims) differs from "
+                     f"job 1:\n{got}\n{want}")
+            events2 = store.read_events(j2)
+            after = [e for e in events2 if e.get("type") == "batch_done" and e["ts"] > killed_ts]
+            if not after or after[0]["batch"] != min(ck_batch + 1, FLEET_UNITS) or \
+                    {e["worker"] for e in after} != {"card-w2b"}:
+                fail(f"fleet: job 2 killed at checkpoint batch {ck_batch} resumed at {after[:1]}: "
+                     f"{[(e.get('type'), e.get('batch'), e.get('worker'), e.get('gen')) for e in events2]}")
+            emit({"phase": "fleet_stage", "stage": "flagship_and_replacement",
+                  "s": round(time.perf_counter() - t_phase, 3), "w1_s": r1["s"], "w2b_s": r2b["s"]})
+
+            # 5. store health
+            fsck = {}
+            for name, at in (("farm", root), ("profile", profile_root)):
+                doc = json.loads(run_cli(tmp, "fsck", ["fleet", "fsck", "--root", at, "--json"])["out"])
+                if doc["corrupt"] or doc["stale_tmp"]:
+                    fail(f"fleet fsck of the {name} store: {doc}")
+                fsck[name] = {k: doc[k] for k in ("corrupt", "stale_tmp", "stale_claims", "queue_log_lag", "jobs")}
+            rc_regress, rc_repro, rc_chaos = reap_cli(regress), reap_cli(repro, rc=1), reap_cli(chaos)
+            if f"FAILED (code {entry['fail_code']})" not in rc_repro["out"]:
+                fail(f"fleet: the filed repro line did not fail with code {entry['fail_code']}:\n{rc_repro['out']}")
+            if not rc_chaos["out"].strip().endswith("fleet chaos: 1 seed(s) ok (profile claims, first seed 3)"):
+                fail(f"fleet chaos:\n{rc_chaos['out'][-3000:]}")
+            if "1/1 entries satisfied" not in rc_regress["out"]:
+                fail(f"regress of the fleet corpus:\n{rc_regress['out'][-3000:]}")
+        finally:
+            for job in spawned:
+                if job["proc"].poll() is None:
+                    job["proc"].terminate() if job["name"].startswith("serve") else job["proc"].kill()
+                    job["proc"].wait()
+        phase_s = round(time.perf_counter() - t_phase, 3)
+
+        card = {"w1": r1, "w2b": r2b, "w3": r3, "w5": r5, "repro": rc_repro}
+        launches = {k: sum(w["launches"].get(k, 0) for w in card.values())
+                    for k in ("step_megakernel", "cov_flush", "pop_gather", "pop_earliest")}
+        missing = [k for k, n in launches.items() if n <= 0]
+        if missing:
+            fail(f"fleet: the card's workers never launched {missing}: "
+                 f"{ {k: w['launches'] for k, w in card.items()} }")
+        emit({"phase": "fleet", "seconds": phase_s, "lanes": FLEET_LANES,
+              "flagship": fleet_job_line(store, j1, [r1]),
+              "replaced": {**fleet_job_line(store, j2, [r2b]), "killed_at_batch": ck_batch,
+                           "resumed_at_batch": after[0]["batch"], "resumed_by": after[0]["worker"],
+                           "lease_ttl_s": FLEET_TTL, "report_equal": True},
+              "handover": {**fleet_job_line(store, j3, [r3, r4]), "equal_to_cpu_oracle": True,
+                           "max_steps": FLEET_GUIDED["max_steps"], "escalation": escalation3,
+                           "escalated_after_batch": escalated_at},
+              "profile": {**fleet_job_line(pstore, j4, [r5, r6]), "capture_bytes": os.path.getsize(trace),
+                          "profile_tracks": tracks.group(1).strip(", "), "profile_s": prof["s"]},
+              "corpus_entry": {"why_kinds": meta["why_kinds"], "repro": meta["repro"]},
+              "fsck": fsck, "chaos_s": rc_chaos["s"], "regress_s": rc_regress["s"], "repro_s": rc_repro["s"],
+              "workers": {k: fleet_worker_line(w) for k, w in {**card, "w4": r4, "oracle": ro}.items()},
+              "launches": {k: w["launches"] for k, w in card.items()}})
+    return launches, r3["launches"]
+
+
+class FleetPhase:
+    """Phase 17 driven from a thread (its thread only waits on
+    subprocesses and reads the stores), so in-process checks run beside
+    it; `join` gives `fleet_jobs`' result, or ends the script as the
+    phase's failure did."""
+
+    def __init__(self):
+        import threading
+
+        self.exc, self.res = None, None
+        self.thread = threading.Thread(target=self._run, name="fleet", daemon=True)
+
+    def _run(self):
+        try:
+            self.res = fleet_jobs()
+        except BaseException as exc:  # fail() raises SystemExit here; join re-raises it
+            self.exc = exc
+
+    def start(self):
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        if self.exc is not None:
+            raise self.exc
+        return self.res
+
+
+def fleet_kernels(np, kernels, dev, w3_launches):
+    """The handover job's shapes, held against their twins and timed on a
+    state of its engine (`fleet_kernels` line): pop_gather and the flush
+    at its 64 lanes of Q = 32, with the card unit's launches."""
+    from madsim_tpu_torch.__main__ import _build_engine
+    from madsim_tpu_torch.fleet.store import normalize_spec, spec_to_args
+
+    eng = _build_engine(spec_to_args(normalize_spec(FLEET_GUIDED)))
+    state = eng.run_segment(eng.init_batch(np.arange(FLEET_GUIDED["batch"], dtype=np.uint32)), 64)
+    for _ in range(eng._cov_flush_every):
+        state = eng.step_batch(state)
+    time_kernel_shapes(kernels, dev, "fleet_kernels", (),
+                       ((f"cov_flush_L{FLEET_GUIDED['batch']}", state.cov, w3_launches.get("cov_flush", 0)),),
+                       pops=((f"pop_gather_L{FLEET_GUIDED['batch']}_Q{FLEET_GUIDED['queue']}", state,
+                              w3_launches.get("pop_gather", 0)),))
+
+
+# Phase 4b and the card-against-CPU checks of phases 6-9, 12 and 13 time
+# nothing: each group (~2 minutes on its own) runs in a process of its own (`python -c`, niced so
+# that the fleet's workers and the main process come first) beside the
+# others and phase 17, and returns a JSON object; the states the timed
+# phases need are rebuilt in the main process from it
+CHECKS_CHILD = (
+    "import os, sys\n"
+    "os.nice(10)\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "sys.exit(chip_smoke.child_main(sys.argv[2], sys.argv[3]))\n"
+)
+
+
+# {group: ((name, check), ...)}: each check(torch, np, kernels) gives a
+# JSON object
+CHECK_GROUPS = {
+    "failing_delay_models": (("failing", card_vs_cpu_failing), ("delay", delay_checks),
+                             ("models", card_vs_cpu_models)),
+    "palette_storage": (("palette", palette_checks), ("storage", storage_checks)),
+    "split_prov_clog": (("split", split_chain_checks), ("prov_legs", lambda torch, np, kernels: provenance_legs(np)),
+                        ("clog", clog_checks)),
+}
+
+
+def child_main(group, out):
+    """One group of CHECK_GROUPS in this process (ChildChecks' child),
+    on two intra-op threads: its phase lines on stdout, timed on the
+    parent's clock, its results as one JSON object in `out`."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from madsim_tpu_torch.ops import build, kernels
+
+    global STARTED
+    STARTED = time.perf_counter() - (time.time() - float(os.environ["MADSIM_SMOKE_T0"]))
+    build.load()
+    torch.set_num_threads(2)
+    res = {name: check(torch, np, kernels) for name, check in CHECK_GROUPS[group]}
+    pathlib.Path(out).write_text(json.dumps(res))
+    return 0
+
+
+class ChildChecks:
+    """A group of CHECK_GROUPS in a process of its own (child_main);
+    `join` relays its phase lines and gives its results, or ends the
+    script with its failure."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def start(self):
+        import os
+        import tempfile
+
+        self.tmp = pathlib.Path(tempfile.mkdtemp(prefix=f"madsim_checks_{self.group}_"))
+        env = dict(os.environ, MADSIM_SMOKE_T0=repr(STARTED_WALL))
+        repo = str(pathlib.Path(__file__).resolve().parent)
+        with open(self.tmp / "out", "w") as out, open(self.tmp / "err", "w") as err:
+            self.proc = subprocess.Popen([sys.executable, "-c", CHECKS_CHILD, repo, self.group,
+                                          str(self.tmp / "res.json")], env=env, stdout=out, stderr=err)
+        _track(self.proc)
+
+    def join(self):
+        import shutil
+
+        self.proc.wait()
+        sys.stdout.write((self.tmp / "out").read_text())
+        sys.stdout.flush()
+        if self.proc.returncode != 0:
+            fail(f"the {self.group} checks exited {self.proc.returncode}:\n{(self.tmp / 'err').read_text()[-3000:]}")
+        res = json.loads((self.tmp / "res.json").read_text())
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        return res
+
+
+def window_phase(torch, np, kernels):
+    """The work that times nothing, all at once: phase 17 (the fleet,
+    driven from a thread), phase 16's checks (PerfChecks), each group of
+    CHECK_GROUPS in a process of its own, and in this process phase
+    6's replays. Returns the groups' results, the replays' launches and
+    states (replay_and_corpus), the fleet's launches (fleet_jobs) and the
+    PerfChecks, joined."""
+    fleet, perf_checks = FleetPhase(), PerfChecks()
+    groups = [ChildChecks(g) for g in CHECK_GROUPS]
+    fleet.start()
+    for g in groups:
+        g.start()
+    perf_checks.start()
+    replays = replay_and_corpus(torch, np, kernels)
+    checks = {}
+    for g in groups:
+        checks.update(g.join())
+    fleet_res = fleet.join()
+    perf_checks.join()
+    return checks, replays, fleet_res, perf_checks
+
+
 def main(argv=None):
     import torch
 
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
-    args.add_argument("--only", choices=("cli", "prov", "guided", "perf"), default=None,
-                      help="build, then run phase 11 alone (cli), phases 11-13 (prov), phases 14-15 (guided) or "
-                      "phase 16 (perf): a short check that prints no result line")
+    args.add_argument("--only", choices=("cli", "prov", "guided", "perf", "fleet", "window"), default=None,
+                      help="build, then run phase 11 alone (cli), phases 11-13 (prov), phases 14-15 (guided), "
+                      "phase 16 (perf), phase 17 (fleet) or the work that times nothing, at once (window): a "
+                      "short check that prints no result line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -2822,7 +3533,6 @@ def main(argv=None):
 
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
     from madsim_tpu_torch.models import RaftMachine
-    from madsim_tpu_torch.models.raft import LOG_MATCHING
     from madsim_tpu_torch.ops import build, kernels
 
     # the triage phase's engine, built before any phase runs
@@ -2850,12 +3560,28 @@ def main(argv=None):
         perf_kernels(kernels, np, torch.device("cuda"), perf)
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
+    if args.only == "fleet":
+        _, w3_launches = fleet_jobs()
+        fleet_kernels(np, kernels, torch.device("cuda"), w3_launches)
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
+    if args.only == "window":
+        checks, _, (_, w3_launches), perf_checks = window_phase(torch, np, kernels)
+        # the states the timed phases take from it
+        model_states_of(np, checks["models"])
+        palette_states_of(np, checks["palette"])
+        soak_state_of(np)
+        clog_kernels(kernels, torch.device("cuda"), clog_states_of(np, checks["clog"]))
+        fleet_kernels(np, kernels, torch.device("cuda"), w3_launches)
+        emit({"phase": "perf_checks", **perf_checks.read()})
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
     if args.only:
         cli = cli_phase(torch, np)
         cli_kernels(kernels, np, torch.device("cuda"), cli)
         if args.only == "prov":
-            provenance_phase(torch, np, cli)
-            clog_phase(torch, np, kernels, torch.device("cuda"))
+            provenance_phase(np, cli, provenance_legs(np))
+            clog_kernels(kernels, torch.device("cuda"), clog_states_of(np, clog_checks(torch, np, kernels)))
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
     designs = [(f"against {d}", build.load(pathlib.Path(d).resolve())) for d in args.against]
@@ -2931,37 +3657,11 @@ def main(argv=None):
                                          "flagship")
     emit({"phase": "card_vs_cpu", "lanes": CHECK_LANES, "equal": True, "card_s": round(t_card, 3),
           "cpu_s": round(t_cpu, 3), "max_steps": int(on_card["steps"].max())})
-    # the CPU legs from here on run on two intra-op threads: their tensors
-    # are a few hundred lanes wide, where more threads only add the cost
-    # of waking them (this phase's CPU seconds, the host's gauge, and the
-    # clog matrix's 64-node planes keep the default)
-    default_threads = torch.get_num_threads()
+    # the CPU legs from here on run on two intra-op threads (the check
+    # groups' processes too): their tensors are a few hundred lanes wide,
+    # where more threads only add the cost of waking them (this phase's
+    # CPU seconds, the host's gauge, keep the default)
     torch.set_num_threads(2)
-
-    # 4b. the card against the CPU where lanes fail: the overcommit bug
-    #     (COMMIT_TO_LOG_LEN) on seeds that hold its known failures, through
-    #     run_batch (fail codes, digest trail) and a short stream (fail ring)
-    class OvercommitRaft(RaftMachine):
-        COMMIT_TO_LOG_LEN = True
-
-    over = OvercommitRaft(num_nodes=5, log_capacity=8)
-    over_card, over_cpu = Engine(over, cfg), Engine(over, cfg, device="cpu")
-    seeds = np.array(OVERCOMMIT_SEEDS + list(range(OVERCOMMIT_SEEDS[0] - 61, OVERCOMMIT_SEEDS[0])), np.uint32)
-    on_card, _, _ = card_vs_cpu(lambda d: over_card if d is None else over_cpu, seeds, OVERCOMMIT_STEPS,
-                                "overcommit")
-    codes = on_card["fail_code"][: len(OVERCOMMIT_SEEDS)].tolist()
-    if not on_card["failed"][: len(OVERCOMMIT_SEEDS)].all() or set(codes) != {LOG_MATCHING}:
-        fail(f"the known overcommit seeds {OVERCOMMIT_SEEDS} did not all fail LOG_MATCHING: {codes}")
-    kw = dict(batch=32, segment_steps=64, seed_start=OVERCOMMIT_SEEDS[0] - 40, max_steps=384, pipelined=False)
-    s_card, s_cpu = over_card.run_stream(64, **kw), over_cpu.run_stream(64, **kw)
-    keys = ("completed", "failing", "infra", "abandoned", "seeds_consumed")
-    bad = [k for k in keys if s_card[k] != s_cpu[k]]
-    bad += [k for k in ("coverage", "flight_recorder") if s_card["stats"][k] != s_cpu["stats"][k]]
-    if bad or (OVERCOMMIT_SEEDS[0], LOG_MATCHING) not in s_card["failing"]:
-        fail(f"overcommit stream: card and CPU differ in {bad}, or seed {OVERCOMMIT_SEEDS[0]} was missed: "
-             f"{s_card['failing']}")
-    emit({"phase": "card_vs_cpu_failing", "lanes": len(seeds), "equal": True,
-          "n_failed": int(on_card["failed"].sum()), "stream_failing": s_card["failing"]})
 
     # 5. the flagship stream, through the entry points a user calls
     run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS, pipelined=False)
@@ -2998,20 +3698,29 @@ def main(argv=None):
     emit({"phase": "profile", **profile_steps(eng, state, steps=8)})
 
     # 6. the split-chain stream, and the pop kernels on its inputs and the replay's
-    v2_launches, replay_launches, v2_state, v2_eng, replay_state, corpus_states = split_chain_phases(
-        torch, np, kernels)
+    v2_launches, v2_state, v2_eng = stream_v2_phase(torch, np, kernels)
 
-    # 7. the delay-spike kind and the MVCC, S3 and gossip models; phase
-    #    16's commands that time nothing run beside the models' checks
-    perf_checks = PerfChecks()
-    _, hunt_state, model_states = delay_and_model_phases(torch, np, kernels, dev, beside=perf_checks)
+    # what times nothing, at once: 4b. the card against the CPU where lanes
+    # fail; 6. the split chain's checks and its single-lane replays; the
+    # card-against-CPU checks of 7. the delay-spike kind and the MVCC, S3,
+    # gossip and other models, 8. the chaos palette (pause, skew, dup and strict restarts), 9. the
+    # storage kinds, 12. causal provenance and 13. the unpacked clog
+    # matrix; 16.'s commands that time nothing; 17. the hunt fleet
+    checks, (replay_launches, replay_state, corpus_states), (fleet_launches, w3_launches), perf_checks = \
+        window_phase(torch, np, kernels)
+    model_states = model_states_of(np, checks["models"])
+    palette_states = palette_states_of(np, checks["palette"])
+    storage = {**checks["storage"], "soak_state": soak_state_of(np)}
 
-    # 8. the chaos palette: pause, skew, dup and strict restarts
-    _, palette_states = palette_phases(torch, np, kernels)
+    # 7. the delay-spike kind's megakernel at 8192 lanes
+    delay_kernels(np, kernels, dev)
 
-    # 9. the storage kinds and the models raft-compact, paxos, etcd and group
-    storage = storage_phases(torch, np, kernels)
+    # 7-9. the MVCC, palette and torn hunts at full width
+    _, hunt_state = stream_mvcc_phase(torch, np, kernels)
+    stream_palette_phase(torch, np, kernels, palette_states)
+    stream_torn_phase(torch, np, kernels, storage)
     storage_kernels(kernels, dev, storage, palette_states)
+    fleet_kernels(np, kernels, dev, w3_launches)
 
     # 10. the triage path: the double-grant hunt, its post-mortem, shrink,
     #     corpus entry and export
@@ -3067,11 +3776,9 @@ def main(argv=None):
     cli = cli_phase(torch, np)
     cli_kernels(kernels, np, dev, cli)
 
-    # 12. causal provenance; 13. the unpacked clog matrix
-    provenance_phase(torch, np, cli)
-    torch.set_num_threads(default_threads)
-    clog_phase(torch, np, kernels, dev)
-    torch.set_num_threads(2)
+    # 12. the provenance gate's cost; 13. the clog matrix's kernel shapes
+    provenance_phase(np, cli, checks["prov_legs"])
+    clog_kernels(kernels, dev, clog_states_of(np, checks["clog"]))
 
     # 14. guided search at full width; 15. the Raft differential's device side
     guided_phase(torch, np, kernels, dev)
@@ -3086,26 +3793,28 @@ def main(argv=None):
                      "pop_gather": perf["prof_v2"].get("pop_gather", 0),
                      "pop_earliest": perf["prof"].get("pop_earliest", 0)}
 
+
     emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
 
-    # 16. the kernels line
+    # 18. the kernels line
     emit({"kernels": [
         {"name": "step_megakernel", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/step_megakernel.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:310", "launches": launches["step_megakernel"],
          "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
          "bound_by": s_bound[1], "library_ms": None, "floor_ms": s_floor,
-         "launches_perf": perf_launches["step_megakernel"]},
+         "launches_perf": perf_launches["step_megakernel"], "launches_fleet": fleet_launches["step_megakernel"]},
         {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
          "bound_by": c_bound[1], "library_ms": None, "floor_ms": c_floor,
-         "launches_perf": perf_launches["cov_flush"]},
+         "launches_perf": perf_launches["cov_flush"], "launches_fleet": fleet_launches["cov_flush"]},
         # each at the shape where its launches run: pop_earliest's are the
         # single-lane replay's
         *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
            "replaces": replaces, "launches": n, "max_abs_err": k["err"], "ms": k["ms"],
            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
-           "floor_ms": k["floor_ms"], "lanes": k["lanes"], "launches_perf": perf_launches[name]}
+           "floor_ms": k["floor_ms"], "lanes": k["lanes"], "launches_perf": perf_launches[name],
+           "launches_fleet": fleet_launches[name]}
           for name, replaces, n, k in (
               ("pop_gather", "madsim_tpu/ops/pallas_pop.py:172", v2_launches["pop_gather"], pops["pop_gather"]),
               ("pop_earliest", "madsim_tpu/ops/pallas_pop.py:143", replay_launches["pop_earliest"],

@@ -13,12 +13,17 @@ reports and the stats endpoint.
     python -m madsim_tpu_torch perf    host.json --machine raft --seeds 16384 --batch 8192
     python -m madsim_tpu_torch prof    --merge --out m.json --machine raft --seeds 8192 --batch 8192
     python -m madsim_tpu_torch bench-ab --gate coverage --lanes 1024 --reps 4
+    python -m madsim_tpu_torch fleet serve --root farm --port-file farm.port
+    python -m madsim_tpu_torch fleet submit --port-file farm.port --machine raft --seeds 16384 --batch 8192
+    python -m madsim_tpu_torch fleet worker --root farm --drain [--device cpu]
 
 The port of `madsim_tpu/__main__.py`: the same subcommands, flags,
 defaults, printed lines and exit codes for explore, hunt (with
 `--guided`), replay, trace, why, shrink, regress, audit, check, coverage,
-`serve --service stats`, and the perf tooling (`perf`, `prof`,
-`bench-ab`, `--perf-timeline`, `--xla-profile`), `--provenance` among
+`serve --service stats`, the perf tooling (`perf`, `prof`,
+`bench-ab`, `--perf-timeline`, `--xla-profile`) and the hunt farm
+(`fleet serve|worker|submit|status|result|cancel|queue|watch|timeline|
+profile|top|fsck|chaos`), `--provenance` among
 the flags, and the same files (corpus, checkpoint with its guided trail,
 coverage doc, exports, attribution JSON, host timeline, merged plane).
 `--xla-profile DIR` keeps the reference's spelling; here it is a
@@ -26,7 +31,7 @@ coverage doc, exports, attribution JSON, host timeline, merged plane).
 runs on the CUDA card unless given `--device cpu`; without a card it
 exits non-zero and never falls back to the CPU. What the port does not
 run yet (several devices, the compile cache and its autopsy `prof
-compile`, bench, fleet, lint) and the host services `serve --service
+compile`, bench, lint) and the host services `serve --service
 etcd|kafka|s3` exit with status 2 and one line naming the gate, before
 any engine is built.
 """
@@ -47,7 +52,6 @@ PROG = "madsim_tpu_torch"
 _ITEM_MESH = "ROADMAP.md queue 1, item 12"
 _GATED_COMMANDS = {
     "bench": ("the `bench` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
-    "fleet": ("the `fleet` command", "ROADMAP.md queue 1, item 11"),
     "lint": ("the `lint` command", "ROADMAP.md queue 1, item 14"),
 }
 _GATED_FLAGS = (
@@ -55,6 +59,13 @@ _GATED_FLAGS = (
     ("multihost", "--multihost", _ITEM_MESH),
     ("compile_cache", "--compile-cache (a JAX compile cache)", "no port item: the port compiles no graph"),
 )
+
+
+def _gate_line(attr: str) -> str:
+    """The refusal line of the flag gate on `attr` (a fleet worker
+    refuses a leased job that needs it with the same line)."""
+    what, item = next((what, item) for a, what, item in _GATED_FLAGS if a == attr)
+    return f"{PROG}: {what} is not ported yet ({item})"
 
 
 def _gate(args) -> str:
@@ -71,12 +82,9 @@ def _gate(args) -> str:
                 f"PyTorch has no trace, lowering or backend stage (no port item)")
     if args.cmd in _GATED_COMMANDS:
         what, item = _GATED_COMMANDS[args.cmd]
-    else:
-        hits = [(what, item) for attr, what, item in _GATED_FLAGS if getattr(args, attr, None)]
-        if not hits:
-            return ""
-        what, item = hits[0]
-    return f"{PROG}: {what} is not ported yet ({item})"
+        return f"{PROG}: {what} is not ported yet ({item})"
+    hits = [attr for attr, _what, _item in _GATED_FLAGS if getattr(args, attr, None)]
+    return _gate_line(hits[0]) if hits else ""
 
 
 def _device(args):
@@ -268,13 +276,15 @@ def _print_attribution(stats) -> None:
 
 
 def _make_emitter(args):
-    """StatsEmitter bound to --stats BASE (also $MADSIM_TPU_STATS)."""
+    """StatsEmitter bound to --stats BASE (also $MADSIM_TPU_STATS).
+    `args.stats_labels` (set by the fleet worker, not a flag) namespaces
+    the Prometheus gauges per job."""
     base = getattr(args, "stats", None) or os.environ.get("MADSIM_TPU_STATS")
     if not base:
         return None
     from .tracing import StatsEmitter
 
-    return StatsEmitter(base)
+    return StatsEmitter(base, labels=getattr(args, "stats_labels", None))
 
 
 def _print_cov_stats(stats) -> None:
@@ -1274,6 +1284,277 @@ def cmd_bench_ab(args) -> int:
     return 0
 
 
+def _format_fleet_event(ev: dict, t0: float) -> str:
+    """One `fleet watch` line per event: relative seconds (wall deltas
+    between recorded timestamps — no clock is read here), the event
+    type, and the payload fields that aren't already in the prefix."""
+    ts = float(ev.get("ts") or t0)
+    skip = {"seq", "ts", "type", "job"}
+    detail = " ".join(
+        f"{k}={ev[k]}" for k in sorted(ev) if k not in skip
+        and ev[k] is not None
+    )
+    return f"+{ts - t0:9.2f}s  {ev.get('type', '?'):<16} {detail}".rstrip()
+
+
+def _fleet_watch(client, addr: str, args) -> int:
+    """`fleet watch JOB`: tail the job's SSE event stream and print one
+    line per event, exiting 0 once the stream's `end` frame reports a
+    terminal state. Push, not poll — the server parks between events."""
+    t0 = None
+    for frame in client.iter_events(addr, args.job, since=args.since):
+        data = frame.get("data")
+        if frame.get("event") == "end":
+            state = (data or {}).get("state") if isinstance(data, dict) else "?"
+            print(f"-- job {args.job} reached terminal state "
+                  f"{state!r} --")
+            return 0
+        if not isinstance(data, dict):
+            continue
+        if t0 is None:
+            t0 = float(data.get("ts") or 0.0)
+        print(_format_fleet_event(data, t0), flush=True)
+    # stream generator returned without an end frame (server gone mid-
+    # tail after retries) — surface it
+    print(f"fleet watch: stream for {args.job} closed before a "
+          f"terminal state", file=sys.stderr)
+    return 1
+
+
+def _fleet_timeline(client, addr: str, args, retries: int) -> int:
+    """`fleet timeline JOB`: fetch the merged control-plane + worker
+    Perfetto timeline and write it next to the invoker."""
+    doc = client.timeline(addr, args.job, retries=retries)
+    out_path = args.out or f"{args.job}.timeline.perfetto.json"
+    with open(out_path, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+    summary = doc.get("madsim_fleet_timeline_summary", {})
+    n_ev = len(doc.get("traceEvents", []))
+    frac = float(summary.get("attribution") or 0.0)
+    print(f"timeline: {n_ev} trace events "
+          f"({summary.get('events', 0)} lifecycle events, "
+          f"{summary.get('worker_spans', 0)} worker spans), "
+          f"{frac * 100.0:.0f}% of job wall clock attributed "
+          f"-> {out_path} (open in https://ui.perfetto.dev)")
+    return 0
+
+
+def _fleet_profile(client, addr: str, args, retries: int) -> int:
+    """`fleet profile JOB`: fetch the three-clock merge — the
+    timeline's host plane joined with the worker's device-profile
+    capture and failing-lane virtual trace (whichever the store has;
+    the worker records them when run under MADSIM_TPU_XPROF=1)."""
+    doc = client.profile(addr, args.job, retries=retries)
+    out_path = args.out or f"{args.job}.profile.perfetto.json"
+    with open(out_path, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+    summary = doc.get("madsim_xprof_summary", {})
+    tracks = summary.get("tracks", {})
+    present = ", ".join(k for k in ("host", "device", "virtual")
+                        if tracks.get(k)) or "none"
+    print(f"profile: {len(doc.get('traceEvents', []))} trace events, "
+          f"tracks present: {present}, "
+          f"{summary.get('sync_points', 0)} sync points, "
+          f"{float(summary.get('attribution') or 0.0) * 100.0:.0f}% "
+          f"attributed -> {out_path} (open in https://ui.perfetto.dev)")
+    if not (tracks.get("device") or tracks.get("virtual")):
+        print("hint: run the worker with MADSIM_TPU_XPROF=1 to record "
+              "the device profile and the failing lane's virtual trace")
+    return 0
+
+
+def _fleet_top_render(doc: dict) -> str:
+    """One screenful of farm state from a /queue document. Pure
+    formatting — torch-free, storeless, testable."""
+    counts = doc.get("counts", {})
+    head = "fleet top — " + " ".join(
+        f"{k}:{counts[k]}" for k in sorted(counts) if counts[k]
+    ) if counts else "fleet top — queue empty"
+    if doc.get("degraded"):
+        head += "  [DEGRADED: index-served while load-shedding]"
+    cols = (f"{'JOB':<14} {'STATE':<11} {'MACHINE':<18} {'BATCH':>7} "
+            f"{'FAIL':>4} {'SLOTS':>6} {'RUNG':>4} {'MOM':>3} "
+            f"{'WORKER':<10} LAST EVENT")
+    jobs = doc.get("jobs", [])
+    lines = [head]
+    farm = doc.get("farm")
+    if farm:
+        # the contention plane: shed state, index honesty, and each
+        # worker's lost claim races / refused zombie writes
+        bits = [f"shed:{'YES' if farm.get('shed') else 'no'}"]
+        if farm.get("queue_log_lag") is not None:
+            bits.append(f"lag:{farm['queue_log_lag']}")
+        for wid, ws in sorted((farm.get("workers") or {}).items()):
+            bits.append(
+                f"{wid}[units:{ws.get('units_done', 0)} "
+                f"conflicts:{ws.get('claim_conflicts', 0)} "
+                f"fenced:{ws.get('fenced_writes', 0)}]"
+            )
+        lines.append("farm — " + " ".join(bits))
+    lines += [cols] if jobs else []
+    for s in jobs:
+        mom = s.get("momentum") or {}
+        last = s.get("last_event") or {}
+        planned = s.get("batches_planned")
+        batch = (f"{s.get('batches_run', 0)}/{planned}" if planned
+                 else str(s.get("batches_run", 0)))
+        lines.append(
+            f"{s.get('id', '?'):<14} {s.get('state', '?'):<11} "
+            f"{str(s.get('machine', '?'))[:18]:<18} "
+            f"{batch:>7} "
+            f"{s.get('failing') or 0:>4} "
+            f"{s.get('coverage_slots') or 0:>6} "
+            f"{s.get('escalation') or 0:>4} "
+            f"{'*' if mom.get('active') else '.':>3} "
+            f"{str(s.get('worker') or '-')[:10]:<10} "
+            f"{last.get('type', '-')}"
+        )
+    return "\n".join(lines)
+
+
+def _fleet_top(client, addr: str, args, retries: int) -> int:
+    """`fleet top`: a one-screen live farm view rendered purely from
+    /queue (momentum and last-event are attached server-side, so this
+    verb needs no store access and stays torch-free). `--once` prints a
+    single frame for scripts/CI; otherwise redraws every --interval."""
+    import time as wall
+
+    while True:
+        print(_fleet_top_render(client.queue(addr, retries=retries)),
+              flush=True)
+        if args.once:
+            return 0
+        wall.sleep(max(0.2, args.interval))
+        print()
+
+
+def cmd_fleet(args) -> int:
+    """The hunt-farm service (`fleet/`): a durable job store + queue, a
+    lease-based worker that slices jobs into checkpointed batch units,
+    and a torch-free HTTP control plane + client verbs. Only `fleet
+    worker` with the real driver builds engines (on the card, or the
+    CPU with `--device cpu`); serve/submit/status/result/cancel/queue/
+    watch/timeline/profile/top/fsck and a synthetic-driver worker run
+    on boxes with no card."""
+    sub = args.fleet_cmd
+    if sub == "serve":
+        from .fleet import api
+
+        return api.serve(args.root, args.addr, port_file=args.port_file,
+                         sweep_interval_s=args.sweep_interval)
+    if sub == "worker":
+        from .fleet.worker import FleetWorker
+
+        driver = None
+        if args.driver == "synthetic":
+            from .fleet.chaos import synthetic_driver as driver
+        worker = FleetWorker(
+            args.root,
+            worker_id=args.worker_id or f"w{os.getpid()}",
+            lease_ttl_s=args.lease_ttl,
+            poll_s=args.poll,
+            max_attempts=args.max_attempts,
+            backoff_base_s=args.backoff_base,
+            driver=driver,
+            reclaim=not args.no_reclaim,
+            device=args.device,
+        )
+        return worker.run(drain=args.drain, max_units=args.max_units)
+    if sub == "fsck":
+        from .fleet import fsck as fsck_mod
+
+        rep = fsck_mod.fsck(
+            args.root,
+            fix=not args.dry_run,
+            reclaim=args.reclaim,
+            release_quarantined=args.release_quarantined,
+        )
+        if args.json:
+            print(json.dumps(rep, indent=1, sort_keys=True))
+        else:
+            print(fsck_mod.render(rep))
+        # lint-style exit: 0 clean, 1 when corruption was found (even
+        # if a fixing run just quarantined it — the operator should
+        # look at the .corrupt files)
+        return 1 if rep["corrupt"] else 0
+    if sub == "chaos":
+        from .fleet import chaos as chaos_mod
+
+        failures = []
+        for chaos_seed in range(args.seed, args.seed + max(1, args.sweep)):
+            res = chaos_mod.run_chaos(
+                chaos_seed,
+                profile=args.profile,
+                out_dir=args.out,
+                real=args.real,
+                rounds=args.rounds or None,
+                jobs=args.jobs or None,
+                keep=args.keep,
+                workers=getattr(args, "workers", 1),
+                device=args.device,
+            )
+            if not res["ok"]:
+                failures.append(res)
+        if failures:
+            for res in failures:
+                print(f"chaos seed {res['seed']}: "
+                      f"{len(res['violations'])} violation(s)")
+            return 1
+        n = max(1, args.sweep)
+        print(f"fleet chaos: {n} seed(s) ok "
+              f"(profile {args.profile}, first seed {args.seed})")
+        return 0
+    from .fleet import client
+
+    try:
+        addr = client.resolve_addr(args.addr, getattr(args, "port_file", None))
+        retries = 0 if getattr(args, "no_retry", False) else client.DEFAULT_RETRIES
+        if sub == "submit":
+            from .fleet.store import SPEC_FIELDS
+
+            spec = {k: getattr(args, k) for k in SPEC_FIELDS}
+            out = client.submit(
+                addr, spec, priority=args.priority,
+                deadline_s=args.deadline,
+                tenant=getattr(args, "tenant", None), retries=retries,
+            )
+            # stdout is exactly the job id — script-composable
+            # (`JOB=$(python -m madsim_tpu_torch fleet submit ...)`)
+            print(out["id"])
+            return 0
+        if sub == "status":
+            print(json.dumps(
+                client.status(addr, args.job, feed=args.feed,
+                              wait=getattr(args, "wait", 0) or 0,
+                              retries=retries),
+                indent=1, sort_keys=True))
+            return 0
+        if sub == "result":
+            doc = client.result(addr, args.job, retries=retries)
+            print(json.dumps(doc, indent=1, sort_keys=True))
+            return 0 if doc.get("state") != "failed" else 1
+        if sub == "cancel":
+            print(json.dumps(client.cancel(addr, args.job, retries=retries),
+                             indent=1, sort_keys=True))
+            return 0
+        if sub == "queue":
+            print(json.dumps(client.queue(addr, retries=retries),
+                             indent=1, sort_keys=True))
+            return 0
+        if sub == "watch":
+            return _fleet_watch(client, addr, args)
+        if sub == "timeline":
+            return _fleet_timeline(client, addr, args, retries)
+        if sub == "profile":
+            return _fleet_profile(client, addr, args, retries)
+        if sub == "top":
+            return _fleet_top(client, addr, args, retries)
+        raise AssertionError(f"unhandled fleet verb {sub!r}")
+    except (client.FleetClientError, RuntimeError, OSError) as exc:
+        print(f"fleet {sub}: {exc}", file=sys.stderr)
+        return 1
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog=PROG)
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -1516,6 +1797,325 @@ def _parser() -> argparse.ArgumentParser:
     stream_flags(p)
     p.set_defaults(fn=cmd_prof)
 
+    p = sub.add_parser(
+        "fleet",
+        help="the hunt farm: DST as a continuously operating service — "
+        "a durable job store + queue (JSON-on-disk, atomic, "
+        "fingerprinted), `worker` (leases jobs, runs checkpointed "
+        "batch units packed by engine subkey on the card or the CPU, shrinks + files "
+        "finds), `serve` (torch-free HTTP control plane: POST /jobs, "
+        "GET /jobs/{id}[/result|/events|/timeline], DELETE /jobs/{id}, "
+        "/queue /metrics /healthz) and thin client verbs, including "
+        "the observatory (`watch` SSE tail, `timeline` Perfetto "
+        "merge, `top` farm view)",
+    )
+    fl = p.add_subparsers(dest="fleet_cmd", required=True)
+
+    def fleet_root(q):
+        q.add_argument(
+            "--root", default=os.environ.get("MADSIM_TPU_FLEET_ROOT", "fleet"),
+            help="fleet state directory (jobs/, corpus.json; also "
+            "$MADSIM_TPU_FLEET_ROOT)",
+        )
+
+    def fleet_client_flags(q):
+        q.add_argument(
+            "--addr", default=None,
+            help="control-plane host:port (default $MADSIM_TPU_FLEET_ADDR "
+            "or 127.0.0.1:8142)",
+        )
+        q.add_argument(
+            "--port-file", default=None, metavar="PATH",
+            help="resolve the daemon as 127.0.0.1:<port read from PATH> "
+            "(the file `fleet serve --port-file` writes atomically)",
+        )
+        q.add_argument(
+            "--no-retry", action="store_true",
+            help="fail fast instead of retrying transient HTTP errors "
+            "(connection refused during a server restart, 502/503/504) "
+            "with seeded-jitter backoff",
+        )
+
+    q = fl.add_parser("serve", help="torch-free HTTP control plane over a fleet root")
+    obs_flags(q)
+    fleet_root(q)
+    q.add_argument("--addr", default="127.0.0.1:8142",
+                   help="bind host:port (port 0 = ephemeral)")
+    q.add_argument(
+        "--port-file", default=None, metavar="PATH",
+        help="atomically write the realized port to PATH after binding",
+    )
+    q.add_argument(
+        "--sweep-interval", type=float, default=5.0,
+        help="seconds between lease-reclamation supervisor sweeps "
+        "(expired worker leases requeue their jobs with backoff, or "
+        "quarantine at the attempt cap; 0 disables)",
+    )
+    q.set_defaults(fn=cmd_fleet)
+
+    q = fl.add_parser(
+        "worker",
+        help="lease jobs and run them one checkpointed batch unit at a "
+        "time (kill -9 loses at most one batch; jobs sharing a "
+        "cache_subkey run back-to-back on the live engine)",
+    )
+    obs_flags(q)
+    device_flag(q)
+    fleet_root(q)
+    q.add_argument("--worker-id", default=None,
+                   help="stable lease identity (default w<pid>; reusing an "
+                   "id reclaims its own leases immediately after a crash)")
+    q.add_argument("--lease-ttl", type=float, default=60.0,
+                   help="seconds before a dead worker's jobs become "
+                   "reclaimable")
+    q.add_argument("--poll", type=float, default=0.5,
+                   help="idle store-poll interval in seconds")
+    q.add_argument("--drain", action="store_true",
+                   help="exit once every job is terminal (CI/batch mode) "
+                   "instead of serving forever")
+    q.add_argument("--max-units", type=int, default=0,
+                   help="exit after N work units (deterministic "
+                   "interruption for tests; 0 = unlimited)")
+    q.add_argument("--compile-cache", default=None,
+                   help="not ported: the JAX package's persistent compile cache")
+    q.add_argument(
+        "--perf-timeline", default=None, metavar="PATH",
+        help="record the worker's host timeline (per-unit fleet_unit "
+        "spans with job ids wrapping the usual compile/dispatch/poll "
+        "spans) as Perfetto trace_event JSON",
+    )
+    q.add_argument(
+        "--max-attempts", type=int, default=3,
+        help="consecutive deaths/hard failures before a job is "
+        "quarantined as poison (exception + batch index + repro "
+        "recorded on the job)",
+    )
+    q.add_argument(
+        "--backoff-base", type=float, default=2.0,
+        help="requeue backoff base: a job that died attempt k waits "
+        "base * 2^(k-1) seconds before it can be leased again",
+    )
+    q.add_argument(
+        "--no-reclaim", action="store_true",
+        help="skip the lease-reclamation sweep at each poll (rely on "
+        "`fleet serve`'s supervisor thread / `fleet fsck --reclaim`)",
+    )
+    q.add_argument(
+        "--driver", choices=("real", "synthetic"), default="real",
+        help="'synthetic' replaces the engine's streaming path with the "
+        "torch-free deterministic stand-in (chaos harness / farm tests "
+        "only: same checkpoint+stats machinery, no engine, no card)",
+    )
+    q.set_defaults(fn=cmd_fleet)
+
+    q = fl.add_parser("submit", help="submit a hunt job; prints the job id")
+    obs_flags(q)
+    fleet_client_flags(q)
+    q.add_argument("--machine", required=True)
+    q.add_argument("--nodes", type=int, default=0)
+    q.add_argument("--seed", type=int, default=0, help="seed-range start")
+    q.add_argument("--seeds", type=int, default=1024, help="seed budget")
+    q.add_argument("--batch", type=int, default=256,
+                   help="lanes per batch unit (the checkpoint granularity)")
+    q.add_argument("--horizon", type=float, default=5.0)
+    q.add_argument("--max-steps", type=int, default=3000)
+    q.add_argument("--queue", type=int, default=96)
+    q.add_argument("--faults", type=int, default=2)
+    q.add_argument("--loss", type=float, default=0.0)
+    q.add_argument("--fault-tmax", type=int, default=0)
+    q.add_argument("--fault-kinds", default="pair,kill")
+    q.add_argument("--rng-stream", type=int, default=2, choices=(2, 3))
+    q.add_argument("--strict-restart", action="store_true")
+    q.add_argument("--coverage", action="store_true")
+    q.add_argument("--provenance", action="store_true")
+    q.add_argument("--flight-recorder", action="store_true")
+    q.add_argument("--stop-on-plateau", type=int, default=0)
+    q.add_argument(
+        "--guided", action="store_true",
+        help="coverage-feedback search (needs --coverage): the worker "
+        "evolves this job's seed corpus AFL-style, biases fault draws "
+        "toward thin coverage cells / implicated kinds, and escalates "
+        "the vocabulary on plateau; the (seed schedule, bias state) "
+        "trail rides the job checkpoint, so interrupt/resume and "
+        "worker replacement reproduce byte-identically",
+    )
+    q.add_argument("--shrink-limit", type=int, default=5,
+                   help="max distinct-code finds to shrink + file")
+    q.add_argument("--devices", type=int, default=0, metavar="N",
+                   help="not ported: span each batch unit over a mesh of N devices")
+    q.add_argument("--priority", type=int, default=0,
+                   help="higher runs earlier (and may pay a compile switch)")
+    q.add_argument("--deadline", type=float, default=None,
+                   help="relative deadline in wall seconds; the worker "
+                   "stops the job when it passes")
+    q.add_argument(
+        "--tenant", default=None,
+        help="admission-accounting identity: the server's per-tenant "
+        "token bucket ($MADSIM_TPU_FLEET_RATE_LIMIT) charges this name; "
+        "a 429 refusal names it and the client retries after the "
+        "server's Retry-After",
+    )
+    q.set_defaults(fn=cmd_fleet)
+
+    for verb, hlp in (
+        ("status", "job document + live per-batch feed"),
+        ("result", "find + shrunk repro + why attribution (terminal jobs)"),
+        ("cancel", "cancel a job (queued dies now; running at the next "
+                   "unit boundary)"),
+    ):
+        q = fl.add_parser(verb, help=hlp)
+        obs_flags(q)
+        fleet_client_flags(q)
+        q.add_argument("job", help="job id (from `fleet submit`)")
+        if verb == "status":
+            q.add_argument("--feed", type=int, default=20,
+                           help="live-feed rows to include")
+            q.add_argument(
+                "--wait", type=float, default=0, metavar="S",
+                help="long-poll: the server holds the request up to S "
+                "seconds (capped server-side) and answers as soon as "
+                "the job document or its stats feed changes — clients "
+                "stop busy-polling GET /jobs/{id}",
+            )
+        q.set_defaults(fn=cmd_fleet)
+
+    q = fl.add_parser("queue", help="state counts + per-job summaries")
+    obs_flags(q)
+    fleet_client_flags(q)
+    q.set_defaults(fn=cmd_fleet)
+
+    q = fl.add_parser(
+        "watch",
+        help="tail a job's lifecycle event stream over SSE (push, not "
+        "poll: the server parks between events), one line per event; "
+        "exits 0 when the job reaches a terminal state",
+    )
+    obs_flags(q)
+    fleet_client_flags(q)
+    q.add_argument("job", help="job id (from `fleet submit`)")
+    q.add_argument("--since", type=int, default=0, metavar="SEQ",
+                   help="resume the tail after event SEQ (0 = replay "
+                   "the full event log first)")
+    q.set_defaults(fn=cmd_fleet)
+
+    q = fl.add_parser(
+        "timeline",
+        help="merge the job's lifecycle events with every worker's "
+        "span dump (correlated by job id as trace id) into one "
+        "Perfetto timeline: queue-wait, per-batch progress and worker "
+        "internals on a shared wall clock",
+    )
+    obs_flags(q)
+    fleet_client_flags(q)
+    q.add_argument("job", help="job id (from `fleet submit`)")
+    q.add_argument("--out", default=None, metavar="PATH",
+                   help="output trace path (default "
+                   "<job>.timeline.perfetto.json)")
+    q.set_defaults(fn=cmd_fleet)
+
+    q = fl.add_parser(
+        "profile",
+        help="the three-clock merge for a job: host timeline + the "
+        "worker's device-profile capture + the failing lane's "
+        "virtual-time trace (recorded when the worker runs under "
+        "MADSIM_TPU_XPROF=1), aligned by xprof clock-sync markers "
+        "into one Perfetto session",
+    )
+    obs_flags(q)
+    fleet_client_flags(q)
+    q.add_argument("job", help="job id (from `fleet submit`)")
+    q.add_argument("--out", default=None, metavar="PATH",
+                   help="output trace path (default "
+                   "<job>.profile.perfetto.json)")
+    q.set_defaults(fn=cmd_fleet)
+
+    q = fl.add_parser(
+        "top",
+        help="one-screen farm view rendered from /queue (state counts, "
+        "per-job batch/find/coverage/escalation progress, momentum, "
+        "lease holder, last event) — torch-free, needs only the HTTP "
+        "control plane",
+    )
+    obs_flags(q)
+    fleet_client_flags(q)
+    q.add_argument("--interval", type=float, default=2.0, metavar="S",
+                   help="seconds between redraws")
+    q.add_argument("--once", action="store_true",
+                   help="print a single frame and exit (scripts/CI)")
+    q.set_defaults(fn=cmd_fleet)
+
+    q = fl.add_parser(
+        "fsck",
+        help="scan the job store + fleet corpus for truncated/"
+        "unparseable/fingerprint-inconsistent files, quarantine them "
+        "to *.corrupt with a per-file verdict, remove stale atomic-"
+        "write tmp files, and rebuild the queue counts; exit 0 clean "
+        "/ 1 corruption found",
+    )
+    obs_flags(q)
+    fleet_root(q)
+    q.add_argument("--dry-run", action="store_true",
+                   help="scan + report only; quarantine/remove nothing")
+    q.add_argument("--reclaim", action="store_true",
+                   help="also run the lease-reclamation sweep (requeue "
+                   "jobs whose worker lease expired, or quarantine at "
+                   "the attempt cap)")
+    q.add_argument("--release-quarantined", action="store_true",
+                   help="re-queue quarantined jobs (attempt counter "
+                   "reset; the quarantine post-mortem stays on the "
+                   "doc)")
+    q.add_argument("--json", action="store_true",
+                   help="machine-readable report instead of text")
+    q.set_defaults(fn=cmd_fleet)
+
+    q = fl.add_parser(
+        "chaos",
+        help="attack a scratch farm with a seeded schedule of process-"
+        "level faults (SIGKILL worker/server at the k-th store write, "
+        "torn in-flight writes, lease-clock jumps, client calls "
+        "through a bounced server) and assert the recovery "
+        "invariants: no accepted job lost, every resumed job's final "
+        "report byte-identical to an unperturbed oracle run; a "
+        "failing seed reproduces from its printed line forever",
+    )
+    obs_flags(q)
+    q.add_argument("--seed", type=int, default=0,
+                   help="chaos schedule seed (the repro key)")
+    q.add_argument("--sweep", type=int, default=1,
+                   help="run N consecutive seeds starting at --seed")
+    q.add_argument("--profile",
+                   choices=("kill", "torn", "mixed", "spans", "claims"),
+                   default="mixed",
+                   help="fault-mix weighting of the schedule ('claims' "
+                   "weights the contention plane: claim races, zombie "
+                   "resumes, single-victim lease jumps, torn queue.log "
+                   "appends)")
+    q.add_argument("--workers", type=int, default=1,
+                   help="race N workers against the one store every "
+                   "worker round (adds the contention invariants: no "
+                   "(job, batch, gen) executed twice, no find filed "
+                   "twice, reports still byte-identical to the "
+                   "1-worker oracle)")
+    q.add_argument("--rounds", type=int, default=0,
+                   help="override the schedule's round count (0 = from "
+                   "the seed)")
+    q.add_argument("--jobs", type=int, default=0,
+                   help="override the number of tenant jobs (0 = from "
+                   "the seed)")
+    q.add_argument("--real", action="store_true",
+                   help="drive real echo-machine engines instead of "
+                   "the torch-free synthetic driver (slow: each worker "
+                   "restart pays a torch import and an engine build; finds are filed and "
+                   "regress-replayed)")
+    device_flag(q)
+    q.add_argument("--out", default=None, metavar="DIR",
+                   help="keep the farm, schedule.json and fsck.json "
+                   "under DIR (default: a temp dir, removed when the "
+                   "seed passes)")
+    q.add_argument("--keep", action="store_true",
+                   help="keep the scratch farm even on success")
+    q.set_defaults(fn=cmd_fleet)
+
     for name, (what, item) in _GATED_COMMANDS.items():
         sub.add_parser(name, help=f"not ported ({item})", add_help=False)
     return parser
@@ -1534,7 +2134,13 @@ def main(argv=None) -> int:
         from .tracing import init_tracing
 
         init_tracing(getattr(args, "log_level", None) or "INFO", jsonl_path=getattr(args, "log_jsonl", None))
-    if hasattr(args, "device"):
+    # the fleet's control plane, a synthetic-driver worker and a
+    # synthetic chaos run build no engine and run without a card; a
+    # real worker is refused here, before it leases anything
+    builds_engines = args.cmd != "fleet" or (
+        args.fleet_cmd == "worker" and args.driver == "real") or (
+        args.fleet_cmd == "chaos" and args.real)
+    if hasattr(args, "device") and builds_engines:
         from .engine.core import resolve_device
 
         try:

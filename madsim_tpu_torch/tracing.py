@@ -93,11 +93,17 @@ class StatsEmitter:
     reads a torn file. Records are plain dicts; nested dicts flatten to
     `a_b_c` gauge names, non-numeric leaves are JSONL-only. Emission
     must never take down a hunt: I/O errors are swallowed after the
-    constructor proves the base path writable."""
+    constructor proves the base path writable.
 
-    def __init__(self, base: str, prefix: str = "madsim_tpu"):
+    `labels` namespaces the Prometheus textfile: every gauge renders as
+    ``name{k="v",...} value``, so many emitters (one per fleet job) can
+    be concatenated into one exposition — the fleet `/metrics` endpoint
+    does exactly that with ``labels={"job": <id>}``."""
+
+    def __init__(self, base: str, prefix: str = "madsim_tpu", labels: Optional[dict] = None):
         self.base = base
         self.prefix = prefix
+        self.labels = dict(labels) if labels else None
         self.seq = 0
         self._jsonl = open(base + ".jsonl", "a")
 
@@ -147,15 +153,25 @@ class StatsEmitter:
         with maybe_span("stats_emit"):
             return self._emit_row(row)
 
+    def _label_suffix(self) -> str:
+        if not self.labels:
+            return ""
+        rendered = ",".join(
+            '{}="{}"'.format(k, str(v).replace("\\", "\\\\").replace('"', '\\"'))
+            for k, v in sorted(self.labels.items())
+        )
+        return "{" + rendered + "}"
+
     def _emit_row(self, row: dict) -> dict:
         try:
             self._jsonl.write(json.dumps(row, sort_keys=True) + "\n")
             self._jsonl.flush()
             lines = [f"# emitted by madsim_tpu StatsEmitter (seq {self.seq})"]
+            suffix = self._label_suffix()
             for k, v in sorted(self._flatten(row).items()):
                 name = f"{self.prefix}_{k}".replace("-", "_").replace(".", "_")
                 lines.append(f"# TYPE {name} gauge")
-                lines.append(f"{name} {v}")
+                lines.append(f"{name}{suffix} {v}")
             self._atomic_write(self.prom_path, "\n".join(lines) + "\n")
             self._atomic_write(
                 self.snapshot_path, json.dumps(row, sort_keys=True) + "\n"

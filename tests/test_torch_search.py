@@ -18,9 +18,9 @@ tests/test_search.py case by case:
 
 Then the guided loop's cell-grid plateau climbing the escalation
 ladder, trail for trail the JAX package's; its resume and refusals are
-in tests/test_torch_search_guided.py. Left out: the fleet
-worker replacement of tests/test_search.py:465, which needs the port's
-fleet worker (ROADMAP.md queue 1, item 11).
+in tests/test_torch_search_guided.py. The fleet worker replacement of
+tests/test_search.py:465 is in tests/test_torch_fleet_workers.py, where
+the job moves between the JAX package's worker and the port's.
 """
 
 import json

@@ -10,8 +10,9 @@ and `run_stream` equal with the gate and a recorder on and off, in
 place of :38 (a JAX stream-function cache the port does not have).
 
 Left out of tests/test_xprof.py: :227 (the compile autopsy: eager
-PyTorch has no trace, lowering or backend stage) and :249 (the fleet's
-/profile endpoint: the fleet waits for ROADMAP.md queue 1, item 11).
+PyTorch has no trace, lowering or backend stage). The fleet's /profile
+endpoint (:249) runs on the port's fleet, and a CPU worker's unit under
+the gate leaves its capture and span dump in the store.
 """
 
 import copy
@@ -320,3 +321,76 @@ def test_run_stream_equal_with_gate_and_recorder(pipelined, monkeypatch):
     st = on["stats"]
     marks = names.count(xprof.SYNC_NAME)
     assert marks == st["dispatches"] + st["host_syncs"] - st["drains"]
+
+
+# -- the fleet /profile endpoint ---------------------------------------------
+
+
+def test_fleet_profile_endpoint_degraded_and_full(tmp_path):
+    """/jobs/{id}/profile merges whatever planes exist: with no xprof
+    artifacts it degrades to the host plane (the cross-process
+    timeline); once the worker's device capture and failing-lane
+    virtual trace are on disk they merge in. Torch-free throughout."""
+    from madsim_tpu_torch.fleet.api import FleetAPI
+    from madsim_tpu_torch.fleet.chaos import synthetic_driver
+    from madsim_tpu_torch.fleet.store import JobStore
+    from madsim_tpu_torch.fleet.worker import FleetWorker
+
+    root = str(tmp_path)
+    st = JobStore(root)
+    job = st.submit({"machine": "chaos-echo", "seeds": 96, "batch": 32, "faults": 0})
+    FleetWorker(root, worker_id="w1", driver=synthetic_driver, poll_s=0.01).run(drain=True)
+    api = FleetAPI(st)
+
+    status, _, body = api.handle("GET", "/jobs/nope/profile")
+    assert status == 404
+
+    status, _, body = api.handle("GET", f"/jobs/{job.id}/profile")
+    doc = json.loads(body)
+    assert status == 200
+    assert doc["madsim_xprof_summary"]["tracks"] == {"host": True, "device": False, "virtual": False}
+    assert doc["madsim_xprof_meta"]["trace_id"] == job.id
+
+    # the worker's xprof artifacts appear -> the planes merge in
+    with gzip.open(st.device_trace_path(job.id), "wt") as f:
+        json.dump({"traceEvents": [{"ph": "X", "pid": 0, "tid": 0, "name": "madsim.step", "ts": 5.0,
+                                    "dur": 2.0}]}, f)
+    with open(st.vtrace_path(job.id), "w") as f:
+        json.dump(_virtual_doc(), f)
+    status, _, body = api.handle("GET", f"/jobs/{job.id}/profile")
+    doc = json.loads(body)
+    assert status == 200
+    assert doc["madsim_xprof_summary"]["tracks"] == {"host": True, "device": True, "virtual": True}
+    names = {e.get("name") for e in doc["traceEvents"]}
+    assert "madsim.step" in names and "elect" in names
+    # a torn vtrace degrades (no virtual track), never 500s
+    with open(st.vtrace_path(job.id), "w") as f:
+        f.write('{"traceEvents": [')
+    status, _, body = api.handle("GET", f"/jobs/{job.id}/profile")
+    assert status == 200
+    assert json.loads(body)["madsim_xprof_summary"]["tracks"]["virtual"] is False
+
+
+def test_fleet_worker_unit_leaves_its_capture_on_the_cpu(tmp_path, monkeypatch):
+    """A `--device cpu` worker's unit under MADSIM_TPU_XPROF=1 leaves a
+    kineto capture of CPU activity (the stream's `madsim.*` ranges and
+    its sync markers) and the unit's span dump in the store, and the
+    /profile merge aligns them on the sync markers."""
+    from madsim_tpu_torch.fleet.api import FleetAPI
+    from madsim_tpu_torch.fleet.store import JobStore
+    from madsim_tpu_torch.fleet.worker import FleetWorker
+
+    monkeypatch.setenv(xprof.ENV_GATE, "1")
+    root = str(tmp_path)
+    st = JobStore(root)
+    job = st.submit({"machine": "echo", "seeds": 16, "batch": 16, "faults": 0, "horizon": 1.0, "max_steps": 64})
+    FleetWorker(root, worker_id="w1", poll_s=0.01, device="cpu").run(max_units=1)
+    trace = st.device_trace_path(job.id)
+    events = xprof.load_device_events(trace)
+    names = {e.get("name") for e in events}
+    assert "madsim.step" in names and any(str(n).startswith(xprof.SYNC_NAME + ":") for n in names)
+    assert not xprof.has_kernel_events(trace)  # CPU activity only
+    assert os.path.getsize(st.spans_path(job.id)) > 0
+    doc = json.loads(FleetAPI(st).handle("GET", f"/jobs/{job.id}/profile")[2])
+    summary = doc["madsim_xprof_summary"]
+    assert summary["tracks"]["host"] and summary["tracks"]["device"] and summary["sync_points"] >= 2
