@@ -197,17 +197,31 @@ last line):
      (seeds/s, engine built or cached), warm-ups and shrink seconds;
      `fleet_kernels` holds and times pop_gather and the flush at the guided
      job's 64 lanes;
+17b. lane sharding over torch.distributed (`mesh`), in a process of its
+     own with the other work that times nothing: phase 5's flagship stream
+     (2 x 8192 seeds) meshed over one rank on NCCL (the whole dict equal
+     to phase 5's, stats included), over two ranks sharing the card (gloo,
+     4096 lanes each, pipelined: every result equal, each rank's dict
+     equal to the other's, the megakernel and the flush launched on
+     both), `explore --multihost` over two processes from the MADSIM_TPU_*
+     env (process 0's line the unsharded explore's, counts masked; nothing
+     from process 1) and `explore --stream --devices 2` refused with one
+     line before any rank starts; each leg's seconds, with the card's name
+     and power limit (the ranks share one card: no scaling figure);
+     `mesh_kernels`, after the window, holds and times the megakernel and
+     the flush at a rank's 4096 lanes;
  18. a `kernels` JSON line (with each kernel's launches on the perf path,
-     `launches_perf`, and on the fleet's card workers, `launches_fleet`);
-     the last line is {"ok": true, "device": ...}.
+     `launches_perf`, on the fleet's card workers, `launches_fleet`, and on
+     the mesh path, `launches_mesh`); the last line is {"ok": true,
+     "device": ...}.
 
 From phase 4 on, the in-process CPU legs run on two intra-op threads.
 The work that times nothing runs at once, after phase 6's stream, with
 nothing timed beside it (`--only window` runs it alone): phase 17 from a
 thread, phase 16's checks, phase 6's single-lane replays in the main
-process, and in three processes of their own (niced) phase 4b, phase 6's
+process, and in four processes of their own (niced) phase 4b, phase 6's
 card_vs_cpu_v2 and card_vs_cpu_multipaxos and the card-against-CPU checks
-of phases 7-9, 12 and 13; the states the timed phases need from those
+of phases 7-9, 12 and 13, and phase 17b; the states the timed phases need from those
 checks are rebuilt in the main process. The delay engine's megakernel at
 8192 lanes is timed after it (`delay_kernels`).
 
@@ -226,8 +240,9 @@ just after; a kernel of the path that never launched fails the run.
 It needs a CUDA card and the repository beside it; with neither it
 exits non-zero and prints no result. `--only cli` builds the kernels and
 runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phases
-14-15, `--only perf` phase 16, `--only fleet` phase 17, `--only window`
-the work that times nothing (short checks; they print no result line).
+14-15, `--only perf` phase 16, `--only fleet` phase 17, `--only mesh`
+phase 17b and `mesh_kernels`, `--only window` the work that times nothing
+(short checks; they print no result line).
 """
 
 import argparse
@@ -3415,6 +3430,208 @@ def fleet_kernels(np, kernels, dev, w3_launches):
                               w3_launches.get("pop_gather", 0)),))
 
 
+# phase 17b, lane sharding over torch.distributed: the flagship stream of
+# phase 5 (2 x 8192 seeds from seed 8192, 384-step segments) meshed over
+# one rank on NCCL and over two ranks sharing the card (gloo, 4096 lanes
+# each), and `explore --multihost` over two processes; the card has one
+# GPU, so no leg measures scaling
+MESH_STREAM = dict(n_seeds=2 * LANES, batch=LANES, segment_steps=SEGMENT_STEPS, seed_start=LANES)
+MESH_RANKS = 2
+MESH_EXPLORE = ["explore", "--machine", "raft", "--seeds", str(LANES), "--max-steps", "384", *CLI_SHAPE,
+                "--flight-recorder", "--coverage"]
+MESH_REF_ENV = "MADSIM_SMOKE_MESH_REF"
+MESH_RANK_CHILD = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "sys.exit(chip_smoke.mesh_rank_main(sys.argv[2]))\n"
+)
+# what a stream of either executor gives alike: every result and the stats
+# that do not depend on the poll cadence
+MESH_SAME_KEYS = ("completed", "failing", "infra", "abandoned", "seeds_consumed")
+
+
+def flagship_engine(device=None):
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+
+    return Engine(RaftMachine(num_nodes=5, log_capacity=8), EngineConfig(**FLAGSHIP, faults=FaultPlan(**FLAGSHIP_FAULTS)),
+                  device=device)
+
+
+def mesh_rank_main(out):
+    """One rank of the shared-card leg: joins the job from the
+    MADSIM_TPU_* env (two processes, one card: gloo), runs its 4096 lanes
+    of the flagship stream on the pipelined executor and pickles its dict,
+    seconds and launch counts to `out`."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from madsim_tpu_torch.ops import build, kernels
+    from madsim_tpu_torch.parallel import multihost
+
+    build.load()
+    torch.set_num_threads(2)
+    multihost.initialize()
+    eng = flagship_engine()
+    mesh = multihost.global_mesh()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = multihost.run_stream_global(eng, **MESH_STREAM)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    dist.destroy_process_group()
+    pathlib.Path(out).write_bytes(pickle.dumps({"res": res, "s": s, "launches": launches, "rank": mesh.rank,
+                                                "backend": mesh.backend, "lanes": LANES // mesh.size}))
+    return 0
+
+
+def same_stream(a, b, full=True):
+    """Two stream dicts equal: whole (`full`), or in what either executor
+    gives alike (MESH_SAME_KEYS, the coverage map, the recorder's stats,
+    the device segments and the coverage stats but their poll curve)."""
+    import numpy as np
+
+    if not np.array_equal(a.get("coverage_map"), b.get("coverage_map")):
+        return False
+    if full:
+        return {k: v for k, v in a.items() if k != "coverage_map"} == {k: v for k, v in b.items() if k != "coverage_map"}
+    sa, sb = a["stats"], b["stats"]
+    return (all(a[k] == b[k] for k in MESH_SAME_KEYS) and sa["flight_recorder"] == sb["flight_recorder"]
+            and sa["device_segments"] == sb["device_segments"]
+            and {k: v for k, v in sa["coverage"].items() if k != "curve"}
+            == {k: v for k, v in sb["coverage"].items() if k != "curve"})
+
+
+def mesh_checks(torch, np, kernels):
+    """Phase 17b (a CHECK_GROUPS group: a process of its own in the
+    window): the flagship stream of phase 5 meshed, each leg equal to the
+    unsharded stream of the same seeds (phase 5's, pickled by the main
+    process; computed here when phase 5 did not run): one rank over NCCL
+    (the per-segment executor, phase 5's: the whole dict, stats
+    included), two ranks sharing the card (gloo, 4096 lanes each, the
+    pipelined executor: every result, each rank's dict equal to the
+    other's, the megakernel and the flush launched on both); `explore
+    --multihost` over two processes, process 0's line the unsharded
+    explore's with the process and device counts masked and nothing from
+    process 1; `explore --stream --devices 2` refused with one line before
+    any rank or stream starts. One `mesh` line; returns the launches."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from madsim_tpu_torch.parallel import make_mesh
+    from madsim_tpu_torch.parallel.ranks import devices_line
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="madsim_mesh_"))
+    eng = flagship_engine()
+    ref_path = os.environ.get(MESH_REF_ENV)
+    if ref_path:
+        ref = pickle.loads(pathlib.Path(ref_path).read_bytes())
+    else:
+        ref = eng.run_stream(pipelined=False, **MESH_STREAM)
+    legs, launches = {}, {}
+
+    # one rank over NCCL: phase 5's executor, the whole dict
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'world1'}", world_size=1, rank=0)
+    mesh = make_mesh()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run_stream(mesh=mesh, pipelined=False, **MESH_STREAM)
+    torch.cuda.synchronize()
+    legs["world1_nccl"] = {"s": round(time.perf_counter() - t0, 3), "lanes": LANES, "backend": mesh.backend,
+                           "launches": dict(kernels.launches)}
+    dist.destroy_process_group()
+    if not same_stream(res, ref):
+        fail(f"the 1-rank NCCL stream differs from the unsharded one: {res['stats']} vs {ref['stats']}")
+    launches["world1_nccl"] = legs["world1_nccl"]["launches"]
+
+    # two ranks sharing the card, from the MADSIM_TPU_* env
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    procs = []
+    for r in range(MESH_RANKS):
+        env = dict(os.environ, MADSIM_TPU_COORDINATOR=f"file://{tmp / 'shared'}",
+                   MADSIM_TPU_NUM_PROCS=str(MESH_RANKS), MADSIM_TPU_PROC_ID=str(r))
+        with open(tmp / f"rank{r}.err", "w") as err:
+            procs.append(subprocess.Popen([sys.executable, "-c", MESH_RANK_CHILD, repo, str(tmp / f"rank{r}.pkl")],
+                                          env=env, stdout=err, stderr=err))
+        _track(procs[-1])
+    for r, p in enumerate(procs):
+        if p.wait() != 0:
+            fail(f"mesh rank {r} exited {p.returncode}:\n{(tmp / f'rank{r}.err').read_text()[-3000:]}")
+    ranks = [pickle.loads((tmp / f"rank{r}.pkl").read_bytes()) for r in range(MESH_RANKS)]
+    for r in ranks:
+        if not same_stream(r["res"], ref, full=False):
+            fail(f"rank {r['rank']} of the shared-card mesh differs from the unsharded stream")
+        if not same_stream(r["res"], ranks[0]["res"]):
+            fail(f"ranks 0 and {r['rank']} of the shared-card mesh give different dicts")
+        for name in ("step_megakernel", "cov_flush"):
+            if r["launches"].get(name, 0) <= 0:
+                fail(f"rank {r['rank']} of the shared-card mesh never launched {name}")
+        launches[f"shared_rank{r['rank']}"] = r["launches"]
+    legs["shared_card"] = {"s": [round(r["s"], 3) for r in ranks], "lanes": ranks[0]["lanes"],
+                           "backend": ranks[0]["backend"], "launches": [r["launches"] for r in ranks]}
+
+    # explore --multihost: two processes against the unsharded explore
+    jobs = [spawn_cli(tmp, f"multihost{r}", [*MESH_EXPLORE, "--multihost"], extra_env={
+        "MADSIM_TPU_COORDINATOR": f"file://{tmp / 'explore'}", "MADSIM_TPU_NUM_PROCS": str(MESH_RANKS),
+        "MADSIM_TPU_PROC_ID": str(r)}) for r in range(MESH_RANKS)]
+    alone = spawn_cli(tmp, "explore", MESH_EXPLORE)
+    multi = [reap_cli(j, rc=None) for j in jobs]
+    single = reap_cli(alone, rc=None)
+    head = re.sub(r" over \d+ processes / \d+ devices", "", multi[0]["out"].splitlines()[0])
+    if head != single["out"].splitlines()[0] or multi[1]["out"] or multi[0]["rc"] != single["rc"]:
+        fail(f"explore --multihost: {multi[0]['out']!r} (rank 1: {multi[1]['out']!r}) against the unsharded "
+             f"{single['out']!r}")
+    for r, m in enumerate(multi):
+        launches[f"multihost_rank{r}"] = m["launches"]
+    legs["explore_multihost"] = {"s": [m["s"] for m in multi], "unsharded_s": single["s"],
+                                 "line": multi[0]["out"].splitlines()[0], "launches": [m["launches"] for m in multi]}
+
+    # --devices 2 on a one-card machine: one line, no rank, no stream
+    refused = run_cli(tmp, "devices2", ["explore", "--stream", "--machine", "raft", "--seeds", "64", "--batch",
+                                        "64", "--max-steps", "64", "--devices", "2"], rc=None)
+    err = refused["err"].strip().splitlines()
+    want = devices_line(2, torch.cuda.device_count())
+    if refused["rc"] == 0 or err != [want] or refused["streams"] or any(refused["launches"].values()):
+        fail(f"--devices 2 on {torch.cuda.device_count()} card(s): rc {refused['rc']}, stderr {err}, "
+             f"streams {refused['streams']}")
+    legs["devices2_refused"] = {"s": refused["s"], "rc": refused["rc"], "line": err[0]}
+
+    total = {}
+    for counts in launches.values():
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    emit({"phase": "mesh", "card": card_line(), "note": "ranks share one card; no scaling figure",
+          "seeds": MESH_STREAM["n_seeds"], "legs": legs, "launches_mesh": total})
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches_mesh": total}
+
+
+def mesh_kernels(np, kernels, dev, launches_mesh):
+    """The mesh path's kernel shapes, held against their twins and timed
+    (`mesh_kernels` line): the megakernel and the flush at a rank's 4096
+    lanes of the flagship (Q = 32, W = 10), on a state of rank 0's first
+    seeds a flush period past 96 steps, with the mesh path's launches."""
+    eng = flagship_engine()
+    lanes = LANES // MESH_RANKS
+    state = eng.run_segment(eng.init_batch(np.arange(LANES, LANES + lanes, dtype=np.uint32)), 96)
+    for _ in range(eng._cov_flush_every):
+        state = eng.step_batch(state)
+    time_kernel_shapes(kernels, dev, "mesh_kernels",
+                       ((f"step_megakernel_L{lanes}", state, eng._rng_layout.total_words,
+                         launches_mesh.get("step_megakernel", 0)),),
+                       ((f"cov_flush_L{lanes}", state.cov, launches_mesh.get("cov_flush", 0)),))
+
+
 # Phase 4b and the card-against-CPU checks of phases 6-9, 12 and 13 time
 # nothing: each group (~2 minutes on its own) runs in a process of its own (`python -c`, niced so
 # that the fleet's workers and the main process come first) beside the
@@ -3437,6 +3654,7 @@ CHECK_GROUPS = {
     "palette_storage": (("palette", palette_checks), ("storage", storage_checks)),
     "split_prov_clog": (("split", split_chain_checks), ("prov_legs", lambda torch, np, kernels: provenance_legs(np)),
                         ("clog", clog_checks)),
+    "mesh": (("mesh", mesh_checks),),
 }
 
 
@@ -3521,10 +3739,10 @@ def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
-    args.add_argument("--only", choices=("cli", "prov", "guided", "perf", "fleet", "window"), default=None,
+    args.add_argument("--only", choices=("cli", "prov", "guided", "perf", "fleet", "mesh", "window"), default=None,
                       help="build, then run phase 11 alone (cli), phases 11-13 (prov), phases 14-15 (guided), "
-                      "phase 16 (perf), phase 17 (fleet) or the work that times nothing, at once (window): a "
-                      "short check that prints no result line")
+                      "phase 16 (perf), phase 17 (fleet), phase 17b (mesh) or the work that times nothing, at "
+                      "once (window): a short check that prints no result line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -3565,8 +3783,15 @@ def main(argv=None):
         fleet_kernels(np, kernels, torch.device("cuda"), w3_launches)
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
+    if args.only == "mesh":
+        group = ChildChecks("mesh")
+        group.start()
+        mesh_kernels(np, kernels, torch.device("cuda"), group.join()["mesh"]["launches_mesh"])
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
     if args.only == "window":
         checks, _, (_, w3_launches), perf_checks = window_phase(torch, np, kernels)
+        mesh_kernels(np, kernels, torch.device("cuda"), checks["mesh"]["launches_mesh"])
         # the states the timed phases take from it
         model_states_of(np, checks["models"])
         palette_states_of(np, checks["palette"])
@@ -3693,6 +3918,16 @@ def main(argv=None):
         if codes != [c for _, c in found]:
             fail(f"failing seeds {found} replayed on the CPU with codes {codes}")
     emit({"phase": "replay_on_cpu", "seeds": [s for s, _ in found], "same_codes": True})
+    # phase 17b's meshed legs are held against this stream: its dict, for
+    # the window's processes
+    import os
+    import pickle
+    import tempfile
+
+    ref_fd, ref_path = tempfile.mkstemp(prefix="madsim_mesh_ref_")
+    with os.fdopen(ref_fd, "wb") as f:
+        pickle.dump(res, f)
+    os.environ[MESH_REF_ENV] = ref_path
 
     # where a flagship step's time goes: a short profiler window
     emit({"phase": "profile", **profile_steps(eng, state, steps=8)})
@@ -3711,6 +3946,11 @@ def main(argv=None):
     model_states = model_states_of(np, checks["models"])
     palette_states = palette_states_of(np, checks["palette"])
     storage = {**checks["storage"], "soak_state": soak_state_of(np)}
+
+    os.unlink(ref_path)
+    # 17b. the mesh path's kernel shapes (a rank's 4096 lanes)
+    launches_mesh = checks["mesh"]["launches_mesh"]
+    mesh_kernels(np, kernels, dev, launches_mesh)
 
     # 7. the delay-spike kind's megakernel at 8192 lanes
     delay_kernels(np, kernels, dev)
@@ -3802,19 +4042,21 @@ def main(argv=None):
          "replaces": "madsim_tpu/ops/pallas_pop.py:310", "launches": launches["step_megakernel"],
          "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
          "bound_by": s_bound[1], "library_ms": None, "floor_ms": s_floor,
-         "launches_perf": perf_launches["step_megakernel"], "launches_fleet": fleet_launches["step_megakernel"]},
+         "launches_perf": perf_launches["step_megakernel"], "launches_fleet": fleet_launches["step_megakernel"],
+         "launches_mesh": launches_mesh.get("step_megakernel", 0)},
         {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
          "bound_by": c_bound[1], "library_ms": None, "floor_ms": c_floor,
-         "launches_perf": perf_launches["cov_flush"], "launches_fleet": fleet_launches["cov_flush"]},
+         "launches_perf": perf_launches["cov_flush"], "launches_fleet": fleet_launches["cov_flush"],
+         "launches_mesh": launches_mesh.get("cov_flush", 0)},
         # each at the shape where its launches run: pop_earliest's are the
         # single-lane replay's
         *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
            "replaces": replaces, "launches": n, "max_abs_err": k["err"], "ms": k["ms"],
            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
            "floor_ms": k["floor_ms"], "lanes": k["lanes"], "launches_perf": perf_launches[name],
-           "launches_fleet": fleet_launches[name]}
+           "launches_fleet": fleet_launches[name], "launches_mesh": launches_mesh.get(name, 0)}
           for name, replaces, n, k in (
               ("pop_gather", "madsim_tpu/ops/pallas_pop.py:172", v2_launches["pop_gather"], pops["pop_gather"]),
               ("pop_earliest", "madsim_tpu/ops/pallas_pop.py:143", replay_launches["pop_earliest"],

@@ -3,6 +3,7 @@ not), replay, trace export, shrinking, the corpus, audits, coverage
 reports and the stats endpoint.
 
     python -m madsim_tpu_torch explore --machine raft --seeds 4096 [--stream]
+    python -m madsim_tpu_torch explore --machine raft --seeds 16384 --stream --devices 4
     python -m madsim_tpu_torch hunt    --machine demo-overcommit-raft --stream --corpus c.json
     python -m madsim_tpu_torch hunt    --machine raft --stream --coverage --guided --checkpoint ck.json
     python -m madsim_tpu_torch replay  --machine raft --seed 1234 [--tail 30]
@@ -29,11 +30,17 @@ coverage doc, exports, attribution JSON, host timeline, merged plane).
 `--xla-profile DIR` keeps the reference's spelling; here it is a
 `torch.profiler` capture of the card (`perf/xprof.py`). Every command
 runs on the CUDA card unless given `--device cpu`; without a card it
-exits non-zero and never falls back to the CPU. What the port does not
-run yet (several devices, the compile cache and its autopsy `prof
-compile`, bench, lint) and the host services `serve --service
-etcd|kafka|s3` exit with status 2 and one line naming the gate, before
-any engine is built.
+exits non-zero and never falls back to the CPU.
+
+`--devices N` shards each stream's lanes over N ranks: the command's
+process is rank 0 and starts the other N - 1 (`parallel/ranks.py`), one
+card each, or all on the CPU over gloo with `--device cpu`; the results
+are those of the unsharded run. `explore --multihost` joins a job of
+processes started from the MADSIM_TPU_* env (`parallel/multihost.py`).
+Only rank 0 prints or writes a file. What the port does not run (the
+compile cache and its autopsy `prof compile`, bench, lint) and the host
+services `serve --service etcd|kafka|s3` exit with status 2 and one
+line naming the gate, before any engine is built.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -49,14 +57,11 @@ import sys
 PROG = "madsim_tpu_torch"
 
 # what the port refuses, and the ROADMAP.md item (queue 1) it waits for
-_ITEM_MESH = "ROADMAP.md queue 1, item 12"
 _GATED_COMMANDS = {
     "bench": ("the `bench` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
     "lint": ("the `lint` command", "ROADMAP.md queue 1, item 14"),
 }
 _GATED_FLAGS = (
-    ("devices", "--devices N", _ITEM_MESH),
-    ("multihost", "--multihost", _ITEM_MESH),
     ("compile_cache", "--compile-cache (a JAX compile cache)", "no port item: the port compiles no graph"),
 )
 
@@ -188,6 +193,7 @@ def _repro_line(args, seed) -> str:
         f"--fault-kinds {getattr(args, 'fault_kinds', 'pair,kill')} "
         f"--rng-stream {getattr(args, 'rng_stream', 2)} "
         + ("--strict-restart " if getattr(args, "strict_restart", False) else "")
+        + (f"--devices {args.devices} " if getattr(args, "devices", 0) else "")
         + f"--max-steps {args.max_steps}"
     )
 
@@ -236,15 +242,33 @@ def _perf_session(args):
             print(f"device profile -> {xprof.find_device_trace(xla_dir)} (open in https://ui.perfetto.dev)")
 
 
-def _stream_kwargs(args) -> dict:
-    """The executor knobs of explore and hunt (default: pipelined and
-    donated; --no-pipeline runs the per-segment driver)."""
-    return {
+@contextlib.contextmanager
+def _streaming(args):
+    """The streaming commands' `stream(eng, n_seeds, **kw)`: the engine's
+    `run_stream` with the executor knobs bound (default: pipelined and
+    donated; --no-pipeline runs the per-segment driver), and with
+    `--devices N` run on every rank of a mesh of N, alive for the block
+    (`parallel/ranks.py`)."""
+    knobs = {
         "pipelined": not getattr(args, "no_pipeline", False),
         "segments_per_dispatch": getattr(args, "segments_per_dispatch", 8),
         "dispatch_depth": getattr(args, "dispatch_depth", 4),
         "donate": not getattr(args, "no_donate", False),
     }
+    n = int(getattr(args, "devices", 0) or 0)
+    if not n:
+        yield lambda eng, n_seeds, **kw: eng.run_stream(n_seeds, **knobs, **kw)
+        return
+    from .parallel.ranks import spawn_mesh
+
+    with spawn_mesh(n, cpu=_device(args) == "cpu") as ranks:
+        yield lambda eng, n_seeds, **kw: ranks.call(eng, "run_stream", n_seeds=n_seeds, **knobs, **kw)
+
+
+def _device_count(args) -> int:
+    """Ranks a streaming unit spans: `--devices N` shards over N, 0 means
+    the unsharded single-device path."""
+    return int(getattr(args, "devices", 0) or 0) or 1
 
 
 def _print_fr_stats(stats) -> None:
@@ -299,12 +323,12 @@ def _print_cov_stats(stats) -> None:
     )
 
 
-def _batch_heartbeat(bi, planned, completed, el, failing, infra, abandoned, cov_txt=""):
-    """The per-batch heartbeat line: batch index, throughput, the one
-    device a port stream spans, failure tallies and the coverage delta."""
+def _batch_heartbeat(bi, planned, completed, el, failing, infra, abandoned, device_count=1, cov_txt=""):
+    """The per-batch heartbeat line: batch index, throughput, the devices
+    (ranks) the stream spans, failure tallies and the coverage delta."""
     return (
         f"batch {bi}/{planned}: {completed} seeds in {el:.1f}s "
-        f"({completed / el:.0f} seeds/s) on 1 device(s), "
+        f"({completed / el:.0f} seeds/s) on {device_count} device(s), "
         f"{failing} failing so far, {infra} infra, {abandoned} abandoned"
         f"{cov_txt}"
     )
@@ -318,16 +342,22 @@ def _stream_batches(eng, args, purpose="explore"):
     `--checkpoint` resume. Returns an aggregate shaped like run_stream's
     result, plus "batches_run", "batches_planned", "plateau" and
     "elapsed_s" (and "coverage_map" with coverage on)."""
-    import time as wall
-
-    import numpy as np
-
     if getattr(args, "guided", False):
         # coverage-feedback search: the same aggregate, checkpoint file
         # and stats feed, but every batch's seed vector is chosen
         from .search.guided import run_guided
 
         return run_guided(eng, args, purpose=purpose)
+    with _streaming(args) as stream:
+        return _stream_chunks(eng, args, purpose, stream)
+
+
+def _stream_chunks(eng, args, purpose, stream):
+    """`_stream_batches` past the guided branch, each batch run through
+    `stream` (`_streaming`)."""
+    import time as wall
+
+    import numpy as np
 
     log = logging.getLogger(f"madsim_tpu.{purpose}")
     emitter = _make_emitter(args)
@@ -340,7 +370,6 @@ def _stream_batches(eng, args, purpose="explore"):
 
         detector = PlateauDetector(plateau_n)
 
-    sk = _stream_kwargs(args)
     batch = min(args.seeds, args.batch)
     planned = -(-args.seeds // batch)  # ceil
 
@@ -424,7 +453,7 @@ def _stream_batches(eng, args, purpose="explore"):
 
     # warm outside the timed loop, as the reference does
     t_warm = wall.perf_counter()
-    eng.run_stream(1, batch=batch, segment_steps=384, max_steps=args.max_steps, **sk)
+    stream(eng, 1, batch=batch, segment_steps=384, max_steps=args.max_steps)
     log.info("warm-up run_stream(1, batch=%d): %.1fs", batch, wall.perf_counter() - t_warm)
 
     t_start = wall.perf_counter()
@@ -435,9 +464,9 @@ def _stream_batches(eng, args, purpose="explore"):
             _save_ckpt(bi, True)  # seed budget already consumed: complete
             break
         t0 = wall.perf_counter()
-        out = eng.run_stream(
-            chunk, batch=min(batch, chunk), segment_steps=384,
-            seed_start=cursor, max_steps=args.max_steps, **sk,
+        out = stream(
+            eng, chunk, batch=min(batch, chunk), segment_steps=384,
+            seed_start=cursor, max_steps=args.max_steps,
         )
         el = max(wall.perf_counter() - t0, 1e-9)
         cursor += out["seeds_consumed"]
@@ -459,7 +488,8 @@ def _stream_batches(eng, args, purpose="explore"):
         cov_txt = f", coverage {slots_hit} slots (+{new_slots})" if cov_map is not None else ""
         log.info("%s", _batch_heartbeat(
             bi + 1, planned, out["completed"], el,
-            len(agg["failing"]), len(agg["infra"]), len(agg["abandoned"]), cov_txt=cov_txt,
+            len(agg["failing"]), len(agg["infra"]), len(agg["abandoned"]),
+            device_count=_device_count(args), cov_txt=cov_txt,
         ))
         if emitter is not None:
             rec = {
@@ -610,6 +640,25 @@ def _find_failing(eng, args, purpose="hunt"):
 
 def cmd_explore(args) -> int:
     import numpy as np
+
+    if getattr(args, "multihost", False):
+        # the job was joined in main(); the batch shards over every rank
+        from .parallel import multihost, pad_to_multiple
+
+        eng = _build_engine(args)
+        mesh = multihost.global_mesh()
+        n = pad_to_multiple(args.seeds, mesh.size)
+        out = multihost.run_batch_global(eng, n, seed_start=args.seed, max_steps=args.max_steps, mesh=mesh)
+        # the summary is the same on every process: only process 0 reports
+        if mesh.rank == 0:
+            print(
+                f"explored {n} seeds over {out['processes']} processes / "
+                f"{out['global_devices']} devices ({out['completed']} completed), "
+                f"{out['failed']} failing"
+            )
+            if out["failing"]:
+                print(f"failing seeds: {out['failing'][:20]}{' ...' if out['truncated'] else ''}")
+        return 1 if out["failing"] else 0
 
     eng = _build_engine(args)
     if args.stream:
@@ -1147,7 +1196,6 @@ def cmd_prof(args) -> int:
     # the gate must be on before the engine runs a segment
     os.environ[xprof.ENV_GATE] = "1"
     eng = _build_engine(args)
-    sk = _stream_kwargs(args)
     logdir = args.profile_dir or tempfile.mkdtemp(prefix="madsim-xprof-")
     rec = PerfRecorder(meta={
         "cmd": "prof", "machine": args.machine, "seeds": args.seeds,
@@ -1156,11 +1204,11 @@ def cmd_prof(args) -> int:
     # recorder INSIDE the capture: the profiler's stop and export stay
     # off the hunt's wall clock, so the attribution fraction measures
     # the hunt, not the profiler
-    with xprof.device_trace(logdir, cuda=eng.device.type == "cuda"):
+    with _streaming(args) as stream, xprof.device_trace(logdir, cuda=eng.device.type == "cuda"):
         with rec:
-            out = eng.run_stream(
-                args.seeds, batch=args.batch, seed_start=args.seed,
-                max_steps=args.max_steps, **sk,
+            out = stream(
+                eng, args.seeds, batch=args.batch, seed_start=args.seed,
+                max_steps=args.max_steps,
             )
     wall_s = rec.wall_us / 1e6
     print(
@@ -1249,28 +1297,27 @@ def cmd_bench_ab(args) -> int:
         label_a, label_b = f"{field}=on", f"{field}=off"
     lanes = args.lanes or 1024
     n_rep = args.seeds or 2 * lanes
-    sk = _stream_kwargs(args)
     runs = {}
-    for tag, cfg in (("a", cfg_a), ("b", cfg_b)):
-        run = Engine(eng.machine, cfg, device=eng.device).make_stream_runner(
-            batch=lanes, segment_steps=384, max_steps=args.max_steps, **sk
-        )
-        # the first run and one full untimed rep: the harness measures
-        # steady state, never the first run or a cold first rep
-        run(1)
-        run(n_rep, seed_start=500_000)
-        runs[tag] = run
+    with _streaming(args) as stream:
+        for tag, cfg in (("a", cfg_a), ("b", cfg_b)):
+            run = functools.partial(stream, Engine(eng.machine, cfg, device=eng.device),
+                                    batch=lanes, segment_steps=384, max_steps=args.max_steps)
+            # the first run and one full untimed rep: the harness measures
+            # steady state, never the first run or a cold first rep
+            run(1)
+            run(n_rep, seed_start=500_000)
+            runs[tag] = run
 
-    res = interleaved_ab(
-        lambda s: runs["a"](n_rep, seed_start=s)["completed"],
-        lambda s: runs["b"](n_rep, seed_start=s)["completed"],
-        pairs=args.reps,
-        seed_start=args.seed,
-        seeds_per_rep=4 * n_rep,
-        label_a=label_a,
-        label_b=label_b,
-        recorder=current_recorder(),
-    )
+        res = interleaved_ab(
+            lambda s: runs["a"](n_rep, seed_start=s)["completed"],
+            lambda s: runs["b"](n_rep, seed_start=s)["completed"],
+            pairs=args.reps,
+            seed_start=args.seed,
+            seeds_per_rep=4 * n_rep,
+            label_a=label_a,
+            label_b=label_b,
+            recorder=current_recorder(),
+        )
     print(json.dumps({
         "metric": f"{args.gate}_ab_delta_pct",
         "gate": args.gate,
@@ -1625,7 +1672,10 @@ def _parser() -> argparse.ArgumentParser:
         p.add_argument("--no-donate", action="store_true",
                        help="report the carry as not donated (in PyTorch one carry is alive at "
                        "a time either way; results are equal)")
-        p.add_argument("--devices", type=int, default=0, metavar="N", help="not ported: a mesh of N devices")
+        p.add_argument("--devices", type=int, default=0, metavar="N",
+                       help="shard each stream's lanes over N ranks, one process per card (on the CPU with "
+                       "--device cpu: N ranks over gloo); this process is rank 0 and starts the others. "
+                       "Results are equal at any N; batch must be a multiple of N. 0 = unsharded")
         p.add_argument("--stop-on-plateau", type=int, default=0, metavar="N",
                        help="with --coverage: stop when N consecutive seed batches add no new slot")
         p.add_argument("--stop-after-batches", type=int, default=0, metavar="N",
@@ -1646,13 +1696,18 @@ def _parser() -> argparse.ArgumentParser:
                    help="seed-streaming path (refill finished lanes; for large batches)")
     p.add_argument("--batch", type=int, default=8192, help="lanes per streaming batch")
     stream_flags(p)
-    p.add_argument("--multihost", action="store_true", help="not ported: a multi-process job")
+    p.add_argument("--multihost", action="store_true",
+                   help="shard the batch over a torch.distributed job of processes started from the "
+                   "MADSIM_TPU_COORDINATOR / NUM_PROCS / PROC_ID env (one per card, or on the CPU over "
+                   "gloo with --device cpu); only process 0 prints")
     p.set_defaults(fn=cmd_explore)
 
     p = sub.add_parser("replay", help="bit-identical replay of one seed with trace")
     common(p)
     p.add_argument("--tail", type=int, default=30, help="print last N events (0=all)")
-    p.add_argument("--devices", type=int, default=0, help="not ported: the mesh size a hunt ran at")
+    p.add_argument("--devices", type=int, default=0,
+                   help="accepted for repro-line fidelity (hunts record the ranks they ran at); replay is "
+                   "single-lane and equal at any rank count, so the value is recorded but unused")
     p.add_argument("--diff-seed", type=int, default=None,
                    help="also replay this seed and print where the two schedules first diverge")
     p.add_argument("--diff-context", type=int, default=3, help="events of context around the divergence")
@@ -1942,7 +1997,8 @@ def _parser() -> argparse.ArgumentParser:
     q.add_argument("--shrink-limit", type=int, default=5,
                    help="max distinct-code finds to shrink + file")
     q.add_argument("--devices", type=int, default=0, metavar="N",
-                   help="not ported: span each batch unit over a mesh of N devices")
+                   help="shard each batch unit's lanes over N ranks (0 = unsharded); part of the "
+                   "warm-compile grouping key")
     q.add_argument("--priority", type=int, default=0,
                    help="higher runs earlier (and may pay a compile switch)")
     q.add_argument("--deadline", type=float, default=None,
@@ -2152,8 +2208,27 @@ def main(argv=None) -> int:
         # the out positional IS the host timeline: cmd_perf runs under
         # the same --perf-timeline session as explore and hunt
         args.perf_timeline = args.out
-    with _perf_session(args):
-        return args.fn(args)
+    if not getattr(args, "multihost", False):
+        with _perf_session(args):
+            return args.fn(args)
+    # join the job (MADSIM_TPU_COORDINATOR / NUM_PROCS / PROC_ID) before
+    # any engine is built
+    import torch.distributed as dist
+
+    from .parallel import multihost
+
+    multihost.initialize(device=_device(args))
+    if multihost.process_index() != 0:
+        # only process 0 writes: the others keep no timeline, capture,
+        # stats feed or checkpoint
+        for attr in ("perf_timeline", "xla_profile", "stats", "checkpoint"):
+            if hasattr(args, attr):
+                setattr(args, attr, None)
+    try:
+        with _perf_session(args):
+            return args.fn(args)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -34,6 +34,11 @@ ORs along deliveries, and a failing lane keeps its violation's word.
 With `clog_packed=False` the clog state is the plain bool[L, N, N]
 matrix, the only layout past 60 nodes.
 
+With a `mesh` (`parallel/`) the stream executor and the batch runner
+shard the lanes over torch.distributed ranks, each rank holding a
+contiguous share and every cross-lane operation a collective over all
+of them, so every rank gets the unsharded run's results.
+
 The one configuration outside the port (a JAX compile cache) raises
 NotImplementedError naming the gate; nothing is silently ignored. The entry points run under
 `torch.inference_mode()`: the engine is integer code with no gradients,
@@ -69,6 +74,7 @@ from ..ops.step_rng import (
     RNG_STREAM_COUNTER, RNG_STREAM_LEGACY, RNG_STREAM_VERSIONS, layout_for, restart_key, step_words,
 )
 from ..ops.threefry import bits32, prng_key, split
+from .. import parallel as _par
 from ..perf import xprof as _xprof
 from ..perf.recorder import current_recorder
 from ..utils import gather_at, set2d, take, tree_where
@@ -381,7 +387,7 @@ def _unported(gate: str) -> NotImplementedError:
         f"RNG streams, packed and unpacked clogs, every fault kind, packet "
         f"loss, duplication, strict restarts, the trace ring, the flight "
         f"recorder, coverage (buffered or not) and provenance on or off, "
-        f"and both stream executors)"
+        f"and both stream executors, sharded over ranks or not)"
     )
 
 
@@ -1258,7 +1264,8 @@ class Engine:
             return dataclasses.replace(state, cov=dict(cov, map=new_map, buf_n=torch.zeros_like(cov["buf_n"])))
 
     @torch.inference_mode()
-    def run_segment(self, state: LaneState, segment_steps: int, go=None, parked=None) -> Optional[LaneState]:
+    def run_segment(self, state: LaneState, segment_steps: int, go=None, parked=None,
+                    mesh=None) -> Optional[LaneState]:
         """Advance the batch `segment_steps` event steps, with no host
         sync inside. The reference stops early once every lane is frozen;
         here the loop runs its full length, which changes nothing: a
@@ -1277,7 +1284,13 @@ class Engine:
         changes nothing), and `parked()`, a host callable asked before
         each step, may report that `go` is known to be False; the loop
         then stops and returns None, since every step it issued was a
-        no-op."""
+        no-op.
+
+        Under a `mesh` (`parallel`), `state` holds this rank's lanes and
+        `running` is decided over every rank's (`segment-done-any`, one
+        one-element all-reduce a step): a rank whose lanes all froze
+        first keeps writing their buffer tails while another rank's
+        lanes run, as the unsharded loop does."""
         buffered = self._cov_buffered
         if buffered:
             state = dataclasses.replace(state, cov=dict(state.cov, map=state.cov["map"].clone()))
@@ -1288,6 +1301,8 @@ class Engine:
                 running = None
                 if buffered:
                     running = (~(state.done | state.failed)).any()
+                    if mesh is not None:
+                        running = _par.any_rank(mesh, running)
                     if go is not None:
                         running = running & go
                 state = self.step_batch(state, running, go)
@@ -1297,21 +1312,26 @@ class Engine:
         return self._cov_flush_batch(state) if buffered else state
 
     @torch.inference_mode()
-    def run_batch(self, seeds, max_steps: int = 10_000) -> BatchResult:
+    def run_batch(self, seeds, max_steps: int = 10_000, mesh=None) -> BatchResult:
         """Run every seed lane to completion (or max_steps events/lane).
         Between chunks of whole flush periods the host checks whether any
         lane is still live and stops when none is: the chunk boundaries
         fall on the flush cadence, so the result equals one
-        `run_segment(state, max_steps)`."""
+        `run_segment(state, max_steps)`. Under a `mesh`, `seeds` are this
+        rank's lanes, the result is this rank's, and the live check is
+        taken over every rank's lanes."""
         state = self.init_batch(seeds)
         every = self._cov_flush_every or 1
         chunk = every * max(1, 128 // every)
         done_steps = 0
         while done_steps < max_steps:
             k = min(chunk, max_steps - done_steps)
-            state = self.run_segment(state, k)
+            state = self.run_segment(state, k, mesh=mesh)
             done_steps += k
-            if not bool((~(state.done | state.failed)).any()):
+            live = (~(state.done | state.failed)).any()
+            if mesh is not None:
+                live = _par.any_rank(mesh, live)
+            if not bool(live):
                 break
         return BatchResult(
             seeds=u32.to_i32(self._seed_values(seeds)),
@@ -1330,15 +1350,18 @@ class Engine:
 
     # -- the stream executor --------------------------------------------------
 
-    def _init_carry(self, seeds: torch.Tensor, cap: int) -> StreamCarry:
+    def _init_carry(self, seeds: torch.Tensor, cap: int, mesh=None) -> StreamCarry:
+        """The stream's first carry over `seeds` (this rank's lanes under
+        a `mesh`); the seed counter starts past the batch's last seed."""
         dev, cfg = self.device, self.config
         i64 = {"dtype": torch.int64, "device": dev}
         zero = torch.zeros((), **i64)
+        last = seeds[-1] if mesh is None else _par.seed_counter(mesh, seeds[-1])
         c = StreamCarry(
             state=self.init_batch(seeds),
             seeds=seeds,
             done=torch.zeros(seeds.shape[0], dtype=torch.bool, device=dev),
-            next_seed=(seeds[-1] + 1) & u32.MASK,
+            next_seed=(last + 1) & u32.MASK,
             completed=zero,
             segments=zero,
             fail_seeds=torch.zeros(cap, **i64),
@@ -1356,25 +1379,36 @@ class Engine:
         return _with_counters(c, cap)
 
     def _segment(self, c: StreamCarry, segment_steps: int, max_steps: int, cap: int, go=None,
-                 parked=None) -> StreamCarry:
+                 parked=None, mesh=None) -> StreamCarry:
         """Refill harvested lanes, advance one segment, harvest: all on
         the device, no host sync. With `go` (a scalar bool tensor) the
         segment is predicated: where it is False every write is masked
         and the carry comes back unchanged, `segments` included. When
         `parked()` reports mid-segment that `go` is False, the steps
-        issued so far were no-ops and `c` itself is returned."""
+        issued so far were no-ops and `c` itself is returned.
+
+        Under a `mesh` the lane leaves are this rank's and every
+        cross-lane operation runs over all ranks: the refill ranks and
+        the ring appends are global exclusive scans in rank-major lane
+        order, and the completions, the flight-recorder folds and the
+        coverage OR are reduced over every rank, so the global leaves
+        come out equal on every rank and equal to the unsharded run's."""
         # 1. refill lanes harvested at the end of the previous segment
         #    (cumsum ranks + the device seed counter: gapless, in lane order)
         with _xprof.scope("refill"):
             refill = c.done if go is None else c.done & go
             ranks = torch.cumsum(refill.to(torch.int64), dim=0) - 1
+            n_refill = refill.sum()
+            if mesh is not None:
+                offset, n_refill = _par.exclusive_count(mesh, n_refill, "refill-ranks", "refill-count")
+                ranks = ranks + offset
             fresh_seeds = (c.next_seed + ranks) & u32.MASK
             state = tree_where(refill, self.init_batch(fresh_seeds), c.state)
             seeds = torch.where(refill, fresh_seeds, c.seeds)
-            next_seed = (c.next_seed + refill.sum()) & u32.MASK
+            next_seed = (c.next_seed + n_refill) & u32.MASK
 
         # 2. advance the batch one segment
-        state = self.run_segment(state, segment_steps, go=go, parked=parked)
+        state = self.run_segment(state, segment_steps, go=go, parked=parked, mesh=mesh)
         if state is None:
             return c
 
@@ -1387,16 +1421,28 @@ class Engine:
             # harvest's, whose `done` this recomputes)
             harvest = done if go is None else done & go
             fail_mask = harvest & state.failed
-            fail_seeds, fail_count = _append_ring(c.fail_seeds, c.fail_count, fail_mask, seeds, cap)
-            fail_codes, _ = _append_ring(c.fail_codes, c.fail_count, fail_mask, state.fail_code.to(torch.int64),
-                                         cap)
-            fail_provs = c.fail_provs
+            ab_mask = harvest & ~state.failed & over_cap
+            cols = [seeds, state.fail_code.to(torch.int64)]
             if self.config.provenance:
                 # violation words ride the failure ring, as uint32 values
-                fail_provs, _ = _append_ring(c.fail_provs, c.fail_count, fail_mask, u32.from_i32(state.fail_prov),
-                                             cap)
-            ab_mask = harvest & ~state.failed & over_cap
-            ab_seeds, ab_count = _append_ring(c.ab_seeds, c.ab_count, ab_mask, seeds, cap)
+                cols.append(u32.from_i32(state.fail_prov))
+            fails = torch.stack(cols, dim=1)
+            if mesh is None:
+                found, n_fail = _par.compact(fail_mask, fails)
+                gone, n_ab = _par.compact(ab_mask, seeds[:, None])
+                completed = c.completed + harvest.sum()
+            else:
+                found, n_fail = _par.gather_masked(mesh, fail_mask, fails)
+                gone, n_ab = _par.gather_masked(mesh, ab_mask, seeds[:, None])
+                completed = c.completed + _par.all_sum(mesh, harvest.sum(), "harvest-completed")
+            fail_seeds = _place_ring(c.fail_seeds, c.fail_count, found[:, 0], n_fail, cap)
+            fail_codes = _place_ring(c.fail_codes, c.fail_count, found[:, 1], n_fail, cap)
+            fail_provs = c.fail_provs
+            if self.config.provenance:
+                fail_provs = _place_ring(c.fail_provs, c.fail_count, found[:, 2], n_fail, cap)
+            fail_count = c.fail_count + n_fail
+            ab_seeds = _place_ring(c.ab_seeds, c.ab_count, gone[:, 0], n_ab, cap)
+            ab_count = c.ab_count + n_ab
 
         # flight-recorder totals of the lanes finishing this segment
         fr_metrics = c.fr_metrics
@@ -1404,28 +1450,29 @@ class Engine:
             with _xprof.scope("fr_fold"):
                 frs, nk, ne = state.fr, len(FAULT_KIND_NAMES), len(FR_EXTRA_NAMES)
                 done_i = harvest.to(torch.int64)
-                inj_tot = fr_metrics[:nk] + (frs["inj"].to(torch.int64) * done_i[:, None]).sum(dim=0)
-                extra_tot = torch.stack([
-                    fr_metrics[nk + i] + (frs[k].to(torch.int64) * done_i).sum()
-                    for i, k in enumerate(FR_EXTRA_NAMES)
+                sums = torch.cat([
+                    (frs["inj"].to(torch.int64) * done_i[:, None]).sum(dim=0),
+                    torch.stack([(frs[k].to(torch.int64) * done_i).sum() for k in FR_EXTRA_NAMES]),
                 ])
                 hwm = torch.stack([
-                    torch.maximum(fr_metrics[nk + ne + i], torch.where(harvest, frs[k], 0).amax().to(torch.int64))
-                    for i, k in enumerate(("q_hwm", "clog_hwm", "kill_hwm"))
+                    torch.where(harvest, frs[k], 0).amax().to(torch.int64) for k in ("q_hwm", "clog_hwm", "kill_hwm")
                 ])
-                fr_metrics = torch.cat([inj_tot, extra_tot, hwm])
+                if mesh is not None:
+                    sums = _par.all_sum(mesh, sums, "fr-fold")
+                    hwm = _par.all_max(mesh, hwm, "fr-hwm")
+                fr_metrics = torch.cat([fr_metrics[: nk + ne] + sums, torch.maximum(fr_metrics[nk + ne :], hwm)])
         # every lane's map, done or not: maps only gain bits (and the OR
         # is idempotent, so a parked segment adds nothing)
         cov_map = c.cov_map
         if self.config.coverage:
             with _xprof.scope("cov_fold"):
-                cov_map = cov_map | cov_fold_words(state.cov["map"])
+                cov_map = cov_map | cov_fold_words(state.cov["map"], mesh=mesh)
         new = StreamCarry(
             state=state,
             seeds=seeds,
             done=done,
             next_seed=next_seed,
-            completed=c.completed + harvest.sum(),
+            completed=completed,
             segments=c.segments + (1 if go is None else go.to(torch.int64)),
             fail_seeds=fail_seeds,
             fail_codes=fail_codes,
@@ -1492,6 +1539,18 @@ class Engine:
         PyTorch one carry is alive at a time either way, so it changes
         nothing on the card.
 
+        `mesh` (`parallel.make_mesh`) shards the lanes over its ranks:
+        every rank makes the same call, holds `batch / world` contiguous
+        lanes and gets the same dict, which equals the unsharded run's,
+        stats included (`batch` must be a multiple of the world size,
+        refused with the reference's message). The host loop reads only
+        global leaves, so every rank takes the same decisions. Under more
+        than one rank, where an event query on the card is answered at
+        another moment on each rank, the host asks its copied counters
+        before each segment only, and the ranks agree on the answer (a
+        one-element host all-reduce); a speculative segment it did not
+        stop runs as a no-op on every rank.
+
         Under an active PerfRecorder (`perf/recorder.py`) every executor
         operation is a host span with the reference's name: `compile` on
         the first call of each stream function on this engine, `init` /
@@ -1515,8 +1574,6 @@ class Engine:
         from ..runtime.coverage import coverage_dict, unpack_map
         from ..runtime.metrics import fr_metrics_dict
 
-        if mesh is not None:
-            raise _unported("run_stream(mesh=...)")
         if donate is None:
             donate = True
         if segments_per_dispatch < 1 or dispatch_depth < 1:
@@ -1542,9 +1599,14 @@ class Engine:
             return "compile" if fn not in warmed else hot
 
         seeds = torch.arange(seed_start, seed_start + batch, dtype=torch.int64, device=self.device) & u32.MASK
+        if mesh is not None:
+            self._check_mesh(mesh)
+            seeds = _par.shard_seeds(seeds, mesh)  # validates the batch
         with op(first_or("init_carry", "init")):
-            carry = self._init_carry(seeds, cap)
+            carry = self._init_carry(seeds, cap, mesh)
         warmed.add("init_carry")
+        if mesh is not None:
+            self._check_carry_axes(mesh, carry, seeds.shape[0])
         failing, infra, abandoned, cov_curve = [], [], [], []
         prov_by_seed = {}  # seed -> violation word (provenance on)
         prov_on = self.config.provenance
@@ -1590,6 +1652,14 @@ class Engine:
         if pipelined:
             need = min(n_seeds, 2**31 - 1)
             watch = _CounterWatch(self.device, lambda k: int(k[0]) < need and not pressure(k))
+            # an event query is answered at another moment on each rank:
+            # under several ranks the host asks before each segment only,
+            # and the ranks agree (one host collective)
+            agree = mesh is not None and mesh.world > 1
+
+            def parked() -> bool:
+                return _par.any_host(mesh, watch.parked()) if agree else watch.parked()
+
             max_dispatch = max_segments + dispatch_depth * (n_seeds // batch + 4)
             in_flight = 0
             while completed < n_seeds and stats["dispatches"] < max_dispatch:
@@ -1599,11 +1669,12 @@ class Engine:
                 _xprof.sync_marker("dispatch")
                 with op(first_or("supersegment", "dispatch")):
                     for _ in range(segments_per_dispatch):
-                        if watch.parked():
+                        if parked():
                             break
                         go = ((carry.completed < need) & (carry.fail_count <= drain_mark)
                               & (carry.ab_count <= drain_mark))
-                        nxt = self._segment(carry, segment_steps, max_steps, cap, go=go, parked=watch.parked)
+                        nxt = self._segment(carry, segment_steps, max_steps, cap, go=go,
+                                            parked=None if agree else watch.parked, mesh=mesh)
                         if nxt is not carry:
                             carry = nxt
                             watch.record(carry.counters)
@@ -1623,7 +1694,7 @@ class Engine:
             while completed < n_seeds and stats["dispatches"] < max_segments:
                 _xprof.sync_marker("dispatch")
                 with op(first_or("segment", "dispatch")):
-                    carry = self._segment(carry, segment_steps, max_steps, cap)
+                    carry = self._segment(carry, segment_steps, max_steps, cap, mesh=mesh)
                 warmed.add("segment")
                 stats["dispatches"] += 1
                 counters = poll(carry)
@@ -1696,14 +1767,71 @@ class Engine:
     # -- triage: what a user does with a found bug ---------------------------
 
     def make_runner(self, max_steps: int = 10_000, mesh=None):
-        """A `seeds -> BatchResult` callable over `run_batch`."""
-        if mesh is not None:
-            raise _unported("make_runner(mesh=...)")
+        """A `seeds -> BatchResult` callable over `run_batch`. With a
+        `mesh` every rank calls it with the whole seed vector, runs its
+        own contiguous slice of the lanes and gets the whole logical
+        BatchResult, equal leaf for leaf to the unsharded one."""
+        if mesh is None:
+            def run(seeds):
+                return self.run_batch(seeds, max_steps=max_steps)
 
-        def run(seeds):
-            return self.run_batch(seeds, max_steps=max_steps)
+            return run
+        self._check_mesh(mesh)
 
-        return run
+        def sharded(seeds):
+            return self.run_batch_sharded(seeds, max_steps, mesh)
+
+        return sharded
+
+    @torch.inference_mode()
+    def run_batch_sharded(self, seeds, max_steps: int, mesh) -> BatchResult:
+        """`run_batch` of this rank's slice of `seeds` under `mesh`, then
+        every leaf gathered over the ranks: the whole logical BatchResult,
+        the same on every rank (the reference's `final-*` gathers)."""
+        local = _par.shard_seeds(self._seed_values(seeds), mesh)  # validates the batch
+        res = self.run_batch(local, max_steps=max_steps, mesh=mesh)
+
+        def g(tree, name):
+            return _par.gather_lanes(mesh, tree, name)
+
+        return BatchResult(
+            seeds=g(res.seeds, "final-fail-gather"),
+            done=g(res.done, "final-abandoned-gather"),
+            failed=g(res.failed, "final-fail-gather"),
+            fail_code=g(res.fail_code, "final-fail-gather"),
+            fail_prov=g(res.fail_prov, "final-prov-gather"),
+            now_us=g(res.now_us, "final-abandoned-gather"),
+            steps=g(res.steps, "final-abandoned-gather"),
+            msg_count=g(res.msg_count, "final-abandoned-gather"),
+            summary=g(res.summary, "final-fail-gather"),
+            ring=g(res.ring, "final-fail-gather"),
+            fr=g(res.fr, "final-fail-gather"),
+            cov=g(res.cov, "final-cov-or"),
+        )
+
+    def _check_mesh(self, mesh) -> None:
+        if not isinstance(mesh, _par.Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh(...)), not {type(mesh).__name__}")
+        if mesh.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError(f"an NCCL mesh needs the engine on the card, not on {self.device}")
+
+    @staticmethod
+    def _check_carry_axes(mesh, carry: StreamCarry, lanes: int) -> None:
+        """Every carry leaf has a declared axis (`parallel.CARRY_AXES`),
+        and every lane leaf holds this rank's `lanes` lanes."""
+        axes = _par.carry_shardings(mesh, carry)
+
+        def walk(axis, leaf):
+            if isinstance(axis, dict):
+                for k, v in axis.items():
+                    walk(v, leaf[k] if isinstance(leaf, dict) else getattr(leaf, k))
+            elif isinstance(axis, list):
+                for a, v in zip(axis, leaf):
+                    walk(a, v)
+            elif axis == "lane" and leaf.shape[0] != lanes:
+                raise ValueError(f"a lane leaf of shape {tuple(leaf.shape)} does not hold this rank's {lanes} lanes")
+
+        walk(axes, carry)
 
     def run_seed_batch(self, seeds, max_steps: int = 10_000) -> dict:
         """Run an EXPLICIT seed vector — one lane per seed, every lane to
@@ -1838,20 +1966,15 @@ def _push_all(eq, next_seq, pushes):
     return out, pushed, (want & ~fits).any(dim=1)
 
 
-def _append_ring(buf, count, mask, values, cap: int):
-    """Scatter-free ordered append: the masked lane of rank r (in lane
-    order) lands at ring slot count + r; slot j's source lane is found
-    with searchsorted on the mask's inclusive cumsum. Entries past
-    capacity are dropped (the host's drain policy keeps that
-    unreachable)."""
+def _place_ring(buf, count, found, n_new, cap: int):
+    """The ring after appending the first `n_new` entries of `found` (a
+    compacted sequence: `parallel.compact`, or `parallel.gather_masked`
+    over the ranks) at slot `count`. Entries past capacity are dropped
+    (the host's drain policy keeps that unreachable)."""
     with _xprof.scope("ring_append"):
-        csum = torch.cumsum(mask.to(torch.int64), dim=0)
-        n_new = csum[-1]
-        want_rank = torch.arange(cap, device=buf.device, dtype=torch.int64) - count + 1
-        src = torch.searchsorted(csum, want_rank, side="left")
-        fills = (want_rank >= 1) & (want_rank <= n_new)
-        vals = values[src.clamp(0, mask.shape[0] - 1)]
-        return torch.where(fills, vals, buf), count + n_new
+        k = torch.arange(cap, device=buf.device, dtype=torch.int64) - count
+        fills = (k >= 0) & (k < n_new)
+        return torch.where(fills, found[k.clamp(0, found.shape[0] - 1)], buf)
 
 
 class _CounterWatch:

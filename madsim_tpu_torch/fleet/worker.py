@@ -54,8 +54,8 @@ Self-healing (the failure taxonomy — every path seeded-fault-tested by
   (now fingerprint-mismatched) checkpoint — before burning poison
   attempts; below MIN_DEGRADED_BATCH lanes OOM counts as hard.
 * **Deterministic refusals** (fingerprint drift, SystemExit contract
-  violations, a mesh job the port does not run yet) go straight to
-  `failed`: retrying cannot help.
+  violations, such as a mesh job asking for more cards than the
+  machine has) go straight to `failed`: retrying cannot help.
 * **Torn checkpoints** (external corruption — the fsync'd atomic
   writes never produce one) are quarantined to `*.corrupt` and the
   stream restarts from batch 0 instead of wedging in a refusal loop.
@@ -389,14 +389,6 @@ class FleetWorker:
         drift = self.store.fingerprint_mismatch(job)
         if drift:
             self._fail(job, drift)
-            return
-        if self.driver is None and job.spec.get("devices"):
-            # a lane-sharded job (spec `devices` > 0, submitted through
-            # the JAX package) needs the mesh, which the port does not
-            # run yet: a deterministic refusal, not a poison attempt
-            from ..__main__ import _gate_line
-
-            self._fail(job, _gate_line("devices") + f" (job spec devices={job.spec['devices']})")
             return
         if job.deadline_ts is not None and time.time() > job.deadline_ts:
             self._finalize(job, stop_reason="deadline")

@@ -135,12 +135,23 @@ def cov_flush(cov_map, buf, n) -> torch.Tensor:
     return out
 
 
-def cov_fold_words(lane_maps: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
-    """OR-fold the per-lane packed maps [L, W] into one word vector [W].
-    PyTorch has no bitwise-or reduction, so each chunk of lanes is
-    bit-unpacked, reduced with `any` (a boolean or) and the hit bits
-    repacked by summing disjoint single-bit words, which is exactly the
-    or. Chunks bound the unpacked intermediate to chunk x W x 32."""
+def cov_fold_words(lane_maps: torch.Tensor, chunk: int = 1024, mesh=None) -> torch.Tensor:
+    """OR-fold the per-lane packed maps [L, W] into one word vector [W]:
+    the `cov-map-or` collective of the stream harvest. PyTorch has no
+    bitwise-or reduction, so each chunk of lanes is bit-unpacked,
+    reduced with `any` (a boolean or) and the hit bits repacked by
+    summing disjoint single-bit words, which is exactly the or. Chunks
+    bound the unpacked intermediate to chunk x W x 32.
+
+    Under a `mesh` (`parallel`) the maps are this rank's lanes: their
+    fold is then OR-ed with every other rank's, an all-gather of the
+    ranks' [W] partials folded the same way (NCCL has no bitwise-or
+    reduction). OR is associative and idempotent,
+    so the [W] vector is the unsharded one for any split of the lanes."""
+    if mesh is not None:
+        from ..parallel import or_words
+
+        return or_words(mesh, cov_fold_words(lane_maps, chunk), lambda parts: cov_fold_words(parts, chunk))
     words = lane_maps.shape[1]
     bits = torch.arange(COV_WORD_BITS, device=lane_maps.device, dtype=torch.int32)
     masks = torch.bitwise_left_shift(torch.ones_like(bits), bits)

@@ -51,6 +51,7 @@ fleet control plane on a box with no card.
 
 from __future__ import annotations
 
+import fcntl
 import json
 import os
 import signal
@@ -185,26 +186,23 @@ def append_text(path: str, text: str, *, fsync: bool = True) -> None:
     on one more property: the heal byte and the record go down in a
     SINGLE ``os.write`` on an ``O_APPEND`` descriptor, so two processes
     appending at once interleave whole records, never bytes of one
-    record inside another.
+    record inside another. The heal check and the write hold an
+    exclusive ``flock`` on the file: a record that crosses a page
+    boundary is copied in by pages, so without it another appender's
+    last-byte read can see a record half written and heal a boundary
+    that is not torn (a blank line in the log).
     """
     _chaos_tick_append(path, text)
-    heal = False
+    fd = os.open(path, os.O_RDWR | os.O_APPEND | os.O_CREAT, 0o666)
     try:
-        with open(path, "rb") as f:
-            f.seek(0, os.SEEK_END)
-            if f.tell() > 0:
-                f.seek(-1, os.SEEK_END)
-                heal = f.read(1) != b"\n"
-    except FileNotFoundError:
-        pass
-    data = (("\n" if heal else "") + text).encode()
-    fd = os.open(path, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o666)
-    try:
-        os.write(fd, data)
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        size = os.fstat(fd).st_size
+        heal = size > 0 and os.pread(fd, 1, size - 1) != b"\n"
+        os.write(fd, (("\n" if heal else "") + text).encode())
         if fsync:
             os.fsync(fd)
     finally:
-        os.close(fd)
+        os.close(fd)  # releases the lock
 
 
 def create_exclusive(path: str, text: str, *, fsync: bool = True) -> bool:

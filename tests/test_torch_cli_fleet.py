@@ -4,9 +4,9 @@ each package serves, and prints the same stdout once wall-clock figures,
 times and the program name are masked (`serve`, `submit`, `status`,
 `queue`, `cancel`, `worker` with the real driver on the CPU and the
 synthetic one, `watch`, `result`, `timeline`, `profile`, `top`, `fsck`,
-`chaos`). Then the port's own exits: a real worker with no card and no
-`--device cpu` exits 2 before it leases anything, and `fleet submit
---devices 2` exits 2 naming ROADMAP item 12.
+`chaos`). Then a real worker with no card and no `--device cpu` exits 2
+before it leases anything, and `fleet submit --devices 2` files the
+JAX package's spec.
 """
 
 import os
@@ -158,12 +158,21 @@ def test_real_worker_without_a_card_leases_nothing(tmp_path):
     assert out.returncode == 0 and "worker ws: drained" in out.stdout
 
 
-def test_mesh_submit_exits_2_naming_item_12(tmp_path):
-    argv = ("fleet", "submit", "--addr", "127.0.0.1:9", "--no-retry", *ECHO, "--devices", "2")
-    rc, out, err = _run("port", *argv, cwd=str(tmp_path))
-    assert rc == 2 and out == ""
-    assert err.strip() == "madsim_tpu_torch: --devices N is not ported yet (ROADMAP.md queue 1, item 12)"
-    # the same submit through the JAX package's command line only fails
-    # to reach the (absent) server
-    rc, _out, err = _run("jax", *argv, cwd=str(tmp_path))
-    assert rc == 1 and "fleet submit" in err
+def test_mesh_submit_files_the_jax_packages_spec(tmp_path):
+    """`fleet submit --devices 2` files a lane-sharded job: the spec the
+    port's server stores, and the submit's stdout, are the JAX
+    package's."""
+    specs = {}
+    for pkg in PROGS:
+        work = tmp_path / pkg
+        work.mkdir()
+        root, pf = str(work / "farm"), str(work / "farm.port")
+        server = _serve(pkg, root, pf)
+        try:
+            rc, out, err = _run(pkg, "fleet", "submit", "--port-file", pf, *ECHO, "--devices", "2", cwd=str(work))
+        finally:
+            server.terminate()
+            server.wait(timeout=30)
+        assert rc == 0, err[-2000:]
+        specs[pkg] = (out, JobStore(root).get(out.strip()).spec)
+    assert specs["port"] == specs["jax"] and specs["port"][1]["devices"] == 2

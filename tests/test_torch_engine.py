@@ -163,8 +163,11 @@ def test_cov_buffer_zero_matches_jax():
 
 
 def test_stream_gates_raise(flagship):
+    """The stream's mesh gate: a `mesh` that is not a `parallel.Mesh`
+    is refused before any lane runs (meshed streams themselves are
+    held against the JAX package in tests/test_torch_mesh*.py)."""
     _, port = flagship
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         port.run_stream(8, batch=8, mesh=object())
 
 

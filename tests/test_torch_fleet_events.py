@@ -432,12 +432,12 @@ def test_heartbeat_formats_pinned():
     from madsim_tpu_torch.__main__ import _batch_heartbeat
     from madsim_tpu_torch.search.guided import _guided_heartbeat
 
-    # a port stream spans one device (the mesh is not ported), so the
-    # unguided line has no device-count or escalation argument
+    # the unguided line has no escalation argument: only the guided
+    # search escalates, and it has a line of its own
     assert _batch_heartbeat(
-        2, 6, 256, 2.0, 1, 0, 3,
+        2, 6, 256, 2.0, 1, 0, 3, device_count=8,
         cov_txt=", coverage 91 slots (+7)",
-    ) == ("batch 2/6: 256 seeds in 2.0s (128 seeds/s) on 1 device(s), "
+    ) == ("batch 2/6: 256 seeds in 2.0s (128 seeds/s) on 8 device(s), "
           "1 failing so far, 0 infra, 3 abandoned, coverage 91 slots (+7)")
     assert _batch_heartbeat(1, 3, 64, 0.5, 0, 0, 0) == (
         "batch 1/3: 64 seeds in 0.5s (128 seeds/s) on 1 device(s), "

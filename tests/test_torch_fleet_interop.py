@@ -3,10 +3,10 @@ submits give the same bytes (job documents, fingerprints, subkeys, the
 queue log and the event logs, timestamps masked), each package's store,
 allocator, fsck and worker read a root the other wrote, and the same
 small echo job gives byte-identical results on a JAX worker and on the
-port's worker on the CPU, across a crash and resume too. Then the
-port's own refusals: a mesh job on the deterministic-refusal path, an
-out-of-memory error from torch on the lane backoff, and the per-job
-Prometheus labels in the JAX package's bytes.
+port's worker on the CPU, across a crash and resume too, and so does a
+lane-sharded job over 2 CPU ranks. Then an out-of-memory error from
+torch on the lane backoff, and the per-job Prometheus labels in the JAX
+package's bytes.
 
 Tolerance: byte equality after masking wall-clock timestamps, the store
 roots' paths and the program name in repro lines.
@@ -162,17 +162,26 @@ def test_echo_job_matches_jax_worker_across_crash_and_resume(tmp_path, capsys):
         assert f.read() == g.read()
 
 
-def test_mesh_job_is_refused_on_the_deterministic_path(tmp_path, capsys):
-    """A lane-sharded job (submitted through the JAX package) needs the
-    mesh, which the port does not run yet: the port's worker fails it
-    with the `--devices` gate line, burning no poison attempt."""
-    root = str(tmp_path)
-    job = JaxStore(root).submit({**ECHO_SPEC, "devices": 2})
-    FleetWorker(root, worker_id="w1", device="cpu", poll_s=0.01).run(drain=True)
-    done = JobStore(root).get(job.id)
-    assert done.state == FAILED and done.attempt == 0 and not done.deaths
-    assert "--devices N" in done.error and "item 12" in done.error and "devices=2" in done.error
-    assert "FAILED" in capsys.readouterr().out
+def test_mesh_job_runs_on_the_port_worker(tmp_path, capsys):
+    """A lane-sharded job (spec `devices` 2, submitted through the JAX
+    package) runs on the port's CPU worker, each unit over 2 ranks, to
+    the result of the same job unsharded and of a JAX worker's run of
+    it (on its 2-device mesh)."""
+    results = {}
+    for name, store, worker, devices in (("port-mesh", JaxStore, FleetWorker, 2), ("port", JobStore, FleetWorker, 0),
+                                         ("jax-mesh", JaxStore, JaxWorker, 2)):
+        root = str(tmp_path / name)
+        job = store(root).submit({**ECHO_SPEC, "seeds": 64, "devices": devices})
+        kw = {"device": "cpu"} if worker is FleetWorker else {}
+        worker(root, worker_id="w1", poll_s=0.01, **kw).run(drain=True)
+        done = JobStore(root).get(job.id)
+        assert done.state == EXHAUSTED and done.attempt == 0 and not done.deaths, (name, done.error)
+        results[name] = json.dumps(done.result, sort_keys=True)
+        if devices:
+            units = [e for e in JobStore(root).read_events(job.id) if e.get("type") == "batch_done"]
+            assert units and all(e.get("device_count") == 2 for e in units), name
+    assert results["port-mesh"] == results["port"] == results["jax-mesh"]
+    assert "FAILED" not in capsys.readouterr().out
 
 
 def test_torch_out_of_memory_takes_the_lane_backoff(tmp_path):
