@@ -150,13 +150,21 @@ last line):
      and with `--device cpu` gives equal stdout and checkpoints; the
      step's kernels at the base rung and the escalated one
      (`profile_guided`);
- 15. the Raft differential's device side (`differential`): the fault
-     schedules and device verdicts of 64 seeds at the fixture of
+ 15. the Raft differential (`differential`): the fault schedules and
+     device verdicts of 64 seeds at the fixture of
      tests/test_differential.py (Q = 96, the split chain) on the card
-     and on the CPU, equal; `guided_kernels` holds and times the
+     and on the CPU, equal; and in the window (`differential_whole`),
+     the whole differential with both engines on the port: 256 seeds,
+     the device side one 256-lane run_batch on the card, the host side
+     the port's own runtime (`run_host_raft` on each seed, its seconds
+     and seeds/s beside the card's name and power limit), with no
+     schedule mismatch, no violation on either engine and no
+     disagreement; the vote bug planted in both engines caught by both
+     (16 seeds, 3 s); `Runtime.check_determinism` of the host example's
+     scenario on 4 seeds; `guided_kernels` holds and times the
      megakernel and the flush at the escalated vocabulary's W (8192
      lanes), the megakernel at the 64-lane hunt's escalated W, and
-     pop_gather at the differential's 64 lanes of Q = 96;
+     pop_gather at the differential's 64 and 256 lanes of Q = 96;
  16. the perf tooling (`perf`), the command line in subprocesses on the
      card: `prof --merge` of one 256-step segment of 8192 lanes of the
      flagship (the command line's shape, recorder and buffered coverage
@@ -211,18 +219,21 @@ last line):
      `mesh_kernels`, after the window, holds and times the megakernel and
      the flush at a rank's 4096 lanes;
  18. a `kernels` JSON line (with each kernel's launches on the perf path,
-     `launches_perf`, on the fleet's card workers, `launches_fleet`, and on
-     the mesh path, `launches_mesh`); the last line is {"ok": true,
+     `launches_perf`, on the fleet's card workers, `launches_fleet`, on
+     the mesh path, `launches_mesh`, and on the whole differential,
+     `launches_differential`; pop_gather's `differential` holds its time
+     at the differential's 256 lanes); the last line is {"ok": true,
      "device": ...}.
 
 From phase 4 on, the in-process CPU legs run on two intra-op threads.
 The work that times nothing runs at once, after phase 6's stream, with
 nothing timed beside it (`--only window` runs it alone): phase 17 from a
 thread, phase 16's checks, phase 6's single-lane replays in the main
-process, and in four processes of their own (niced) phase 4b, phase 6's
+process, and in five processes of their own (niced) phase 4b, phase 6's
 card_vs_cpu_v2 and card_vs_cpu_multipaxos and the card-against-CPU checks
-of phases 7-9, 12 and 13, and phase 17b; the states the timed phases need from those
-checks are rebuilt in the main process. The delay engine's megakernel at
+of phases 7-9, 12 and 13, phase 17b and phase 15's whole differential;
+the states the timed phases need from those checks are rebuilt in the
+main process. The delay engine's megakernel at
 8192 lanes is timed after it (`delay_kernels`).
 
 With `--against DIR` (another csrc tree with the same C interface, e.g.
@@ -239,8 +250,8 @@ just after; a kernel of the path that never launched fails the run.
 
 It needs a CUDA card and the repository beside it; with neither it
 exits non-zero and prints no result. `--only cli` builds the kernels and
-runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phases
-14-15, `--only perf` phase 16, `--only fleet` phase 17, `--only mesh`
+runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phase
+15's whole differential then phases 14-15, `--only perf` phase 16, `--only fleet` phase 17, `--only mesh`
 phase 17b and `mesh_kernels`, `--only window` the work that times nothing
 (short checks; they print no result line).
 """
@@ -1842,6 +1853,7 @@ def time_kernel_shapes(kernels, dev, phase, steps, flushes, pops=()):
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
         k["launches_x_excess_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
     emit({"phase": phase, **out})
+    return out
 
 
 def storage_kernels(kernels, dev, found, palette_states):
@@ -1969,6 +1981,14 @@ GUIDED_STATE_STEPS = 64  # the escalated batch's state its kernels are timed on:
 DIFF = dict(horizon_us=5_000_000, queue_capacity=96)
 DIFF_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
 DIFF_LANES, DIFF_STEPS = 64, 3000
+# the whole differential, both engines on the port: 256 seeds of the
+# fixture; the vote bug planted in both engines, on the plan of
+# tests/test_differential.py:62-102 (16 seeds, a 3 s horizon); and
+# Runtime.check_determinism of the host example's scenario on 4 seeds
+DIFF_WHOLE_LANES = 256
+DIFF_BUG = dict(horizon_us=3_000_000, queue_capacity=96)
+DIFF_BUG_FAULTS = dict(n_faults=2, t_max_us=2_000_000, dur_min_us=200_000, dur_max_us=600_000)
+DIFF_BUG_SEEDS, DIFF_DETERMINISM_SEEDS = 16, 4
 
 
 # phase 16, the perf tooling: the command line's perf commands on the
@@ -2593,6 +2613,103 @@ def differential_side(device=None):
     return {"schedules": fault_schedules(eng, seeds), "verdicts": run_device_rafts(eng, seeds, DIFF_STEPS)}
 
 
+def vote_granting_pair():
+    """The vote bug of tests/test_differential.py:62-102 planted in both
+    authoring models: a device Raft whose every RequestVote also sends a
+    granting vote, and a host Raft node (examples/raft_host_torch.py)
+    that grants every vote."""
+    import torch
+
+    from madsim_tpu_torch.differential import _load_raft_host
+    from madsim_tpu_torch.engine.machine import send_if
+    from madsim_tpu_torch.models import RaftMachine
+    from madsim_tpu_torch.models import raft as R
+    from madsim_tpu_torch.utils import take
+
+    class BuggyDeviceRaft(RaftMachine):
+        def on_message(self, nodes, node, src, payload, now_us, rand_u32):
+            nodes2, outbox = super().on_message(nodes, node, src, payload, now_us, rand_u32)
+            is_rv = payload[:, 0] == R.M_RV
+            vote = self._pay(R.M_VOTE, torch.maximum(payload[:, 1], take(nodes.term, node)), 1)
+            return nodes2, send_if(outbox, 0, is_rv, src, vote)
+
+    class BuggyHostNode(_load_raft_host().RaftNode):
+        async def on_request_vote(self, req, data):
+            if req.term > self.term:
+                self.become_follower(req.term)
+            return {"term": self.term, "granted": True}
+
+    return BuggyDeviceRaft(num_nodes=5, log_capacity=8), BuggyHostNode
+
+
+def differential_checks(torch, np, kernels):
+    """Phase 15's whole differential (a CHECK_GROUPS group: a process of
+    its own in the window), both engines on the port: `differential_raft`
+    of 256 seeds at the fixture, the device side one 256-lane run_batch
+    on the card (its launches counted from 0) and the host side the
+    port's `run_host_raft` on each seed, timed apart: no schedule
+    mismatch, no violation on either engine, no disagreement; the vote
+    bug planted in both engines caught by both (16 seeds); and
+    `Runtime.check_determinism` of the host example's scenario on 4
+    seeds."""
+    from madsim_tpu_torch.differential import _load_raft_host, differential_raft, run_host_raft
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+    from madsim_tpu_torch.runtime import Runtime
+
+    host = {"s": 0.0, "seeds": 0}
+
+    def timed_host_run(*args, **kw):
+        t = time.perf_counter()
+        out = run_host_raft(*args, **kw)
+        host["s"] += time.perf_counter() - t
+        host["seeds"] += 1
+        return out
+
+    eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), EngineConfig(**DIFF, faults=FaultPlan(**DIFF_FAULTS)))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    report = differential_raft(eng, range(DIFF_WHOLE_LANES), timed_host_run, max_steps=DIFF_STEPS)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    counts = {k: v for k, v in report.items() if k != "rows"}
+    if host["seeds"] != DIFF_WHOLE_LANES:
+        fail(f"differential: {host['seeds']} host runs for {DIFF_WHOLE_LANES} seeds")
+    for key in ("schedule_mismatches", "device_violations", "host_violations", "safety_disagreements"):
+        if counts[key]:
+            bad = [r["seed"] for r in report["rows"] if r["device"]["violation"] or r["host"]["violation"]
+                   or not r["schedule_ok"]]
+            fail(f"differential of {DIFF_WHOLE_LANES} seeds: {key} = {counts[key]} (seeds {bad[:16]}): {counts}")
+    if launches.get("pop_gather", 0) <= 0:
+        fail(f"the whole differential never launched pop_gather: {launches}")
+
+    bug_machine, bug_node = vote_granting_pair()
+    bug_eng = Engine(bug_machine, EngineConfig(**DIFF_BUG, faults=FaultPlan(**DIFF_BUG_FAULTS)))
+    t0 = time.perf_counter()
+    bug = differential_raft(bug_eng, range(DIFF_BUG_SEEDS), run_host_raft, host_node_cls=bug_node,
+                            max_steps=DIFF_STEPS)
+    bug_s = time.perf_counter() - t0
+    bug_counts = {k: v for k, v in bug.items() if k != "rows"}
+    if bug["schedule_mismatches"] or bug["device_violations"] < 1 or bug["host_violations"] < 1:
+        fail(f"the vote bug was not caught by both engines: {bug_counts}")
+
+    scenario = _load_raft_host().scenario
+    t0 = time.perf_counter()
+    determinism = [Runtime.check_determinism(seed, scenario) for seed in range(DIFF_DETERMINISM_SEEDS)]
+    determinism_s = time.perf_counter() - t0
+
+    emit({"phase": "differential_whole", "card": card_line(), "seeds": DIFF_WHOLE_LANES, **counts,
+          "seconds": round(whole_s, 3), "device_s": round(whole_s - host["s"], 3), "host_s": round(host["s"], 3),
+          "host_seeds_per_s": round(DIFF_WHOLE_LANES / host["s"], 2), "launches": launches,
+          "bug_pair": {"seeds": DIFF_BUG_SEEDS, **bug_counts, "seconds": round(bug_s, 3)},
+          "check_determinism": {"seeds": DIFF_DETERMINISM_SEEDS, "passed": True,
+                                "terms_with_leader": [r["terms_with_leader"] for r in determinism],
+                                "seconds": round(determinism_s, 3)}})
+    return {"launches": launches}
+
+
 GUIDED_BEAT = re.compile(
     r"guided batch (\d+)/(\d+): (\d+) seeds \((\d+) mutants\) in ([0-9.]+)s \((\d+) seeds/s\) on \d+ device\(s\), "
     r"coverage (\d+) slots \(\+(\d+)\), (\d+) failing so far, escalation (\d+) \[([^\]]*)\]"
@@ -2611,9 +2728,10 @@ def guided_batches(err):
     return out
 
 
-def guided_phase(torch, np, kernels, dev):
+def guided_phase(torch, np, kernels, dev, diff_whole):
     """Phases 14 and 15: guided search at full width (`guided`), and the
-    Raft differential's device side (`differential`). At once: `hunt
+    Raft differential's device side (`differential`; the whole
+    differential, `diff_whole`, ran in the window). At once: `hunt
     --guided` of phase 11's hunt at 2 x 8192 lanes on the card (a
     `guided_batch` line a batch: seconds, seeds/s, mutants, new slots,
     finds so far, the rung), the same at 64 lanes on the card and with
@@ -2627,7 +2745,7 @@ def guided_phase(torch, np, kernels, dev):
     against its twin and timed (`guided_kernels`): the megakernel and the
     flush at 8192 lanes under the escalated vocabulary, the megakernel at
     the 64-lane hunt's escalated W, pop_gather at the differential's 64
-    lanes of Q = 96."""
+    and 256 lanes of Q = 96. Returns the `guided_kernels` entries."""
     import os
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -2793,8 +2911,11 @@ def guided_phase(torch, np, kernels, dev):
 
     d_eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), EngineConfig(**DIFF, faults=FaultPlan(**DIFF_FAULTS)))
     d_state = d_eng.run_segment(d_eng.init_batch(np.arange(DIFF_LANES, dtype=np.uint32)), 300)
-    time_kernel_shapes(kernels, dev, "guided_kernels", steps, flushes, pops=(
-        (f"pop_gather_differential_L{DIFF_LANES}_Q{DIFF['queue_capacity']}", d_state, diff_launches["pop_gather"]),))
+    w_state = d_eng.run_segment(d_eng.init_batch(np.arange(DIFF_WHOLE_LANES, dtype=np.uint32)), 300)
+    return time_kernel_shapes(kernels, dev, "guided_kernels", steps, flushes, pops=(
+        (f"pop_gather_differential_L{DIFF_LANES}_Q{DIFF['queue_capacity']}", d_state, diff_launches["pop_gather"]),
+        (f"pop_gather_differential_L{DIFF_WHOLE_LANES}_Q{DIFF['queue_capacity']}", w_state,
+         diff_whole["launches"]["pop_gather"])))
 
 
 def nest(ranges, points):
@@ -3655,6 +3776,7 @@ CHECK_GROUPS = {
     "split_prov_clog": (("split", split_chain_checks), ("prov_legs", lambda torch, np, kernels: provenance_legs(np)),
                         ("clog", clog_checks)),
     "mesh": (("mesh", mesh_checks),),
+    "differential": (("differential", differential_checks),),
 }
 
 
@@ -3770,7 +3892,9 @@ def main(argv=None):
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs),
           "ptxas": ptxas_line(build, libs)})
     if args.only == "guided":
-        guided_phase(torch, np, kernels, torch.device("cuda"))
+        group = ChildChecks("differential")
+        group.start()
+        guided_phase(torch, np, kernels, torch.device("cuda"), group.join()["differential"])
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
     if args.only == "perf":
@@ -4020,8 +4144,11 @@ def main(argv=None):
     provenance_phase(np, cli, checks["prov_legs"])
     clog_kernels(kernels, dev, clog_states_of(np, checks["clog"]))
 
-    # 14. guided search at full width; 15. the Raft differential's device side
-    guided_phase(torch, np, kernels, dev)
+    # 14. guided search at full width; 15. the Raft differential's device
+    # side (the whole differential ran in the window)
+    guided = guided_phase(torch, np, kernels, dev, checks["differential"])
+    diff_pop = guided[f"pop_gather_differential_L{DIFF_WHOLE_LANES}_Q{DIFF['queue_capacity']}"]
+    launches_differential = checks["differential"]["launches"]
 
     # 16. the perf tooling: the host timeline, the three clocks, bench-ab
     perf = perf_phase(torch, np, kernels, dev, perf_checks)
@@ -4043,20 +4170,27 @@ def main(argv=None):
          "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0],
          "bound_by": s_bound[1], "library_ms": None, "floor_ms": s_floor,
          "launches_perf": perf_launches["step_megakernel"], "launches_fleet": fleet_launches["step_megakernel"],
-         "launches_mesh": launches_mesh.get("step_megakernel", 0)},
+         "launches_mesh": launches_mesh.get("step_megakernel", 0),
+         "launches_differential": launches_differential.get("step_megakernel", 0)},
         {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
          "bound_by": c_bound[1], "library_ms": None, "floor_ms": c_floor,
          "launches_perf": perf_launches["cov_flush"], "launches_fleet": fleet_launches["cov_flush"],
-         "launches_mesh": launches_mesh.get("cov_flush", 0)},
+         "launches_mesh": launches_mesh.get("cov_flush", 0),
+         "launches_differential": launches_differential.get("cov_flush", 0)},
         # each at the shape where its launches run: pop_earliest's are the
         # single-lane replay's
         *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
            "replaces": replaces, "launches": n, "max_abs_err": k["err"], "ms": k["ms"],
            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
            "floor_ms": k["floor_ms"], "lanes": k["lanes"], "launches_perf": perf_launches[name],
-           "launches_fleet": fleet_launches[name], "launches_mesh": launches_mesh.get(name, 0)}
+           "launches_fleet": fleet_launches[name], "launches_mesh": launches_mesh.get(name, 0),
+           "launches_differential": launches_differential.get(name, 0),
+           # the whole differential's shape (phase 15), held and timed there
+           **({"differential": {key: diff_pop[key] for key in (
+               "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}}
+              if name == "pop_gather" else {})}
           for name, replaces, n, k in (
               ("pop_gather", "madsim_tpu/ops/pallas_pop.py:172", v2_launches["pop_gather"], pops["pop_gather"]),
               ("pop_earliest", "madsim_tpu/ops/pallas_pop.py:143", replay_launches["pop_earliest"],

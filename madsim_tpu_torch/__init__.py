@@ -13,7 +13,47 @@ Entry points run on the card unless the caller passes `device="cpu"`:
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
     from madsim_tpu_torch.models import RaftMachine
 
+The host engine (`runtime`, `task`, `time`, `net`, `fs`, ...) is the
+reference's seeded single-threaded async runtime, in pure Python:
+
+    from madsim_tpu_torch import Runtime, Handle, time
+
 This package imports torch, numpy and the standard library only.
 """
 
+from . import buggify, config, rand, time, task, plugin, runtime, sync, net, fs, signal
+from .runtime import Runtime, Handle, NodeBuilder, NodeHandle
+from .task import spawn
+from .errors import (
+    SimError,
+    Deadlock,
+    JoinError,
+    TimeLimitExceeded,
+    NonDeterminism,
+)
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "Runtime",
+    "Handle",
+    "NodeBuilder",
+    "NodeHandle",
+    "spawn",
+    "buggify",
+    "config",
+    "rand",
+    "time",
+    "task",
+    "plugin",
+    "runtime",
+    "sync",
+    "net",
+    "fs",
+    "signal",
+    "SimError",
+    "Deadlock",
+    "JoinError",
+    "TimeLimitExceeded",
+    "NonDeterminism",
+]

@@ -13,15 +13,16 @@ Three bridges:
 1. `fault_schedule(engine, seed)`: the device lane's fault events, a
    pure function of (seed, FaultPlan), read from `init_batch`. This IS
    the pinned chaos schedule for the seed.
-2. `host_run(seed, schedule, n=, horizon_us=, node_cls=, base_loss=)`:
-   replays that schedule against the host-engine Raft at the same
+2. `run_host_raft(seed, schedule, n=, horizon_us=, node_cls=, base_loss=)`:
+   replays that schedule against the host-engine Raft
+   (examples/raft_host_torch.py, on the port's own runtime) at the same
    virtual times and returns its verdict (`violation`, `elected`,
-   `max_commit`, `chaos_applied`, ...). The host engine runs nothing on
-   the card, so the port keeps no copy of it: the caller passes it in
-   (the JAX package's `madsim_tpu.differential.run_host_raft` is one).
-3. `differential_raft(engine, seeds, host_run, ...)`: both engines per
-   seed, compared: safety verdicts, election liveness, and the applied
-   chaos stream event for event against the device schedule.
+   `max_commit`, `chaos_applied`, ...).
+3. `differential_raft(engine, seeds, host_run=run_host_raft, ...)`: both
+   engines per seed, compared: safety verdicts, election liveness, and
+   the applied chaos stream event for event against the device schedule.
+   `host_run` takes any function of `run_host_raft`'s signature (the
+   JAX package's own `run_host_raft` is one).
 
 Lanes are independent, so every seed's schedule comes from one
 `init_batch` and every device verdict from one `run_batch` of the whole
@@ -31,11 +32,44 @@ seed vector: the rows equal per-seed `fault_schedule` /
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+import importlib.util
+import os
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from .engine.core import EV_FAULT, Engine
+from .engine.core import (
+    EV_FAULT,
+    F_CLOG_DIR,
+    F_CLOG_GROUP,
+    F_CLOG_PAIR,
+    F_DELAY_END,
+    F_DELAY_SPIKE,
+    F_KILL,
+    F_LOSS_END,
+    F_LOSS_STORM,
+    F_RESTART,
+    F_UNCLOG_DIR,
+    F_UNCLOG_GROUP,
+    F_UNCLOG_PAIR,
+    Engine,
+)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load_raft_host():
+    """Import the example protocol (examples/raft_host_torch.py) — the
+    differential harness deliberately reuses the *example* code so the
+    comparison covers what users actually write, not a purpose-built
+    twin. It loads under the reference's module name, so the request
+    classes' RPC type ids (`net/rpc.py`, a hash of module and class
+    name) are the reference's."""
+    path = os.path.join(_REPO, "examples", "raft_host_torch.py")
+    spec = importlib.util.spec_from_file_location("raft_host_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def fault_schedules(engine: Engine, seeds) -> List[List[Dict[str, int]]]:
@@ -60,6 +94,140 @@ def fault_schedule(engine: Engine, seed: int) -> List[Dict[str, int]]:
     for pair/dir/kill ops, a node *bitmask* for group ops, and the loss
     rate (1/65536 units) for storm ops."""
     return fault_schedules(engine, [seed])[0]
+
+
+def run_host_raft(
+    seed: int,
+    schedule: List[Dict[str, int]],
+    n: int = 5,
+    horizon_us: int = 5_000_000,
+    node_cls=None,
+    base_loss: float = 0.0,
+) -> Dict:
+    """Run the host-engine example Raft under the pinned `schedule`.
+
+    `base_loss` mirrors the device engine's static
+    `EngineConfig.packet_loss_rate`: it is installed in the host fabric at
+    setup, storms composite on top of it (rate = min(1, base + a/65536)),
+    and F_LOSS_END restores it (not 0.0) — so both engines run under the
+    same loss conditions.
+
+    Returns {"violation": None | "ELECTION_SAFETY" | "LOG_MATCHING",
+    "elected": bool, "max_commit": int, "chaos_applied": [(t_us, op, a, b)],
+    "loss_trace": [(t_us, rate), ...]}.
+    """
+    from . import time as sim_time
+    from .net import NetSim
+    from .plugin import simulator
+    from .runtime import Handle, Runtime
+    from .task import spawn
+
+    ex = _load_raft_host()
+    cls = node_cls or ex.RaftNode
+
+    async def scenario():
+        handle = Handle.current()
+        net = simulator(NetSim)
+        # NetSim.config is the outer Config; the fabric reads
+        # Network.config == config.net (net/network.py:154) — mutate THAT.
+        net.config.net.packet_loss_rate = base_loss
+        state: dict = {"loss_trace": [(0, base_loss)]}
+        peers = [f"10.3.0.{i+1}:{5000+i}" for i in range(n)]
+        nodes = []
+        for i in range(n):
+            node = (
+                handle.create_node()
+                .name(f"draft-{i}")
+                .ip(f"10.3.0.{i+1}")
+                .init(lambda i=i: cls(i, peers, state).run())
+                .build()
+            )
+            nodes.append(node)
+        ids = [nd.id for nd in nodes]
+
+        async def chaos():
+            applied = state.setdefault("chaos_applied", [])
+            start = sim_time.now()
+
+            def group_split(mask_lo, mask_hi):
+                # two-word mask: lo carries bits [0, 30), hi [30, 60)
+                def bit(i):
+                    return (mask_lo >> i) & 1 if i < 30 else (mask_hi >> (i - 30)) & 1
+
+                g = [ids[i] for i in range(n) if bit(i)]
+                rest = [ids[i] for i in range(n) if not bit(i)]
+                return g, rest
+
+            for ev in schedule:
+                target = start + ev["t_us"] / 1e6
+                delta = target - sim_time.now()
+                if delta > 0:
+                    await sim_time.sleep(delta)
+                op, a, b = ev["op"], ev["a"], ev["b"]
+                if op == F_CLOG_PAIR:
+                    net.partition([ids[a]], [ids[b]])
+                elif op == F_UNCLOG_PAIR:
+                    net.heal([ids[a]], [ids[b]])
+                elif op == F_KILL:
+                    handle.kill(ids[a])
+                elif op == F_RESTART:
+                    handle.restart(ids[a])
+                elif op == F_CLOG_DIR:
+                    net.clog_link(ids[a], ids[b])
+                elif op == F_UNCLOG_DIR:
+                    net.unclog_link(ids[a], ids[b])
+                elif op == F_CLOG_GROUP:
+                    net.partition(*group_split(a, b))
+                elif op == F_UNCLOG_GROUP:
+                    net.heal(*group_split(a, b))
+                elif op == F_LOSS_STORM:
+                    rate = min(1.0, base_loss + a / 65536.0)
+                    net.config.net.packet_loss_rate = rate
+                    state["loss_trace"].append((ev["t_us"], rate))
+                elif op == F_LOSS_END:
+                    net.config.net.packet_loss_rate = base_loss
+                    state["loss_trace"].append((ev["t_us"], base_loss))
+                elif op == F_DELAY_SPIKE:
+                    # device K_DELAY window: ~10% of packets +1-5 s
+                    # (the engine's DELAY_PROB/EXTRA constants mirror
+                    # these fabric knobs — one semantics, two engines)
+                    net.config.net.delay_spike_prob = 0.1
+                    state.setdefault("delay_trace", []).append((ev["t_us"], 0.1))
+                elif op == F_DELAY_END:
+                    net.config.net.delay_spike_prob = 0.0
+                    state.setdefault("delay_trace", []).append((ev["t_us"], 0.0))
+                applied.append((ev["t_us"], op, a, b))
+
+        spawn(chaos())
+        await sim_time.sleep(horizon_us / 1e6)
+
+        violation: Optional[str] = None
+        for _term, leaders in state.get("leaders_by_term", {}).items():
+            if len(leaders) > 1:
+                violation = "ELECTION_SAFETY"
+        # committed prefixes must agree pairwise (device invariant twin)
+        stable = state.get("stable", {})
+        commits = state.get("commits", {})
+        for i in commits:
+            for j in commits:
+                if i >= j:
+                    continue
+                upto = min(commits[i], commits[j])
+                li = stable.get(i, {}).get("log", [])
+                lj = stable.get(j, {}).get("log", [])
+                for idx in range(1, min(upto + 1, len(li), len(lj))):
+                    if li[idx][0] != lj[idx][0]:
+                        violation = violation or "LOG_MATCHING"
+        return {
+            "violation": violation,
+            "elected": len(state.get("leaders_by_term", {})) > 0,
+            "max_commit": state.get("max_commit", 0),
+            "chaos_applied": list(state.get("chaos_applied", [])),
+            "loss_trace": list(state.get("loss_trace", [])),
+            "delay_trace": list(state.get("delay_trace", [])),
+        }
+
+    return Runtime(seed=seed).block_on(scenario())
 
 
 def run_device_rafts(engine: Engine, seeds, max_steps: int = 3000) -> List[Dict]:
@@ -90,7 +258,7 @@ def run_device_raft(engine: Engine, seed: int, max_steps: int = 3000) -> Dict:
 def differential_raft(
     engine: Engine,
     seeds,
-    host_run: Callable[..., Dict],
+    host_run: Callable[..., Dict] = run_host_raft,
     n: int = 5,
     host_node_cls=None,
     max_steps: int = 3000,

@@ -1,10 +1,15 @@
-"""Host-side decoder of the flight-recorder metrics vector
+"""Runtime metrics (reference: madsim/src/sim/runtime/metrics.rs), and
+the host-side decoder of the flight-recorder metrics vector
 (`StreamCarry.fr_metrics`): the port's copy of
-`madsim_tpu/runtime/metrics.py::fr_metrics_dict`."""
+`madsim_tpu/runtime/metrics.py`'s `RuntimeMetrics` and
+`fr_metrics_dict`."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import TYPE_CHECKING, Dict, Sequence
+
+if TYPE_CHECKING:
+    from ..task.executor import Executor
 
 from ..kinds import FAULT_KIND_NAMES as FR_FAULT_KINDS
 from ..kinds import FR_EXTRA_NAMES as FR_EXTRAS
@@ -25,3 +30,37 @@ def fr_metrics_dict(vec: Sequence[int]) -> Dict[str, object]:
         "clog_links_hwm": v[nk + ne + 1],
         "killed_hwm": v[nk + ne + 2],
     }
+
+
+class RuntimeMetrics:
+    """Live task census (reference: metrics.rs:6-40)."""
+
+    def __init__(self, executor: "Executor"):
+        self._executor = executor
+
+    def num_nodes(self) -> int:
+        return len(self._executor.nodes)
+
+    def num_tasks(self) -> int:
+        return sum(len(n.tasks) for n in self._executor.nodes.values())
+
+    def num_tasks_by_node(self) -> Dict[str, int]:
+        return {
+            n.name: len(n.tasks)
+            for n in self._executor.nodes.values()
+            if n.tasks
+        }
+
+    def num_tasks_by_node_by_spawn(self) -> Dict[str, Dict[str, int]]:
+        out: Dict[str, Dict[str, int]] = {}
+        for n in self._executor.nodes.values():
+            if not n.tasks:
+                continue
+            per: Dict[str, int] = {}
+            for t in n.tasks:
+                loc = t.location
+                if isinstance(loc, tuple):  # (filename, lineno) spawn key
+                    loc = f"{loc[0]}:{loc[1]}"
+                per[loc] = per.get(loc, 0) + 1
+            out[n.name] = per
+        return out

@@ -7,7 +7,10 @@ package's `differential_raft` gives on the same seeds: schedules,
 device verdicts, host verdicts, `schedule_ok` and the aggregates. The
 batched rows equal per-seed `fault_schedule` / `run_device_raft`. The
 bugged pair and the loss storms are in
-tests/test_torch_differential_chaos.py."""
+tests/test_torch_differential_chaos.py. The `_own_host_run` cases run the
+port's own host Raft (`madsim_tpu_torch.differential.run_host_raft`,
+the default `host_run`) and hold the whole report equal to the JAX
+package's."""
 
 import pytest
 
@@ -15,11 +18,13 @@ from madsim_tpu.differential import fault_schedule as jax_fault_schedule
 from madsim_tpu.differential import run_host_raft
 from madsim_tpu.models.raft import RaftMachine as JaxRaft
 from madsim_tpu_torch.differential import differential_raft, fault_schedule, run_device_raft
+from madsim_tpu_torch.differential import run_host_raft as own_run_host_raft
 from madsim_tpu_torch.engine.core import F_DELAY_SPIKE
 from madsim_tpu_torch.models.raft import RaftMachine
 
 from torch_port_util import differential_engines as _engines
 from torch_port_util import raft_differential as _both
+from torch_port_util import raft_differential_own_host as _both_own
 
 N_SEEDS = 12
 
@@ -101,6 +106,37 @@ def test_delay_spike_windows_apply_on_both_engines():
                        dict(n_faults=3, allow_partition=False, allow_kill=False, allow_delay=True,
                             t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000))
     out = _both(engines, range(4), max_steps=4000)
+    assert out["schedule_mismatches"] == 0
+    assert out["safety_disagreements"] == 0
+    assert out["device_violations"] == 0 and out["host_violations"] == 0
+    spiked_rows = [r for r in out["rows"] if any(e["op"] == F_DELAY_SPIKE for e in r["schedule"])]
+    assert spiked_rows and all(r["host"]["delay_trace"] for r in spiked_rows)
+
+
+def test_correct_raft_agrees_with_the_ports_own_host_run(raft_engines):
+    """The whole differential inside the port: its device side and its
+    own host runtime agree on every seed, the report equals the JAX
+    package's, and `differential_raft` with no `host_run` gives the
+    report it gives with the JAX package's `run_host_raft` passed in."""
+    report = _both_own(raft_engines, range(N_SEEDS))
+    assert report["schedule_mismatches"] == 0, report
+    assert report["device_violations"] == 0, report
+    assert report["host_violations"] == 0, report
+    assert report["safety_disagreements"] == 0
+    assert report["device_elected"] >= N_SEEDS - 2, report
+    assert report["host_elected"] >= N_SEEDS - 2, report
+    _, eng = raft_engines
+    assert differential_raft(eng, range(N_SEEDS), run_host_raft) == report
+    assert differential_raft(eng, range(N_SEEDS), own_run_host_raft) == report
+
+
+def test_delay_spike_windows_with_the_ports_own_host_run():
+    """Delay-spike windows reach the port's own host fabric at the
+    scheduled times; the report equals the JAX package's."""
+    engines = _engines(JaxRaft(5, 8), RaftMachine(5, 8),
+                       dict(n_faults=3, allow_partition=False, allow_kill=False, allow_delay=True,
+                            t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000))
+    out = _both_own(engines, range(4), max_steps=4000)
     assert out["schedule_mismatches"] == 0
     assert out["safety_disagreements"] == 0
     assert out["device_violations"] == 0 and out["host_violations"] == 0

@@ -234,3 +234,40 @@ def test_port_runs_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ran ")
+
+
+def test_port_scripts_import_nothing_of_jax():
+    """The port's scripts beside the package (the smoke and the host
+    Raft example) import nothing of JAX either."""
+    banned = {"jax", "jaxlib", "flax", "madsim_tpu"}
+    for path in (REPO / "chip_smoke.py", REPO / "examples" / "raft_host_torch.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, (path, name)
+
+
+def test_port_differential_runs_with_jax_blocked():
+    """The whole Raft differential, its device side and its own host
+    runtime, runs with JAX and the JAX package unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'madsim_tpu'): sys.modules[m] = None\n"
+        "from madsim_tpu_torch.differential import differential_raft\n"
+        "from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan\n"
+        "from madsim_tpu_torch.models import RaftMachine\n"
+        "cfg = EngineConfig(horizon_us=5_000_000, queue_capacity=96, faults=FaultPlan(n_faults=2,"
+        " t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000))\n"
+        "rep = differential_raft(Engine(RaftMachine(5, 8), cfg, device='cpu'), range(4))\n"
+        "assert rep['schedule_mismatches'] == 0 and rep['safety_disagreements'] == 0, rep\n"
+        "assert all(r['host']['chaos_applied'] for r in rep['rows']), rep\n"
+        "print('differential', rep['device_elected'], rep['host_elected'])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("differential ")

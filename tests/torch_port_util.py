@@ -264,6 +264,21 @@ def raft_differential(engines, seeds, **kw):
     return got
 
 
+def raft_differential_own_host(engines, seeds, host_node_cls=None, jax_host_node_cls=None, **kw):
+    """The port's `differential_raft` report on `seeds` with its own host
+    Raft (the default `host_run`, examples/raft_host_torch.py on the
+    port's runtime), held equal to the report of the JAX package's
+    `differential_raft`; `host_node_cls` and `jax_host_node_cls` are the
+    two packages' host node classes (None: each example's `RaftNode`)."""
+    from madsim_tpu.differential import differential_raft as jax_differential_raft
+    from madsim_tpu_torch.differential import differential_raft
+
+    jax_eng, eng = engines
+    got = differential_raft(eng, seeds, host_node_cls=host_node_cls, **kw)
+    assert got == jax_differential_raft(jax_eng, seeds, host_node_cls=jax_host_node_cls, **kw)
+    return got
+
+
 def corpus_without_env(path):
     """A corpus file's entries with the `meta` fields that name the
     package and its framework (the port's torch and CUDA, the reference's
