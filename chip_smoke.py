@@ -218,20 +218,43 @@ last line):
      and power limit (the ranks share one card: no scaling figure);
      `mesh_kernels`, after the window, holds and times the megakernel and
      the flush at a rank's 4096 lanes;
- 18. a `kernels` JSON line (with each kernel's launches on the perf path,
+ 18. the device examples (`examples`): examples/bug_hunt_torch.py (the
+     DoubleVoteRaft hunt: 2,048 seeds streamed in batches of 512 lanes at
+     Q = 96, 192-step segments, the first find's traced replay, a passing
+     neighbour, the trace diff) and examples/delay_hunt_torch.py (three
+     256-lane batches of the MVCC give-up demo at Q = 48 and up to 3,000
+     steps under loss storms, partitions and kills, and delay spikes;
+     the first find's replay and shrink), each as a process of its own
+     on the card, started at once in the window; their stdout checked as
+     tests/test_examples.py checks the JAX examples', and each one's
+     wall and launches (pop_gather's by the shape of its step) on the
+     phase line; `card_vs_cpu_examples` runs both examples' engines at
+     256 lanes and 192 steps on the card and the CPU, equal leaf for leaf
+     and in their failing seeds; `host_facades` drives the host facades
+     that run no kernel (a tokio JoinSet and the fake runtime, the
+     simulated gRPC round trip of all four call shapes, a real-mode
+     Endpoint's send/recv and RPC on 127.0.0.1, the log records'
+     simulation context strings) without grpcio or a .proto;
+     `examples_kernels`, after the window, holds and times pop_gather at
+     bug_hunt's 512 lanes of Q = 96, delay_hunt's 256 of Q = 48 and the
+     replays' L = 1 at Q = 48 and 96, and pop_earliest at bug_hunt's
+     traced replay's L = 1, Q = 96;
+ 19. a `kernels` JSON line (with each kernel's launches on the perf path,
      `launches_perf`, on the fleet's card workers, `launches_fleet`, on
-     the mesh path, `launches_mesh`, and on the whole differential,
-     `launches_differential`; pop_gather's `differential` holds its time
-     at the differential's 256 lanes); the last line is {"ok": true,
-     "device": ...}.
+     the mesh path, `launches_mesh`, on the whole differential,
+     `launches_differential`, and in the examples, `launches_examples`;
+     pop_gather's `differential` holds its time at the differential's
+     256 lanes, each pop kernel's `examples` its times at the examples'
+     shapes); the last line is {"ok": true, "device": ...}.
 
 From phase 4 on, the in-process CPU legs run on two intra-op threads.
 The work that times nothing runs at once, after phase 6's stream, with
-nothing timed beside it (`--only window` runs it alone): phase 17 from a
-thread, phase 16's checks, phase 6's single-lane replays in the main
-process, and in five processes of their own (niced) phase 4b, phase 6's
-card_vs_cpu_v2 and card_vs_cpu_multipaxos and the card-against-CPU checks
-of phases 7-9, 12 and 13, phase 17b and phase 15's whole differential;
+nothing timed beside it (`--only window` runs it alone): phases 17 and
+18 from threads, phase 16's checks, phase 6's single-lane replays in the
+main process, and in six processes of their own (niced) phase 4b, phase
+6's card_vs_cpu_v2 and card_vs_cpu_multipaxos and the card-against-CPU
+checks of phases 7-9, 12 and 13, phase 17b, phase 15's whole
+differential and phase 18's checks;
 the states the timed phases need from those checks are rebuilt in the
 main process. The delay engine's megakernel at
 8192 lanes is timed after it (`delay_kernels`).
@@ -252,8 +275,9 @@ It needs a CUDA card and the repository beside it; with neither it
 exits non-zero and prints no result. `--only cli` builds the kernels and
 runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phase
 15's whole differential then phases 14-15, `--only perf` phase 16, `--only fleet` phase 17, `--only mesh`
-phase 17b and `mesh_kernels`, `--only window` the work that times nothing
-(short checks; they print no result line).
+phase 17b and `mesh_kernels`, `--only examples` phase 18 (the examples,
+their checks, then `examples_kernels`), `--only window` the work that
+times nothing (short checks; they print no result line).
 """
 
 import argparse
@@ -1809,31 +1833,41 @@ def triage_kernels(kernels, dev, found, model_states):
     ), (("cov_flush_triage", found["hunt_state"].cov, found["hunt_launches"]["cov_flush"]),))
 
 
-def time_pop_gather(kernels, dev, state):
-    """pop_gather against its twin on a main path's state, then its time
-    there, the twin's, (bytes, operations) and its floor."""
+def time_pop(kernels, dev, state, gather=True):
+    """pop_gather (with `gather`) or pop_earliest against its twin on a
+    main path's state, then its time there, the twin's, (bytes,
+    operations) and its floor."""
     import torch
 
-    ins = pop_planes(state)
-    got, want = kernels.pop_gather_batch(*ins), kernels.pop_gather_plain(*ins)
+    if gather:
+        name, ins = "pop_gather", pop_planes(state)
+        fn, plain = kernels.pop_gather_batch, kernels.pop_gather_plain
+
+        def flat(r):
+            return [r[0], r[1], *r[2], r[3]]
+    else:
+        name, ins = "pop_earliest", pop_planes(state, gather=False)
+        fn, plain, flat = kernels.pop_earliest_batch, kernels.pop_earliest_plain, list
+    got, want = fn(*ins), plain(*ins)
     torch.cuda.synchronize()
-    err = max_abs_err([got[0], got[1], *got[2], got[3]], [want[0], want[1], *want[2], want[3]])
+    err = max_abs_err(flat(got), flat(want))
     lanes, q = state.eq_time.shape
     if err:
-        fail(f"pop_gather disagrees with its twin at L = {lanes}, Q = {q}: max abs err {err}")
-    ms = device_time_ms(lambda: kernels.pop_gather_batch(*ins))
-    plain_ms = wall_time_ms(lambda: kernels.pop_gather_plain(*ins))
-    # three compares a slot, one per argmin stage
-    nbytes = pop_gather_bytes(lanes, q, state.eq_payload.shape[2])
-    return err, ms, plain_ms, nbytes, lanes * 3 * q, floor_ms(kernels, "pop_gather", lanes, dev)
+        fail(f"{name} disagrees with its twin at L = {lanes}, Q = {q}: max abs err {err}")
+    ms = device_time_ms(lambda: fn(*ins))
+    plain_ms = wall_time_ms(lambda: plain(*ins))
+    # the pop alone reads the three planes whole (9 B a slot) and writes
+    # idx and any; three compares a slot, one per argmin stage
+    nbytes = pop_gather_bytes(lanes, q, state.eq_payload.shape[2]) if gather else lanes * (9 * q + 4 + 1)
+    return err, ms, plain_ms, nbytes, lanes * 3 * q, floor_ms(kernels, name, lanes, dev)
 
 
-def time_kernel_shapes(kernels, dev, phase, steps, flushes, pops=()):
+def time_kernel_shapes(kernels, dev, phase, steps, flushes, pops=(), earliest=()):
     """Each megakernel shape (name, state, words, launches), each flush
-    (name, the coverage leaves, launches) and each pop + gather shape
-    (name, state, launches) against its twin on the state of the path
-    that launches it, then timed there with its floor and bound; one
-    `phase` line."""
+    (name, the coverage leaves, launches), each pop + gather shape and
+    each pop shape (name, state, launches) against its twin on the state
+    of the path that launches it, then timed there with its floor and
+    bound; one `phase` line."""
     out = {}
     for name, state, words, n in steps:
         err, ms, plain, nbytes, ops, floor = time_step_kernel(kernels, dev, state, words)
@@ -1845,10 +1879,11 @@ def time_kernel_shapes(kernels, dev, phase, steps, flushes, pops=()):
         out[name] = {"lanes": cov["buf"].shape[0], "ms": ms, "plain_ms": plain, "floor_ms": floor,
                      "bytes": nbytes, "ops": ops, "live_entries": live, "live_sectors": sectors, "launches": n,
                      "max_abs_err": err}
-    for name, state, n in pops:
-        err, ms, plain, nbytes, ops, floor = time_pop_gather(kernels, dev, state)
-        out[name] = {"lanes": state.eq_time.shape[0], "q": state.eq_time.shape[1], "ms": ms, "plain_ms": plain,
-                     "floor_ms": floor, "bytes": nbytes, "ops": ops, "launches": n, "max_abs_err": err}
+    for gather, shapes in ((True, pops), (False, earliest)):
+        for name, state, n in shapes:
+            err, ms, plain, nbytes, ops, floor = time_pop(kernels, dev, state, gather)
+            out[name] = {"lanes": state.eq_time.shape[0], "q": state.eq_time.shape[1], "ms": ms, "plain_ms": plain,
+                         "floor_ms": floor, "bytes": nbytes, "ops": ops, "launches": n, "max_abs_err": err}
     for k in out.values():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
         k["launches_x_excess_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
@@ -3286,7 +3321,7 @@ def fleet_jobs():
     stores finds nothing corrupt, and `fleet chaos --seed 3 --profile
     claims --workers 2` (host processes only, started with the oracle)
     passes. The calling thread only waits here, so the full run drives
-    this from a thread (FleetPhase) beside checks that time nothing.
+    this from a thread (InThread) beside checks that time nothing.
     Returns the card workers' launches, all and the handover's card
     unit's."""
     import os
@@ -3506,21 +3541,21 @@ def fleet_jobs():
     return launches, r3["launches"]
 
 
-class FleetPhase:
-    """Phase 17 driven from a thread (its thread only waits on
-    subprocesses and reads the stores), so in-process checks run beside
-    it; `join` gives `fleet_jobs`' result, or ends the script as the
+class InThread:
+    """A phase that only waits on subprocesses (phase 17's `fleet_jobs`,
+    phase 18's `examples_run`) driven from a thread, so in-process checks
+    run beside it; `join` gives `fn()`'s result, or ends the script as the
     phase's failure did."""
 
-    def __init__(self):
+    def __init__(self, fn):
         import threading
 
-        self.exc, self.res = None, None
-        self.thread = threading.Thread(target=self._run, name="fleet", daemon=True)
+        self.fn, self.exc, self.res = fn, None, None
+        self.thread = threading.Thread(target=self._run, name=fn.__name__, daemon=True)
 
     def _run(self):
         try:
-            self.res = fleet_jobs()
+            self.res = self.fn()
         except BaseException as exc:  # fail() raises SystemExit here; join re-raises it
             self.exc = exc
 
@@ -3753,6 +3788,333 @@ def mesh_kernels(np, kernels, dev, launches_mesh):
                        ((f"cov_flush_L{lanes}", state.cov, launches_mesh.get("cov_flush", 0)),))
 
 
+# phase 18, the device examples (`examples`): examples/bug_hunt_torch.py
+# and examples/delay_hunt_torch.py, each as a process of its own on the
+# card at its own widths (bug_hunt: 2,048 seeds in batches of 512, 192-step
+# segments, Q = 96; delay_hunt: three 256-lane batches of up to 3,000 steps
+# at Q = 48, then a replay and a shrink), started at once in the window;
+# their stdout checked as tests/test_examples.py checks the JAX examples'
+EXAMPLES = ("bug_hunt_torch.py", "delay_hunt_torch.py")
+EXAMPLE_CHECK_LANES, EXAMPLE_CHECK_STEPS = 256, 192
+EXAMPLE_STATE_STEPS = {"bug": 192, "delay": 32, "bug_L1": 100, "delay_L1": 20}
+# runs an example as `python examples/<script>` does, then prints, on its
+# last line, its wall and the wrappers' launch counts of that process, and
+# pop_gather's launches by the shape of the step that launched them
+# (`L<lanes>_Q<queue>`; the megakernel's too, by shape)
+EXAMPLE_LAUNCHER = (
+    "import json, runpy, sys, time\n"
+    "script = sys.argv.pop(1)\n"
+    "from madsim_tpu_torch.engine.core import Engine\n"
+    "from madsim_tpu_torch.ops import kernels\n"
+    "by_shape, step_batch = {}, Engine.step_batch\n"
+    "def counted(self, state, *args, **kwargs):\n"
+    "    before = dict(kernels.launches)\n"
+    "    out = step_batch(self, state, *args, **kwargs)\n"
+    "    key = 'L%d_Q%d' % tuple(state.eq_time.shape)\n"
+    "    for k in ('pop_gather', 'step_megakernel'):\n"
+    "        if kernels.launches[k] != before[k]:\n"
+    "            by_shape.setdefault(k, {})\n"
+    "            by_shape[k][key] = by_shape[k].get(key, 0) + kernels.launches[k] - before[k]\n"
+    "    return out\n"
+    "Engine.step_batch = counted\n"
+    "sys.argv[0] = script\n"
+    "t0 = time.perf_counter()\n"
+    "runpy.run_path(script, run_name='__main__')\n"
+    "print('EXAMPLE ' + json.dumps({'wall_s': round(time.perf_counter() - t0, 3),\n"
+    "                               'launches': dict(kernels.launches), 'by_shape': by_shape}), flush=True)\n"
+)
+
+
+def check_example_stdout(name, out):
+    """tests/test_examples.py's checks of the JAX example's stdout, on the
+    port example's: a list of the checks that failed."""
+    if name == "bug_hunt_torch.py":
+        checks = {"invariant violations": "invariant violations" in out, "failed=True": "failed=True" in out,
+                  "diverge or no passing seed": "traces diverge at step" in out or "no passing seed" in out}
+    else:
+        checks = {"delay spikes": "delay spikes" in out, "codes {206}": "codes {206}" in out,
+                  "replay + shrink: seed": "replay + shrink: seed" in out,
+                  **{f"{vocab}: 0/256": bool(re.search(rf"{vocab}:\s*0/256 seeds flagged", out))
+                     for vocab in ("loss storms", r"partitions \+ kills")}}
+    return [k for k, ok in checks.items() if not ok]
+
+
+def examples_run():
+    """Phase 18: both examples on the card at once, each a process of its
+    own (EXAMPLE_LAUNCHER); one `examples` line with each one's wall,
+    launches (by shape for pop_gather) and the lines it printed that the
+    engine decides. Fails if one exits non-zero, misses a stdout check, or
+    never launched pop_gather (and bug_hunt's traced replays
+    pop_earliest). Returns {script: its EXAMPLE record}."""
+    import os
+    import tempfile
+
+    repo = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="madsim_examples_"))
+    procs = {}
+    for script in EXAMPLES:
+        with open(tmp / f"{script}.out", "w") as out, open(tmp / f"{script}.err", "w") as err:
+            procs[script] = subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_LAUNCHER, str(repo / "examples" / script)],
+                cwd=tmp, env=env, stdout=out, stderr=err)
+        _track(procs[script])
+    res, line = {}, {}
+    for script, proc in procs.items():
+        proc.wait()
+        out, err = (tmp / f"{script}.out").read_text(), (tmp / f"{script}.err").read_text()
+        if proc.returncode != 0:
+            fail(f"example {script} exited {proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+        missed = check_example_stdout(script, out)
+        if missed:
+            fail(f"example {script}: stdout lacks {missed}:\n{out[-3000:]}")
+        rec = json.loads(out.strip().splitlines()[-1][len("EXAMPLE "):])
+        needs = ("pop_gather", "pop_earliest") if script == "bug_hunt_torch.py" else ("pop_gather",)
+        for k in needs:
+            if rec["launches"].get(k, 0) <= 0:
+                fail(f"example {script} never launched {k}: {rec['launches']}")
+        res[script] = rec
+        line[script] = {**rec, "lines": [s.strip() for s in out.splitlines()
+                                         if re.search(r"simulations|flagged|replay|diverge|passing", s)][:12]}
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "examples", "card": card_line(), **line})
+    return res
+
+
+def example_modules():
+    """The two port examples as modules, by path (their main() not run)."""
+    import importlib.util
+
+    repo = pathlib.Path(__file__).resolve().parent
+    mods = {}
+    for key, script in zip(("bug", "delay"), EXAMPLES):
+        spec = importlib.util.spec_from_file_location(f"example_{key}", repo / "examples" / script)
+        mods[key] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[key])
+    return mods
+
+
+def card_vs_cpu_examples(torch, np, kernels):
+    """The two examples' engines (the DoubleVoteRaft hunt, the
+    PrematureGiveup delay hunt) run_batch on the card and on the CPU at
+    256 lanes and 192 steps: every BatchResult leaf and the failing seeds
+    equal, some lane failing in each (a CHECK_GROUPS check)."""
+    mods = example_modules()
+    seeds = np.arange(EXAMPLE_CHECK_LANES, dtype=np.uint32)
+    out = {}
+    for key, make in (("bug", mods["bug"].make_engine),
+                      ("delay", lambda d: mods["delay"].engine(d, allow_delay=True))):
+        on_card, t_card, t_cpu = card_vs_cpu(make, seeds, EXAMPLE_CHECK_STEPS, f"the {key} example")
+        failing = seeds[on_card["failed"]].tolist()
+        if not failing:
+            fail(f"the {key} example's engine failed no lane in {EXAMPLE_CHECK_STEPS} steps")
+        codes = sorted({int(c) for c in on_card["fail_code"].tolist() if c})
+        out[key] = {"equal": True, "n_failing": len(failing), "first_failing": failing[:4], "codes": codes,
+                    "card_s": round(t_card, 3), "cpu_s": round(t_cpu, 3)}
+    emit({"phase": "card_vs_cpu_examples", "lanes": EXAMPLE_CHECK_LANES, "max_steps": EXAMPLE_CHECK_STEPS, **out})
+    return out
+
+
+# the log records' simulation context (ROADMAP §3 fault 4): a node `a`
+# that sleeps 1.5 s and logs, then the main task, under Runtime(seed=3)
+FACADE_SIM_STRINGS = ["t=1.500000s node=a/2 task=2", "t=1.500000s node=madsim-main/1 task=1"]
+
+
+def host_facades(torch, np, kernels):
+    """The host facades, which run no kernel (a CHECK_GROUPS check): a
+    `tokio.JoinSet` workload and the fake runtime in a simulation; the
+    simulated gRPC round trip of all four call shapes with a hand-written
+    service; a real-mode Endpoint's send/recv and RPC on 127.0.0.1:0
+    (asyncio TCP); the log records' simulation context strings. Imports
+    neither `grpc.real` nor grpcio and loads no .proto (the card's machine
+    may lack grpcio, protobuf and protoc)."""
+    import asyncio
+    import logging
+
+    import madsim_tpu_torch as m
+    from madsim_tpu_torch import grpc, tokio, tracing
+    from madsim_tpu_torch.real import Endpoint
+
+    global FacadePing
+
+    class FacadePing(m.net.Request):  # a global: real mode pickles it
+        def __init__(self, v):
+            self.v = v
+
+    t0 = time.perf_counter()
+
+    async def joinset():
+        js = tokio.JoinSet()
+        for d, tag in ((3.0, "c"), (1.0, "a"), (2.0, "b")):
+            async def job(d=d, tag=tag):
+                await m.time.sleep(d)
+                return tag
+
+            js.spawn(job())
+        order = [await js.join_next() for _ in range(3)]
+        drained = await js.join_next() is None
+        rt = tokio.runtime.Builder.new_multi_thread().enable_all().build()
+
+        async def fast():
+            await m.time.sleep(1.0)
+            return "fast"
+
+        spawned = await rt.spawn(fast())
+        coro = fast()
+        try:
+            rt.block_on(coro)
+            refused = False
+        except NotImplementedError:
+            refused = True
+        coro.close()
+        return order, drained, spawned, refused, m.time.now_ns()
+
+    order, drained, spawned, refused, jt = m.Runtime(seed=1).block_on(joinset())
+    if (order, drained, spawned, refused) != (["a", "b", "c"], True, "fast", True):
+        fail(f"host_facades: the JoinSet workload gave {order, drained, spawned, refused}")
+
+    @grpc.service("helloworld.Greeter")
+    class Greeter:
+        @grpc.unary
+        async def say_hello(self, request):
+            return grpc.Response(f"Hello {request.into_inner()}!")
+
+        @grpc.server_streaming
+        async def lots_of_replies(self, request):
+            for i in range(3):
+                await m.time.sleep(0.1)
+                yield f"{request.into_inner()} #{i}"
+
+        @grpc.client_streaming
+        async def lots_of_greetings(self, stream):
+            names = []
+            while (msg := await stream.message()) is not None:
+                names.append(msg)
+            return grpc.Response(f"Hello {', '.join(names)}!")
+
+        @grpc.streaming
+        async def bidi_hello(self, stream):
+            while (msg := await stream.message()) is not None:
+                yield f"Hello {msg}!"
+
+    async def four_shapes():
+        handle = m.Handle.current()
+
+        async def serve():
+            await grpc.Server.builder().add_service(Greeter()).serve("0.0.0.0:50051")
+
+        handle.create_node().name("server").ip("10.5.0.1").init(serve).build()
+        await m.time.sleep(0.2)
+        client = handle.create_node().name("client").ip("10.5.0.2").build()
+
+        async def go():
+            ch = await grpc.connect("http://10.5.0.1:50051")
+            r1 = await ch.unary("/helloworld.Greeter/SayHello", "world")
+            r2 = [x async for x in await ch.server_streaming("/helloworld.Greeter/LotsOfReplies", "srv")]
+            r3 = await ch.client_streaming("/helloworld.Greeter/LotsOfGreetings", ["a", "b", "c"])
+            r4 = [x async for x in await ch.streaming("/helloworld.Greeter/BidiHello", ["x", "y"])]
+            return r1, r2, r3, r4
+
+        return await client.spawn(go())
+
+    shapes = m.Runtime(seed=1).block_on(four_shapes())
+    want = ("Hello world!", ["srv #0", "srv #1", "srv #2"], "Hello a, b, c!", ["Hello x!", "Hello y!"])
+    if shapes != want:
+        fail(f"host_facades: the gRPC round trip gave {shapes}")
+
+    async def real_mode():
+        server = await Endpoint.bind("127.0.0.1:0")
+        client = await Endpoint.bind("127.0.0.1:0")
+        await client.send_to(server.local_addr, 7, b"hello")
+        data, frm = await server.recv_from(7)
+
+        async def on_ping(req, payload):
+            return req.v * 2, bytes(reversed(payload))
+
+        server.add_rpc_handler(FacadePing, on_ping)
+        rsp = await client.call_with_data(server.local_addr, FacadePing(21), b"abc")
+        server.close()
+        client.close()
+        return data, tuple(frm) == tuple(client.local_addr), rsp
+
+    real = asyncio.run(real_mode())
+    if real != (b"hello", True, (42, b"cba")):
+        fail(f"host_facades: the real-mode Endpoint gave {real}")
+
+    class Capture(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.sims = []
+
+        def emit(self, record):
+            self.sims.append(record.sim)
+
+    log = logging.getLogger("chip_smoke.facades")
+    cap = Capture()
+    cap.addFilter(tracing.SimContextFilter())
+    log.addHandler(cap)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+
+    async def logged():
+        node = m.Handle.current().create_node().name("a").build()
+
+        async def task():
+            await m.time.sleep(1.5)
+            log.info("from a")
+
+        await node.spawn(task())
+        log.info("from main")
+
+    m.Runtime(seed=3).block_on(logged())
+    log.removeHandler(cap)
+    if cap.sims != FACADE_SIM_STRINGS:
+        fail(f"host_facades: the log records' sim context is {cap.sims}, not {FACADE_SIM_STRINGS}")
+    loaded = sorted(k for k in sys.modules if k == "madsim_tpu_torch.grpc.real" or k == "grpc"
+                    or k.startswith("grpc."))
+    if "madsim_tpu_torch.grpc.real" in loaded:
+        fail("host_facades imported madsim_tpu_torch.grpc.real")
+    emit({"phase": "host_facades", "joinset": order, "joinset_virtual_ns": jt, "grpc_four_shapes": True,
+          "real_endpoint": {"send_recv": real[0].decode(), "rpc": [real[2][0], real[2][1].decode()]},
+          "sim_strings": cap.sims, "grpcio_loaded": loaded, "seconds": round(time.perf_counter() - t0, 3)})
+    return {"ok": True}
+
+
+def example_states(np, mods):
+    """The states the examples' kernels are timed on, on the card:
+    bug_hunt's stream batch (512 lanes, Q = 96) and delay_hunt's batch
+    (256 lanes, Q = 48) some steps in, and single lanes of each (the
+    replays' and shrink's L = 1)."""
+    bug, delay = mods["bug"].make_engine(), mods["delay"].engine(allow_delay=True)
+    steps = EXAMPLE_STATE_STEPS
+    return {
+        "bug": bug.run_segment(bug.init_batch(np.arange(512, dtype=np.uint32)), steps["bug"]),
+        "delay": delay.run_segment(delay.init_batch(np.arange(256, dtype=np.uint32)), steps["delay"]),
+        "bug_L1": bug.run_segment(bug.init_batch([0]), steps["bug_L1"]),
+        "delay_L1": delay.run_segment(delay.init_batch([0]), steps["delay_L1"]),
+    }
+
+
+def examples_kernels(np, kernels, dev, examples):
+    """The examples' kernel shapes, held against their twins on the
+    states of their paths and timed there (`examples_kernels` line):
+    pop_gather at bug_hunt's 512 lanes of Q = 96, at delay_hunt's 256 of
+    Q = 48 and at its replays' and shrink's L = 1, Q = 48; pop_earliest at
+    bug_hunt's traced replays' L = 1, Q = 96; each with the launches the
+    examples' processes counted for its shape."""
+    states = example_states(np, example_modules())
+    bug, delay = (examples[s]["by_shape"].get("pop_gather", {}) for s in EXAMPLES)
+    bug_earliest = examples[EXAMPLES[0]]["launches"]["pop_earliest"]
+    return time_kernel_shapes(kernels, dev, "examples_kernels", (), (), pops=(
+        ("pop_gather_L512_Q96", states["bug"], bug.get("L512_Q96", 0)),
+        ("pop_gather_L256_Q48", states["delay"], delay.get("L256_Q48", 0)),
+        ("pop_gather_L1_Q48", states["delay_L1"], delay.get("L1_Q48", 0)),
+        ("pop_gather_L1_Q96", states["bug_L1"], bug.get("L1_Q96", 0)),
+    ), earliest=(("pop_earliest_L1_Q96", states["bug_L1"], bug_earliest),))
+
+
 # Phase 4b and the card-against-CPU checks of phases 6-9, 12 and 13 time
 # nothing: each group (~2 minutes on its own) runs in a process of its own (`python -c`, niced so
 # that the fleet's workers and the main process come first) beside the
@@ -3777,6 +4139,7 @@ CHECK_GROUPS = {
                         ("clog", clog_checks)),
     "mesh": (("mesh", mesh_checks),),
     "differential": (("differential", differential_checks),),
+    "examples": (("card_vs_cpu_examples", card_vs_cpu_examples), ("host_facades", host_facades)),
 }
 
 
@@ -3835,14 +4198,16 @@ class ChildChecks:
 
 def window_phase(torch, np, kernels):
     """The work that times nothing, all at once: phase 17 (the fleet,
-    driven from a thread), phase 16's checks (PerfChecks), each group of
+    driven from a thread), phase 18 (the examples' two processes, driven
+    from a thread), phase 16's checks (PerfChecks), each group of
     CHECK_GROUPS in a process of its own, and in this process phase
     6's replays. Returns the groups' results, the replays' launches and
-    states (replay_and_corpus), the fleet's launches (fleet_jobs) and the
-    PerfChecks, joined."""
-    fleet, perf_checks = FleetPhase(), PerfChecks()
+    states (replay_and_corpus), the fleet's launches (fleet_jobs), the
+    PerfChecks, joined, and the examples' records (examples_run)."""
+    fleet, examples, perf_checks = InThread(fleet_jobs), InThread(examples_run), PerfChecks()
     groups = [ChildChecks(g) for g in CHECK_GROUPS]
     fleet.start()
+    examples.start()
     for g in groups:
         g.start()
     perf_checks.start()
@@ -3852,7 +4217,7 @@ def window_phase(torch, np, kernels):
         checks.update(g.join())
     fleet_res = fleet.join()
     perf_checks.join()
-    return checks, replays, fleet_res, perf_checks
+    return checks, replays, fleet_res, perf_checks, examples.join()
 
 
 def main(argv=None):
@@ -3861,10 +4226,11 @@ def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
-    args.add_argument("--only", choices=("cli", "prov", "guided", "perf", "fleet", "mesh", "window"), default=None,
+    args.add_argument("--only", choices=("cli", "prov", "guided", "perf", "fleet", "mesh", "examples", "window"),
+                      default=None,
                       help="build, then run phase 11 alone (cli), phases 11-13 (prov), phases 14-15 (guided), "
-                      "phase 16 (perf), phase 17 (fleet), phase 17b (mesh) or the work that times nothing, at "
-                      "once (window): a short check that prints no result line")
+                      "phase 16 (perf), phase 17 (fleet), phase 17b (mesh), phase 18 (examples) or the work "
+                      "that times nothing, at once (window): a short check that prints no result line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -3913,8 +4279,17 @@ def main(argv=None):
         mesh_kernels(np, kernels, torch.device("cuda"), group.join()["mesh"]["launches_mesh"])
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
+    if args.only == "examples":
+        examples, group = InThread(examples_run), ChildChecks("examples")
+        examples.start()
+        group.start()
+        group.join()
+        examples_kernels(np, kernels, torch.device("cuda"), examples.join())
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
     if args.only == "window":
-        checks, _, (_, w3_launches), perf_checks = window_phase(torch, np, kernels)
+        checks, _, (_, w3_launches), perf_checks, examples = window_phase(torch, np, kernels)
+        examples_kernels(np, kernels, torch.device("cuda"), examples)
         mesh_kernels(np, kernels, torch.device("cuda"), checks["mesh"]["launches_mesh"])
         # the states the timed phases take from it
         model_states_of(np, checks["models"])
@@ -4065,7 +4440,7 @@ def main(argv=None):
     # gossip and other models, 8. the chaos palette (pause, skew, dup and strict restarts), 9. the
     # storage kinds, 12. causal provenance and 13. the unpacked clog
     # matrix; 16.'s commands that time nothing; 17. the hunt fleet
-    checks, (replay_launches, replay_state, corpus_states), (fleet_launches, w3_launches), perf_checks = \
+    checks, (replay_launches, replay_state, corpus_states), (fleet_launches, w3_launches), perf_checks, examples = \
         window_phase(torch, np, kernels)
     model_states = model_states_of(np, checks["models"])
     palette_states = palette_states_of(np, checks["palette"])
@@ -4085,6 +4460,10 @@ def main(argv=None):
     stream_torn_phase(torch, np, kernels, storage)
     storage_kernels(kernels, dev, storage, palette_states)
     fleet_kernels(np, kernels, dev, w3_launches)
+    # 18. the examples' kernel shapes
+    ex_kernels = examples_kernels(np, kernels, dev, examples)
+    launches_examples = {name: sum(rec["launches"].get(name, 0) for rec in examples.values())
+                         for name in kernels.launches}
 
     # 10. the triage path: the double-grant hunt, its post-mortem, shrink,
     #     corpus entry and export
@@ -4163,7 +4542,7 @@ def main(argv=None):
 
     emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
 
-    # 18. the kernels line
+    # 19. the kernels line
     emit({"kernels": [
         {"name": "step_megakernel", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/step_megakernel.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:310", "launches": launches["step_megakernel"],
@@ -4171,14 +4550,16 @@ def main(argv=None):
          "bound_by": s_bound[1], "library_ms": None, "floor_ms": s_floor,
          "launches_perf": perf_launches["step_megakernel"], "launches_fleet": fleet_launches["step_megakernel"],
          "launches_mesh": launches_mesh.get("step_megakernel", 0),
-         "launches_differential": launches_differential.get("step_megakernel", 0)},
+         "launches_differential": launches_differential.get("step_megakernel", 0),
+         "launches_examples": launches_examples["step_megakernel"]},
         {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
          "bound_by": c_bound[1], "library_ms": None, "floor_ms": c_floor,
          "launches_perf": perf_launches["cov_flush"], "launches_fleet": fleet_launches["cov_flush"],
          "launches_mesh": launches_mesh.get("cov_flush", 0),
-         "launches_differential": launches_differential.get("cov_flush", 0)},
+         "launches_differential": launches_differential.get("cov_flush", 0),
+         "launches_examples": launches_examples["cov_flush"]},
         # each at the shape where its launches run: pop_earliest's are the
         # single-lane replay's
         *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
@@ -4187,6 +4568,11 @@ def main(argv=None):
            "floor_ms": k["floor_ms"], "lanes": k["lanes"], "launches_perf": perf_launches[name],
            "launches_fleet": fleet_launches[name], "launches_mesh": launches_mesh.get(name, 0),
            "launches_differential": launches_differential.get(name, 0),
+           "launches_examples": launches_examples[name],
+           # the examples' shapes (phase 18), held and timed in examples_kernels
+           "examples": {shape: {key: k_ex[key] for key in (
+               "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}
+               for shape, k_ex in ex_kernels.items() if shape.startswith(name)},
            # the whole differential's shape (phase 15), held and timed there
            **({"differential": {key: diff_pop[key] for key in (
                "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}}

@@ -1,27 +1,41 @@
-"""Logging and run telemetry of the command line: the port's copy of
-the parts of `madsim_tpu/tracing.py` it uses.
+"""Tracing spans — structured logging context per node/task.
 
-`init_tracing` installs a stream handler whose format carries the sim
-context (`%(sim)s`), and with a path a structured JSONL sink
-(`JsonlHandler`); `StatsEmitter` writes a long hunt's per-batch records
-as JSONL history, a Prometheus textfile and a latest-record snapshot.
+Reference parity (§5.1): every node gets an `error_span!("node")` and
+every task a child span entered on each poll (madsim/src/sim/task/
+mod.rs:116-131, runtime/context.rs:59-66), so log lines carry which
+simulated process emitted them. Here a logging.Filter injects
+`%(sim)s` = "t=<virtual time> node=<name>/<id> task=<id>" into every
+record emitted inside a simulation, plus an `@instrument` decorator for
+span-like entry/exit logs.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import json
 import logging
 import time
-from typing import Optional
+from typing import Any, Callable, Optional
+
+from . import _context
 
 
 class SimContextFilter(logging.Filter):
-    """Injects the simulation context into log records. The port has no
-    async sim runtime, so a record is never emitted inside a simulated
-    task: its context is "-", the reference's value outside one."""
+    """Injects the current simulation context into log records."""
 
     def filter(self, record: logging.LogRecord) -> bool:
-        record.sim = "-"
+        ctx = _context.try_current()
+        if ctx is None:
+            record.sim = "-"
+            return True
+        t_ns = ctx.executor.time.now_ns()
+        task = ctx.current_task
+        if task is not None:
+            node = task.node
+            record.sim = f"t={t_ns / 1e9:.6f}s node={node.name}/{node.id} task={task.id}"
+        else:
+            record.sim = f"t={t_ns / 1e9:.6f}s node=main"
         return True
 
 
@@ -40,6 +54,7 @@ class JsonlHandler(logging.Handler):
             self._f.write(
                 json.dumps(
                     {
+                        # madsim: allow(D001) — log-record wall stamp
                         "ts": round(time.time(), 6),
                         "level": record.levelname,
                         "logger": record.name,
@@ -85,22 +100,25 @@ class StatsEmitter:
         the whole history, replotting-friendly);
       * `<base>.prom` — a Prometheus textfile-collector snapshot of the
         LATEST record's numeric leaves (node_exporter's textfile
-        directory);
-      * `<base>.json` — the latest record verbatim (dashboards read one
-        file, not a log).
+        directory, or curl via `serve --service stats` /metrics);
+      * `<base>.json` — the latest record verbatim (the `/stats`
+        endpoint's payload; dashboards read one file, not a log).
 
     Snapshots are written atomically (tmp + rename) so a scraper never
-    reads a torn file. Records are plain dicts; nested dicts flatten to
-    `a_b_c` gauge names, non-numeric leaves are JSONL-only. Emission
-    must never take down a hunt: I/O errors are swallowed after the
-    constructor proves the base path writable.
+    reads a torn file — the latest-snapshot JSON included, which is what
+    lets the fleet control plane serve `/jobs/{id}` live feeds without
+    ever observing a torn record. Records are plain dicts; nested dicts
+    flatten to `a_b_c` gauge names, non-numeric leaves are JSONL-only.
+    Emission must never take down a hunt: I/O errors are swallowed
+    after the constructor proves the base path writable.
 
     `labels` namespaces the Prometheus textfile: every gauge renders as
     ``name{k="v",...} value``, so many emitters (one per fleet job) can
     be concatenated into one exposition — the fleet `/metrics` endpoint
     does exactly that with ``labels={"job": <id>}``."""
 
-    def __init__(self, base: str, prefix: str = "madsim_tpu", labels: Optional[dict] = None):
+    def __init__(self, base: str, prefix: str = "madsim_tpu",
+                 labels: Optional[dict] = None):
         self.base = base
         self.prefix = prefix
         self.labels = dict(labels) if labels else None
@@ -145,10 +163,12 @@ class StatsEmitter:
         """Emit one record (a plain dict of stats). Returns the record
         as written (with `ts`/`seq` stamped). The write rides the host
         timeline as a `stats_emit` span when a PerfRecorder is active
-        (`perf/recorder.py`): emitter I/O is part of the wall clock."""
+        (`perf/recorder.py`) — emitter I/O is part of the observability
+        tax the timeline exists to expose."""
         from .perf.recorder import maybe_span
 
         self.seq += 1
+        # madsim: allow(D001) — JSONL sink stamps host wall time
         row = {"ts": round(time.time(), 6), "seq": self.seq, **record}
         with maybe_span("stats_emit"):
             return self._emit_row(row)
@@ -157,7 +177,9 @@ class StatsEmitter:
         if not self.labels:
             return ""
         rendered = ",".join(
-            '{}="{}"'.format(k, str(v).replace("\\", "\\\\").replace('"', '\\"'))
+            '{}="{}"'.format(
+                k, str(v).replace("\\", "\\\\").replace('"', '\\"')
+            )
             for k, v in sorted(self.labels.items())
         )
         return "{" + rendered + "}"
@@ -185,3 +207,55 @@ class StatsEmitter:
             self._jsonl.close()
         except OSError:
             pass
+
+
+def instrument(fn: Callable[..., Any] = None, *, name: str = "", level: int = logging.DEBUG):
+    """Span-style decorator: logs entry/exit of a sync or async fn with
+    the sim context (reference: `#[instrument]` on net ops). An
+    exception exits the span as `exit <span> raised <Type>: <msg>` (at
+    the same level — spans are tracing, the exception itself still
+    propagates to whoever handles it)."""
+
+    def deco(f):
+        span = name or f.__qualname__
+        logger = logging.getLogger(f.__module__)
+
+        def _exit_ok():
+            logger.log(level, "exit %s", span)
+
+        def _exit_exc(exc: BaseException):
+            logger.log(
+                level, "exit %s raised %s: %s", span, type(exc).__name__, exc
+            )
+
+        if inspect.iscoroutinefunction(f):
+
+            @functools.wraps(f)
+            async def wrapper(*args, **kwargs):
+                logger.log(level, "enter %s", span)
+                try:
+                    result = await f(*args, **kwargs)
+                except BaseException as exc:
+                    _exit_exc(exc)
+                    raise
+                _exit_ok()
+                return result
+
+        else:
+
+            @functools.wraps(f)
+            def wrapper(*args, **kwargs):
+                logger.log(level, "enter %s", span)
+                try:
+                    result = f(*args, **kwargs)
+                except BaseException as exc:
+                    _exit_exc(exc)
+                    raise
+                _exit_ok()
+                return result
+
+        return wrapper
+
+    if fn is not None:
+        return deco(fn)
+    return deco

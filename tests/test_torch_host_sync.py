@@ -1,13 +1,14 @@
-"""The port's sync primitives (`madsim_tpu_torch.sync`, `.select`),
-mirroring tests/test_sync.py. Each workload runs on the port and on the
-JAX package (`torch_host_util.both`): the values, or the exceptions'
-types and messages, are equal. The `tokio.JoinSet` halves of
-tests/test_sync.py (`test_select_and_joinset`'s second half and
-`test_joinset_failed_task_does_not_poison`) wait for the port of
-`tokio.py`, a later group of ROADMAP item 15."""
+"""The port's sync primitives (`madsim_tpu_torch.sync`, `.select`) and
+the tokio facade's `JoinSet` and fake runtime (`madsim_tpu_torch.tokio`),
+mirroring tests/test_sync.py case for case (its `test_select_and_joinset`
+as `test_select` and `test_joinset_and_fake_runtime`). Each workload
+runs on the port and on the JAX package (`torch_host_util.both`): the
+values, or the exceptions' types and messages, are equal."""
 
 import pytest
 
+import madsim_tpu.tokio  # noqa: F401  (binds `madsim_tpu.tokio`)
+import madsim_tpu_torch.tokio  # noqa: F401
 from torch_host_util import both
 
 
@@ -268,3 +269,69 @@ def test_select():
 
     idx, value, _now = both(work)
     assert (idx, value) == (1, "fast")
+
+
+def test_joinset_and_fake_runtime():
+    """The `tokio.JoinSet` half of tests/test_sync.py::test_select_and_joinset."""
+    def work(m):
+        async def main():
+            async def fast():
+                await m.time.sleep(1.0)
+                return "fast"
+
+            js = m.tokio.JoinSet()
+            for d, tag in ((3.0, "c"), (1.0, "a"), (2.0, "b")):
+                async def job(d=d, tag=tag):
+                    await m.time.sleep(d)
+                    return tag
+                js.spawn(job())
+            sizes = [js.len()]
+            order = [await js.join_next() for _ in range(3)]
+            sizes.append(js.len())
+            last = await js.join_next()
+
+            # fake runtime forwards spawn, refuses block_on
+            rt = m.tokio.runtime.Builder.new_multi_thread().enable_all().build()
+            h = rt.spawn(fast())
+            spawned = await h
+            never_run = fast()
+            with pytest.raises(NotImplementedError) as ei:
+                rt.block_on(never_run)
+            never_run.close()  # block_on refused it; silence the un-awaited warning
+            return order, last, sizes, spawned, str(ei.value), m.time.now_ns()
+
+        return run(m, main)
+
+    order, last, sizes, spawned, refusal, _now = both(work)
+    assert order == ["a", "b", "c"] and last is None
+    assert sizes == [3, 0]
+    assert spawned == "fast" and "cannot block_on inside a simulation" in refusal
+
+
+def test_joinset_failed_task_does_not_poison():
+    def work(m):
+        async def main():
+            js = m.tokio.JoinSet()
+
+            async def bad():
+                raise ValueError("task failed")
+
+            async def good():
+                await m.time.sleep(1.0)
+                return "good"
+
+            # an unhandled task panic normally aborts the sim; JoinSet holds
+            # the handle, so the panic is routed to join_next instead
+            js.spawn(good())
+            results = []
+            errors = []
+            for _ in range(1):
+                try:
+                    results.append(await js.join_next())
+                except ValueError as e:
+                    errors.append(str(e))
+            return results, errors
+
+        return run(m, main)
+
+    assert both(work) == (["good"], [])
