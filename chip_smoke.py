@@ -239,22 +239,44 @@ last line):
      bug_hunt's 512 lanes of Q = 96, delay_hunt's 256 of Q = 48 and the
      replays' L = 1 at Q = 48 and 96, and pop_earliest at bug_hunt's
      traced replay's L = 1, Q = 96;
+18b. the host services (`services`, `services_host`): in two processes
+     of their own in the window, on the card, one make_runner batch of 1,024 seeds
+     of each bugged variant of tests/test_differential_services.py's drift
+     cases under its fault plan (NoDedupMvcc, Q = 48; NoFencingGroupMachine,
+     Q = 96; ArrivalOrderS3, Q = 48), then the port's service differentials
+     (differential_etcd_mvcc, differential_kafka_group, differential_s3) on
+     the port's own services over the tier-1 seed sets, each batch's first
+     8 failing seeds and the lease-bug service on seeds 16-27: every
+     faithful seed `ok`, every bugged seed caught, the lease bug flagged,
+     each set's first 4 reports equal to the CPU's; batch and replay
+     seconds, replays a second and launches by shape. From a thread, the
+     host half: `MADSIM_TPU_MODE=real python -m madsim_tpu_torch serve` of
+     etcd, kafka --wire and s3 --http on 127.0.0.1:0 (and etcd --grpc where
+     grpcio, protobuf and protoc are installed), examples/etcd_dual_torch.py
+     against them equal to its sim run, one round trip of the Kafka and S3
+     real clients, and chaos_pipeline_torch.py and group_consumers_torch.py
+     twice each, identical; every server stopped. `services_kernels`,
+     after the window, holds and times pop_gather at the batches' 1,024
+     lanes and the replays' L = 1, and pop_earliest at L = 1, of Q = 48
+     and 96;
  19. a `kernels` JSON line (with each kernel's launches on the perf path,
      `launches_perf`, on the fleet's card workers, `launches_fleet`, on
      the mesh path, `launches_mesh`, on the whole differential,
-     `launches_differential`, and in the examples, `launches_examples`;
-     pop_gather's `differential` holds its time at the differential's
-     256 lanes, each pop kernel's `examples` its times at the examples'
+     `launches_differential`, in the examples, `launches_examples`, and
+     in the service differentials, `launches_services`; pop_gather's
+     `differential` holds its time at the differential's 256 lanes, each
+     pop kernel's `examples` and `services` its times at those paths'
      shapes); the last line is {"ok": true, "device": ...}.
 
 From phase 4 on, the in-process CPU legs run on two intra-op threads.
 The work that times nothing runs at once, after phase 6's stream, with
 nothing timed beside it (`--only window` runs it alone): phases 17 and
 18 from threads, phase 16's checks, phase 6's single-lane replays in the
-main process, and in six processes of their own (niced) phase 4b, phase
-6's card_vs_cpu_v2 and card_vs_cpu_multipaxos and the card-against-CPU
-checks of phases 7-9, 12 and 13, phase 17b, phase 15's whole
-differential and phase 18's checks;
+main process, phase 18b's host half from a thread, and in eight
+processes of their own (niced) phase 4b, phase 6's card_vs_cpu_v2 and
+card_vs_cpu_multipaxos and the card-against-CPU checks of phases 7-9, 12
+and 13, phase 17b, phase 15's whole differential, phase 18's checks and
+phase 18b's device half (two processes);
 the states the timed phases need from those checks are rebuilt in the
 main process. The delay engine's megakernel at
 8192 lanes is timed after it (`delay_kernels`).
@@ -276,7 +298,8 @@ exits non-zero and prints no result. `--only cli` builds the kernels and
 runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phase
 15's whole differential then phases 14-15, `--only perf` phase 16, `--only fleet` phase 17, `--only mesh`
 phase 17b and `mesh_kernels`, `--only examples` phase 18 (the examples,
-their checks, then `examples_kernels`), `--only window` the work that
+their checks, then `examples_kernels`), `--only services` phase 18b (both
+halves, then `services_kernels`), `--only window` the work that
 times nothing (short checks; they print no result line).
 """
 
@@ -4115,6 +4138,385 @@ def examples_kernels(np, kernels, dev, examples):
     ), earliest=(("pop_earliest_L1_Q96", states["bug_L1"], bug_earliest),))
 
 
+# 18b. the host services and the service differentials. The service
+# machines' configurations of tests/test_differential_services.py, none
+# cut: (engine config, fault plan) by name
+SVC_PLANS = {
+    "etcd": (dict(horizon_us=5_000_000, queue_capacity=48), {}),
+    "etcd_chaos": (dict(horizon_us=8_000_000, queue_capacity=48),
+                   dict(n_faults=3, allow_dir_clog=True, allow_storm=True, t_max_us=3_000_000, dur_min_us=200_000,
+                        dur_max_us=800_000)),
+    "etcd_nodedup": (dict(horizon_us=8_000_000, queue_capacity=48),
+                     dict(n_faults=2, allow_partition=False, allow_kill=False, allow_storm=True, storm_loss_u16=55000,
+                          t_max_us=2_000_000, dur_min_us=400_000, dur_max_us=900_000)),
+    "kafka": (dict(horizon_us=8_000_000, queue_capacity=96), dict(n_faults=0)),
+    "kafka_kill": (dict(horizon_us=8_000_000, queue_capacity=96),
+                   dict(n_faults=2, allow_partition=False, allow_kill=True, t_max_us=800_000, dur_min_us=250_000,
+                        dur_max_us=700_000)),
+    "kafka_nofencing": (dict(horizon_us=8_000_000, queue_capacity=96),
+                        dict(n_faults=3, t_max_us=1_500_000, dur_min_us=250_000, dur_max_us=700_000)),
+    "s3": (dict(horizon_us=8_000_000, queue_capacity=48), dict(n_faults=0)),
+    "s3_chaos": (dict(horizon_us=8_000_000, queue_capacity=48),
+                 dict(n_faults=3, allow_dir_clog=True, allow_group=True, allow_storm=True, t_max_us=3_000_000,
+                      dur_min_us=200_000, dur_max_us=800_000)),
+    "s3_arrival": (dict(horizon_us=8_000_000, queue_capacity=48), dict(n_faults=0)),
+}
+# the tier-1 cases' faithful seed sets: (engine, seeds, the differential's max_steps)
+SVC_SETS = (("etcd", range(8), 3000), ("etcd_chaos", range(16, 28), 3000), ("kafka", range(6), 4000),
+            ("kafka_kill", range(8), 12000), ("s3", range(6), 4000), ("s3_chaos", range(6), 4000))
+# the tier-1 drift cases' bugged variants: (engine, max_steps, the fail code
+# the case filters on, or None)
+SVC_BUGS = (("etcd_nodedup", 3000, None), ("kafka_nofencing", 12000, "COMMIT_REGRESS"), ("s3_arrival", 4000, None))
+SVC_LANES = 1024  # seeds in each bugged batch
+SVC_BUG_SEEDS = 8  # each batch's first failing seeds, through the differential
+SVC_CPU_SEEDS = 4  # each set's first seeds, also on the CPU
+SVC_LEASE_SEEDS = range(16, 28)  # the service-side lease bug, on the etcd chaos engine
+SVC_STATE_STEPS = 32  # the batches' states their pops are timed on: this far in (lanes live)
+
+
+def service_engine(name, device=None):
+    """The service machine engine `name` of SVC_PLANS (the card unless
+    `device`)."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import etcd_mvcc, kafka_group, s3
+
+    bugged = {"etcd_nodedup": lambda: etcd_mvcc.NoDedupMvcc(4),
+              "kafka_nofencing": lambda: kafka_group.NoFencingGroupMachine(4, 2, 12),
+              "s3_arrival": lambda: s3.ArrivalOrderS3(num_nodes=4)}
+    faithful = {"etcd": lambda: etcd_mvcc.EtcdMvccMachine(4),
+                "kafka": lambda: kafka_group.KafkaGroupMachine(num_nodes=4, partitions=2, log_len=12),
+                "s3": lambda: s3.S3Machine(num_nodes=4)}
+    machine = bugged.get(name) or faithful[name.split("_")[0]]
+    plan, faults = SVC_PLANS[name]
+    return Engine(machine(), EngineConfig(**plan, faults=FaultPlan(**faults)), device=device)
+
+
+def lease_bug_service(rng):
+    """The service-side drift of the tier-1 case: an EtcdService whose
+    expiry sweep leaks the first attached key of every expired lease."""
+    from madsim_tpu_torch.services.etcd.service import EtcdService
+
+    return EtcdService(rng, lease_expiry_off_by_one=True)
+
+
+def service_reports(eng, kind, seeds, max_steps, factory=None, fencing=False):
+    """The port's own differential of `kind` (etcd, kafka, s3) on each
+    seed, on `eng`'s device; with `fencing` (the no-fencing machine) also
+    each seed's replay code and the commits the broker's fencing
+    rejected."""
+    from madsim_tpu_torch.differential_services import (differential_etcd_mvcc, differential_kafka_group,
+                                                         differential_s3, drive_kafka_coordinator)
+    from madsim_tpu_torch.engine import replay
+
+    check = {"etcd": differential_etcd_mvcc, "kafka": differential_kafka_group, "s3": differential_s3}[kind]
+    out = []
+    for seed in seeds:
+        rep = check(eng, seed, max_steps, service_factory=factory) if factory else check(eng, seed, max_steps)
+        if fencing:
+            rp = replay(eng, seed, max_steps=max_steps)
+            _b, _members, accept_log = drive_kafka_coordinator(eng.machine, rp.trace)
+            rep = {**rep, "replay_code": int(rp.fail_code), "fenced": sum(1 for r in accept_log if r[5] is False)}
+        out.append(rep)
+    return out
+
+
+def services_checks(torch, np, kernels, part):
+    """Phase 18b's device half, in two CHECK_GROUPS groups (each a
+    process of its own in the window; one alone would be the window's
+    longest). `part` "drift": on the card, one make_runner batch of
+    1,024 seeds of each bugged variant of the tier-1 drift cases under
+    its fault plan (NoDedupMvcc, NoFencingGroupMachine, ArrivalOrderS3),
+    then the port's service differentials on the port's own services
+    over each batch's first 8 failing seeds and over the lease-bug
+    service on seeds 16-27; "faithful": the differentials over the
+    tier-1 seed sets. Fails unless every faithful seed is `ok`, every
+    bugged seed is caught (a mismatch; for the no-fencing machine, whose
+    later commits can mask the regressed offset in the final state, the
+    tier-1 case's own catch: the replay fails COMMIT_REGRESS and the
+    broker fences the zombie commits), the lease bug is flagged on some
+    seed, and each set's first 4 reports on the card equal the port's on
+    the CPU. The launch counts are set to 0 before and read after;
+    pop_gather's and pop_earliest's by shape."""
+    from madsim_tpu_torch.models import kafka_group
+
+    engines = {name: service_engine(name) for name in SVC_PLANS}
+    by_shape, seconds = {}, {}
+
+    def counted(key, fn):
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+        for k, n in kernels.launches.items():
+            if n != before[k]:
+                by_shape.setdefault(k, {})
+                by_shape[k][key] = by_shape[k].get(key, 0) + n - before[k]
+        return out
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+    batches = {}
+    sets = [(name, name, seeds, max_steps, None) for name, seeds, max_steps in SVC_SETS] if part == "faithful" else []
+    for name, max_steps, code in SVC_BUGS if part == "drift" else ():
+        eng, q = engines[name], SVC_PLANS[name][0]["queue_capacity"]
+        seeds = np.arange(SVC_LANES, dtype=np.uint32)
+        key = f"L{SVC_LANES}_Q{q}_{name.split('_')[0]}"
+        res = counted(key, lambda: eng.make_runner(max_steps=max_steps)(seeds))
+        want = getattr(kafka_group, code) if code else None
+        failing = [int(s) for s, c, f in zip(seeds.tolist(), res.fail_code.tolist(), res.failed.tolist())
+                   if f and want in (None, c)]
+        if len(failing) < SVC_BUG_SEEDS:
+            fail(f"services: the {name} batch of {SVC_LANES} seeds failed only {failing}")
+        batches[name] = {"lanes": SVC_LANES, "q": q, "max_steps": max_steps, "steps": int(res.steps.max()),
+                         "n_failing": len(failing), "codes": sorted({int(c) for c, f in zip(
+                             res.fail_code.tolist(), res.failed.tolist()) if f}), "seconds": round(seconds[key], 3)}
+        sets.append((f"{name}_first", name, failing[:SVC_BUG_SEEDS], max_steps, None))
+    if part == "drift":
+        sets.append(("etcd_lease_bug", "etcd_chaos", list(SVC_LEASE_SEEDS), 3000, lease_bug_service))
+
+    out, replays = {}, 0
+    replay_s = 0.0
+    for set_name, name, seeds, max_steps, factory in sets:
+        eng, kind = engines[name], name.split("_")[0]
+        key = f"L1_Q{SVC_PLANS[name][0]['queue_capacity']}"
+        t0 = time.perf_counter()
+        fencing = name == "kafka_nofencing"
+        reports = counted(key, lambda: service_reports(eng, kind, seeds, max_steps, factory, fencing))
+        replay_s += time.perf_counter() - t0
+        replays += len(seeds)
+        cpu = service_reports(service_engine(name, device="cpu"), kind, seeds[:SVC_CPU_SEEDS], max_steps, factory,
+                              fencing)
+        if cpu != reports[:SVC_CPU_SEEDS]:
+            fail(f"services {set_name}: the card's reports of seeds {list(seeds[:SVC_CPU_SEEDS])} differ from the "
+                 f"CPU's:\n{reports[:SVC_CPU_SEEDS]}\n{cpu}")
+        ok = [r["ok"] for r in reports]
+        row = {"seeds": list(seeds), "ok": sum(ok), "card_equals_cpu": list(seeds[:SVC_CPU_SEEDS])}
+        if set_name == "etcd_lease_bug":
+            flagged = [s for s, good in zip(seeds, ok) if not good]
+            if not flagged:
+                fail("services: the service-side lease bug was flagged on no seed of 16-27")
+            row["flagged"] = flagged
+            row["drift"] = [r["mismatches"][0] for r in reports if r["mismatches"]][:4]
+        elif set_name.endswith("_first"):
+            if kind == "kafka":
+                caught = [r["replay_code"] == kafka_group.COMMIT_REGRESS and r["fenced"] > 0 for r in reports]
+                row["fenced"] = [r["fenced"] for r in reports]
+            else:
+                caught = [not good for good in ok]
+            if not all(caught):
+                fail(f"services {set_name}: the drift went uncaught on seeds "
+                     f"{[s for s, c in zip(seeds, caught) if not c]}: {reports}")
+            row["caught"] = sum(caught)
+            row["drift"] = [r["mismatches"][0] for r in reports if r["mismatches"]][:4]
+        elif not all(ok):
+            bad = {s: r["mismatches"][:3] for s, r in zip(seeds, reports) if not r["ok"]}
+            fail(f"services {set_name}: the differential disagrees on faithful seeds: {bad}")
+        out[set_name] = row
+    launches = dict(kernels.launches)
+    for k in ("pop_gather", "pop_earliest"):
+        if launches[k] <= 0:
+            fail(f"services: the service differentials never launched {k}: {launches}")
+    emit({"phase": "services", "part": part, "card": card_line(), "batches": batches, "sets": out, "replays": replays,
+          "replay_s": round(replay_s, 3), "replays_per_s": round(replays / replay_s, 3),
+          "seconds": round(time.perf_counter() - t_phase, 3), "launches": launches, "by_shape": by_shape})
+    return {"launches": launches, "by_shape": by_shape}
+
+
+SVC_SERVE = (("etcd", ()), ("kafka", ("--wire",)), ("s3", ("--http",)))
+SVC_KAFKA_CLIENT = """
+import asyncio, json, sys
+from madsim_tpu_torch.services import kafka
+async def main(addr):
+    cfg = kafka.ClientConfig({"bootstrap.servers": addr})
+    admin = await cfg.create_admin()
+    real_wire = admin._conn._real is not None
+    created = await admin.create_topics([kafka.NewTopic("smoke", 2)])
+    prod = await cfg.create_future_producer()
+    sent = [list(await prod.send_and_wait(kafka.BaseRecord("smoke", key=b"k", payload=b"m%d" % i, partition=i % 2)))
+            for i in range(4)]
+    ccfg = kafka.ClientConfig({"bootstrap.servers": addr, "group.id": "smoke", "enable.auto.commit": "false"})
+    cons = await ccfg.create_base_consumer()
+    await cons.subscribe(["smoke"])
+    got = []
+    for _ in range(400):
+        msg = await cons.poll(0.05)
+        if msg is not None:
+            got.append([msg.partition, msg.offset, msg.payload.decode()])
+        if len(got) == 4:
+            break
+    await cons.commit()
+    committed = [await cons.committed("smoke", p) for p in range(2)]
+    await cons.close()
+    prod.close()
+    admin.close()
+    print(json.dumps({"real_wire": real_wire, "created": [list(c) for c in created], "sent": sent,
+                      "got": sorted(got), "committed": committed}))
+asyncio.run(main(sys.argv[1]))
+"""
+SVC_KAFKA_WANT = {"real_wire": True, "created": [["smoke", None]], "sent": [[0, 0], [1, 0], [0, 1], [1, 1]],
+                  "got": [[0, 0, "m0"], [0, 1, "m2"], [1, 0, "m1"], [1, 1, "m3"]], "committed": [2, 2]}
+SVC_S3_CLIENT = """
+import asyncio, json, sys
+from madsim_tpu_torch.services import s3
+async def main(addr):
+    cli = s3.Client.from_conf(s3.Config(endpoint_url="http://" + addr))
+    await cli.create_bucket().bucket("smoke").send()
+    put = await cli.put_object().bucket("smoke").key("logs/a").body(b"payload").send()
+    await cli.put_object().bucket("smoke").key("logs/b").body(b"x").send()
+    got = await cli.get_object().bucket("smoke").key("logs/a").send()
+    listed = await cli.list_objects_v2().bucket("smoke").prefix("logs/").send()
+    real_wire = cli._real is not None
+    await cli.close()
+    print(json.dumps({"real_wire": real_wire, "etag_matches": put["e_tag"] == got["e_tag"],
+                      "body": bytes(got["body"]).decode(), "keys": [o["key"] for o in listed["contents"]]}))
+asyncio.run(main(sys.argv[1]))
+"""
+SVC_S3_WANT = {"real_wire": True, "etag_matches": True, "body": "payload", "keys": ["logs/a", "logs/b"]}
+
+
+def serve_service(service, flags, env, cwd):
+    """`python -m madsim_tpu_torch serve --service ... --addr 127.0.0.1:0`
+    in real mode: (process, the address its ready line names)."""
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-m", "madsim_tpu_torch", "serve", "--service", service, *flags,
+                             "--addr", "127.0.0.1:0"], env=env, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    _track(proc)
+    box = [""]
+    reader = threading.Thread(target=lambda: box.__setitem__(0, proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(timeout=60)
+    m = re.search(r"serving on (\S+)", box[0])
+    if not m:
+        proc.kill()
+        fail(f"services: `serve --service {service} {' '.join(flags)}` printed no ready line: {box[0]!r}")
+    return proc, m.group(1)
+
+
+def services_host():
+    """Phase 18b's host half, in subprocesses (driven from a thread in
+    the window): `MADSIM_TPU_MODE=real python -m madsim_tpu_torch serve`
+    of etcd (sim protocol over TCP), kafka --wire and s3 --http, each on
+    127.0.0.1:0; examples/etcd_dual_torch.py against the etcd server in
+    real mode, its result equal to its sim-mode run; one round trip of
+    the port's Kafka and S3 real clients (produce, then a group's fetch
+    and commit; put, then get and list); chaos_pipeline_torch.py and
+    group_consumers_torch.py twice each in sim mode, identical. Where
+    grpcio, protobuf and protoc are installed, `serve --service etcd
+    --grpc` and the example's passthrough over the genuine etcd wire
+    too ("grpc_gateway": "absent" otherwise). Every server is stopped."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    repo = pathlib.Path(__file__).resolve().parent
+    examples = repo / "examples"
+    sim_env = {k: v for k, v in os.environ.items() if k != "MADSIM_TPU_MODE"}
+    sim_env["PYTHONPATH"] = str(repo)
+    real_env = dict(sim_env, MADSIM_TPU_MODE="real")
+    has_grpc = all(importlib.util.find_spec(m) is not None for m in ("grpc", "google.protobuf")) and bool(
+        shutil.which("protoc"))
+    tmp = tempfile.mkdtemp(prefix="madsim_services_")
+    t0 = time.perf_counter()
+    servers = {}
+    try:
+        for service, flags in SVC_SERVE + ((("etcd_grpc", ("--grpc",)),) if has_grpc else ()):
+            servers[service] = serve_service(service.split("_")[0], flags, real_env, tmp)
+        up_s = time.perf_counter() - t0
+
+        def run(argv, env):
+            r = subprocess.run([sys.executable, *argv], env=env, cwd=tmp, capture_output=True, text=True,
+                               timeout=300)
+            if r.returncode != 0:
+                fail(f"services: `{' '.join(map(str, argv))}` exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+                     f"{r.stderr[-2000:]}")
+            return r.stdout
+
+        jobs = {
+            "etcd_dual_sim": ([examples / "etcd_dual_torch.py"], sim_env),
+            "etcd_dual_real": ([examples / "etcd_dual_torch.py", servers["etcd"][1]], real_env),
+            "kafka_client": (["-c", SVC_KAFKA_CLIENT, servers["kafka"][1]], real_env),
+            "s3_client": (["-c", SVC_S3_CLIENT, servers["s3"][1]], real_env),
+            **{f"{script}_{i}": ([examples / f"{script}_torch.py", "7"], sim_env)
+               for script in ("chaos_pipeline", "group_consumers") for i in (1, 2)},
+        }
+        if has_grpc:
+            jobs["etcd_dual_grpc"] = ([examples / "etcd_dual_torch.py", servers["etcd_grpc"][1]], real_env)
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futures = {name: pool.submit(run, *job) for name, job in jobs.items()}
+            outs = {name: f.result() for name, f in futures.items()}
+    finally:
+        for proc, _addr in servers.values():
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    sim = outs["etcd_dual_sim"].strip()
+    if not sim.startswith("[sim] ") or "'txn_succeeded': True" not in sim:
+        fail(f"services: etcd_dual_torch.py in sim mode printed {sim!r}")
+    for name in ("etcd_dual_real", "etcd_dual_grpc"):
+        if name in outs and outs[name].strip() != "[real] " + sim[len("[sim] "):]:
+            fail(f"services: {name} printed {outs[name].strip()!r}, not the sim run's result {sim!r}")
+    kafka, s3 = json.loads(outs["kafka_client"]), json.loads(outs["s3_client"])
+    if kafka != SVC_KAFKA_WANT or s3 != SVC_S3_WANT:
+        fail(f"services: the real clients' round trips gave {kafka} and {s3}")
+    for script, marker in (("chaos_pipeline", "evt-after-crash"), ("group_consumers", "at-least-once holds")):
+        a, b = outs[f"{script}_1"], outs[f"{script}_2"]
+        if a != b or marker not in a:
+            fail(f"services: {script}_torch.py printed {a!r} then {b!r}")
+    emit({"phase": "services_host", "card": card_line(), "servers": {k: v[1] for k, v in servers.items()},
+          "servers_up_s": round(up_s, 3), "etcd_dual": sim[len("[sim] "):], "etcd_dual_real_equals_sim": True,
+          "grpc_gateway": "ran" if has_grpc else "absent", "kafka_client": kafka, "s3_client": s3,
+          "examples_identical": ["chaos_pipeline_torch.py", "group_consumers_torch.py"],
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return {"grpc_gateway": has_grpc}
+
+
+def services_launches(checks):
+    """The two device-half processes' launch counts, summed: {"launches":
+    by kernel, "by_shape": by kernel and shape}."""
+    parts = [checks["services_drift"], checks["services_faithful"]]
+    by_shape = {}
+    for part in parts:
+        for k, shapes in part["by_shape"].items():
+            for shape, n in shapes.items():
+                by_shape.setdefault(k, {})
+                by_shape[k][shape] = by_shape[k].get(shape, 0) + n
+    return {"launches": {k: sum(p["launches"][k] for p in parts) for k in parts[0]["launches"]},
+            "by_shape": by_shape}
+
+
+def services_kernels(np, kernels, dev, services):
+    """The service differentials' kernel shapes, held against their
+    twins on the states of their paths and timed there
+    (`services_kernels` line): pop_gather at the bugged batches' 1,024
+    lanes of Q = 48 (MVCC, S3) and Q = 96 (the consumer group) and at
+    the replays' L = 1 of Q = 48 and 96; pop_earliest at the replays'
+    L = 1 of Q = 48 and 96; each with the launches the services process
+    counted for its shape."""
+    seeds = np.arange(SVC_LANES, dtype=np.uint32)
+    states = {}
+    for name in ("etcd_nodedup", "kafka_nofencing", "s3_arrival"):
+        eng = service_engine(name)
+        states[name] = eng.run_segment(eng.init_batch(seeds), SVC_STATE_STEPS)
+    for key, name, seed in (("L1_Q48", "etcd_chaos", 16), ("L1_Q96", "kafka_kill", 0)):
+        eng = service_engine(name)
+        states[key] = eng.run_segment(eng.init_batch([seed]), SVC_STATE_STEPS)
+    gather, earliest = (services["by_shape"].get(k, {}) for k in ("pop_gather", "pop_earliest"))
+    big = [(f"pop_gather_L{SVC_LANES}_Q{SVC_PLANS[name][0]['queue_capacity']}_{name.split('_')[0]}", states[name])
+           for name in ("etcd_nodedup", "kafka_nofencing", "s3_arrival")]
+    return time_kernel_shapes(kernels, dev, "services_kernels", (), (), pops=(
+        *((shape, state, gather.get(shape[len("pop_gather_"):], 0)) for shape, state in big),
+        ("pop_gather_L1_Q48", states["L1_Q48"], gather.get("L1_Q48", 0)),
+        ("pop_gather_L1_Q96", states["L1_Q96"], gather.get("L1_Q96", 0)),
+    ), earliest=(("pop_earliest_L1_Q48", states["L1_Q48"], earliest.get("L1_Q48", 0)),
+                 ("pop_earliest_L1_Q96", states["L1_Q96"], earliest.get("L1_Q96", 0))))
+
+
 # Phase 4b and the card-against-CPU checks of phases 6-9, 12 and 13 time
 # nothing: each group (~2 minutes on its own) runs in a process of its own (`python -c`, niced so
 # that the fleet's workers and the main process come first) beside the
@@ -4140,6 +4542,9 @@ CHECK_GROUPS = {
     "mesh": (("mesh", mesh_checks),),
     "differential": (("differential", differential_checks),),
     "examples": (("card_vs_cpu_examples", card_vs_cpu_examples), ("host_facades", host_facades)),
+    "services_drift": (("services_drift", lambda torch, np, kernels: services_checks(torch, np, kernels, "drift")),),
+    "services_faithful": (("services_faithful",
+                           lambda torch, np, kernels: services_checks(torch, np, kernels, "faithful")),),
 }
 
 
@@ -4199,15 +4604,19 @@ class ChildChecks:
 def window_phase(torch, np, kernels):
     """The work that times nothing, all at once: phase 17 (the fleet,
     driven from a thread), phase 18 (the examples' two processes, driven
-    from a thread), phase 16's checks (PerfChecks), each group of
-    CHECK_GROUPS in a process of its own, and in this process phase
-    6's replays. Returns the groups' results, the replays' launches and
-    states (replay_and_corpus), the fleet's launches (fleet_jobs), the
-    PerfChecks, joined, and the examples' records (examples_run)."""
+    from a thread), phase 18b's host half (its servers and clients,
+    driven from a thread), phase 16's checks (PerfChecks), each group of
+    CHECK_GROUPS in a process of its own (phase 18b's device half among
+    them), and in this process phase 6's replays. Returns the groups'
+    results, the replays' launches and states (replay_and_corpus), the
+    fleet's launches (fleet_jobs), the PerfChecks, joined, and the
+    examples' records (examples_run)."""
     fleet, examples, perf_checks = InThread(fleet_jobs), InThread(examples_run), PerfChecks()
+    host = InThread(services_host)
     groups = [ChildChecks(g) for g in CHECK_GROUPS]
     fleet.start()
     examples.start()
+    host.start()
     for g in groups:
         g.start()
     perf_checks.start()
@@ -4217,6 +4626,7 @@ def window_phase(torch, np, kernels):
         checks.update(g.join())
     fleet_res = fleet.join()
     perf_checks.join()
+    host.join()
     return checks, replays, fleet_res, perf_checks, examples.join()
 
 
@@ -4226,11 +4636,13 @@ def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
-    args.add_argument("--only", choices=("cli", "prov", "guided", "perf", "fleet", "mesh", "examples", "window"),
+    args.add_argument("--only", choices=("cli", "prov", "guided", "perf", "fleet", "mesh", "examples", "services",
+                                         "window"),
                       default=None,
                       help="build, then run phase 11 alone (cli), phases 11-13 (prov), phases 14-15 (guided), "
-                      "phase 16 (perf), phase 17 (fleet), phase 17b (mesh), phase 18 (examples) or the work "
-                      "that times nothing, at once (window): a short check that prints no result line")
+                      "phase 16 (perf), phase 17 (fleet), phase 17b (mesh), phase 18 (examples), phase 18b "
+                      "(services) or the work that times nothing, at once (window): a short check that prints no "
+                      "result line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -4287,9 +4699,22 @@ def main(argv=None):
         examples_kernels(np, kernels, torch.device("cuda"), examples.join())
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
+    if args.only == "services":
+        host, groups = InThread(services_host), [ChildChecks("services_drift"), ChildChecks("services_faithful")]
+        host.start()
+        for g in groups:
+            g.start()
+        services = {}
+        for g in groups:
+            services.update(g.join())
+        host.join()
+        services_kernels(np, kernels, torch.device("cuda"), services_launches(services))
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
     if args.only == "window":
         checks, _, (_, w3_launches), perf_checks, examples = window_phase(torch, np, kernels)
         examples_kernels(np, kernels, torch.device("cuda"), examples)
+        services_kernels(np, kernels, torch.device("cuda"), services_launches(checks))
         mesh_kernels(np, kernels, torch.device("cuda"), checks["mesh"]["launches_mesh"])
         # the states the timed phases take from it
         model_states_of(np, checks["models"])
@@ -4460,10 +4885,13 @@ def main(argv=None):
     stream_torn_phase(torch, np, kernels, storage)
     storage_kernels(kernels, dev, storage, palette_states)
     fleet_kernels(np, kernels, dev, w3_launches)
-    # 18. the examples' kernel shapes
+    # 18. the examples' kernel shapes; 18b. the service differentials'
     ex_kernels = examples_kernels(np, kernels, dev, examples)
     launches_examples = {name: sum(rec["launches"].get(name, 0) for rec in examples.values())
                          for name in kernels.launches}
+    services = services_launches(checks)
+    svc_kernels = services_kernels(np, kernels, dev, services)
+    launches_services = services["launches"]
 
     # 10. the triage path: the double-grant hunt, its post-mortem, shrink,
     #     corpus entry and export
@@ -4551,7 +4979,8 @@ def main(argv=None):
          "launches_perf": perf_launches["step_megakernel"], "launches_fleet": fleet_launches["step_megakernel"],
          "launches_mesh": launches_mesh.get("step_megakernel", 0),
          "launches_differential": launches_differential.get("step_megakernel", 0),
-         "launches_examples": launches_examples["step_megakernel"]},
+         "launches_examples": launches_examples["step_megakernel"],
+         "launches_services": launches_services["step_megakernel"]},
         {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
@@ -4559,7 +4988,8 @@ def main(argv=None):
          "launches_perf": perf_launches["cov_flush"], "launches_fleet": fleet_launches["cov_flush"],
          "launches_mesh": launches_mesh.get("cov_flush", 0),
          "launches_differential": launches_differential.get("cov_flush", 0),
-         "launches_examples": launches_examples["cov_flush"]},
+         "launches_examples": launches_examples["cov_flush"],
+         "launches_services": launches_services["cov_flush"]},
         # each at the shape where its launches run: pop_earliest's are the
         # single-lane replay's
         *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
@@ -4568,11 +4998,15 @@ def main(argv=None):
            "floor_ms": k["floor_ms"], "lanes": k["lanes"], "launches_perf": perf_launches[name],
            "launches_fleet": fleet_launches[name], "launches_mesh": launches_mesh.get(name, 0),
            "launches_differential": launches_differential.get(name, 0),
-           "launches_examples": launches_examples[name],
+           "launches_examples": launches_examples[name], "launches_services": launches_services[name],
            # the examples' shapes (phase 18), held and timed in examples_kernels
            "examples": {shape: {key: k_ex[key] for key in (
                "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}
                for shape, k_ex in ex_kernels.items() if shape.startswith(name)},
+           # the service differentials' shapes (phase 18b), held and timed in services_kernels
+           "services": {shape: {key: k_svc[key] for key in (
+               "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}
+               for shape, k_svc in svc_kernels.items() if shape.startswith(name)},
            # the whole differential's shape (phase 15), held and timed there
            **({"differential": {key: diff_pop[key] for key in (
                "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}}

@@ -21,7 +21,7 @@ reference's seeded single-threaded async runtime, in pure Python:
 This package imports torch, numpy and the standard library only.
 """
 
-from . import buggify, config, rand, time, task, plugin, runtime, sync, net, fs, signal, grpc
+from . import buggify, config, rand, time, task, plugin, runtime, sync, net, fs, signal, grpc, services
 from .runtime import Runtime, Handle, NodeBuilder, NodeHandle
 from .task import spawn
 from .errors import (

@@ -11,6 +11,7 @@ reports and the stats endpoint.
     python -m madsim_tpu_torch regress --corpus corpus.json
     python -m madsim_tpu_torch check   --machine kv --seeds 64
     python -m madsim_tpu_torch serve   --service stats --stats BASE --addr 127.0.0.1:0
+    MADSIM_TPU_MODE=real python -m madsim_tpu_torch serve --service etcd --addr 127.0.0.1:0 [--grpc]
     python -m madsim_tpu_torch perf    host.json --machine raft --seeds 16384 --batch 8192
     python -m madsim_tpu_torch prof    --merge --out m.json --machine raft --seeds 8192 --batch 8192
     python -m madsim_tpu_torch bench-ab --gate coverage --lanes 1024 --reps 4
@@ -21,7 +22,8 @@ reports and the stats endpoint.
 The port of `madsim_tpu/__main__.py`: the same subcommands, flags,
 defaults, printed lines and exit codes for explore, hunt (with
 `--guided`), replay, trace, why, shrink, regress, audit, check, coverage,
-`serve --service stats`, the perf tooling (`perf`, `prof`,
+`serve` (the stats endpoint and the host services etcd, kafka and s3),
+the perf tooling (`perf`, `prof`,
 `bench-ab`, `--perf-timeline`, `--xla-profile`) and the hunt farm
 (`fleet serve|worker|submit|status|result|cancel|queue|watch|timeline|
 profile|top|fsck|chaos`), `--provenance` among
@@ -38,9 +40,8 @@ card each, or all on the CPU over gloo with `--device cpu`; the results
 are those of the unsharded run. `explore --multihost` joins a job of
 processes started from the MADSIM_TPU_* env (`parallel/multihost.py`).
 Only rank 0 prints or writes a file. What the port does not run (the
-compile cache and its autopsy `prof compile`, bench, lint) and the host
-services `serve --service etcd|kafka|s3` exit with status 2 and one
-line naming the gate, before any engine is built.
+compile cache and its autopsy `prof compile`, bench, lint) exits with
+status 2 and one line naming the gate, before any engine is built.
 """
 
 from __future__ import annotations
@@ -75,11 +76,6 @@ def _gate_line(attr: str) -> str:
 
 def _gate(args) -> str:
     """The line naming the first gate this command line hits, or ''."""
-    if args.cmd == "serve" and args.service != "stats":
-        # the host services serve over real TCP and run no engine: the
-        # JAX package's command line serves them
-        return (f"{PROG}: `serve --service {args.service}` is a host service, not ported "
-                f"(run python -m madsim_tpu serve --service {args.service})")
     if args.cmd == "prof" and args.action == "compile":
         # the reference's compile autopsy splits a jitted function's
         # compile into its trace, lowering and backend stages
@@ -1119,6 +1115,100 @@ def _serve_stats(args) -> int:
     return httpd.run_http_server(srv, port_file=args.port_file)
 
 
+def cmd_serve(args) -> int:
+    """Run a host service's server over real TCP (production mode):
+    apps written against the `services.*` clients connect unmodified.
+    `--grpc` (etcd), `--http` (s3) and `--wire` (kafka) serve the
+    genuine wire protocol instead of the sim protocol. Builds no engine
+    and needs no card.
+
+    SECURITY: the sim protocol's wire format is pickle, which can
+    execute code on load: bind only on trusted networks / localhost."""
+    if args.service == "stats":
+        # observability endpoint over StatsEmitter files: no sim
+        # networking involved, so no real-mode requirement
+        return _serve_stats(args)
+    from . import dual
+
+    if dual.MODE != "real":
+        sys.exit(
+            "serve needs production networking: re-run as\n"
+            f"  MADSIM_TPU_MODE=real python -m {PROG} serve "
+            f"--service {args.service} --addr {args.addr}"
+        )
+    import asyncio
+
+    async def run_server() -> None:
+        if args.grpc:
+            if args.service != "etcd":
+                sys.exit("--grpc is only available for --service etcd")
+            from .services.etcd.real_gateway import EtcdGrpcGateway
+
+            gw = EtcdGrpcGateway()
+            port = await gw.start(args.addr)
+            host = args.addr.rsplit(":", 1)[0]
+            print(f"etcd serving on {host}:{port} (genuine gRPC wire)", flush=True)
+            await gw.wait()
+            return
+        if args.http:
+            if args.service != "s3":
+                sys.exit("--http is only available for --service s3")
+            from .services.s3.real_gateway import S3HttpGateway
+
+            gw = S3HttpGateway()
+            port = await gw.start(args.addr)
+            host = args.addr.rsplit(":", 1)[0]
+            print(f"s3 serving on {host}:{port} (genuine S3 REST wire)", flush=True)
+            await gw.wait()
+            return
+        if args.wire:
+            if args.service != "kafka":
+                sys.exit("--wire is only available for --service kafka")
+            from .services.kafka.wire_gateway import KafkaWireGateway
+
+            host = args.addr.rsplit(":", 1)[0]
+            # Metadata/FindCoordinator responses must name an address
+            # clients can CONNECT to, which a 0.0.0.0 bind is not (real
+            # brokers split listeners from advertised.listeners too)
+            advertise = args.advertise or (host if host and host != "0.0.0.0" else "127.0.0.1")
+            gw = KafkaWireGateway(advertised_host=advertise)
+            port = await gw.start(args.addr)
+            gw.advertised_port = port
+            print(
+                f"kafka serving on {host or '127.0.0.1'}:{port} "
+                f"(genuine Kafka wire, advertising {advertise}:{port})",
+                flush=True,
+            )
+            await gw.wait()
+            return
+        if args.service == "etcd":
+            from .services.etcd import SimServer
+
+            server = SimServer()
+        elif args.service == "kafka":
+            from .services.kafka import SimBroker
+
+            server = SimBroker()
+        else:
+            from .services.s3 import SimServer as S3Server
+
+            server = S3Server()
+
+        def on_bound(ep) -> None:
+            # the ready line prints the ACTUAL bound address (supports
+            # --addr host:0) and only after the socket exists
+            host, port = ep.local_addr
+            print(f"{args.service} serving on {host}:{port} (real TCP)", flush=True)
+
+        await server.serve(args.addr, on_bound=on_bound)
+
+    try:
+        asyncio.run(run_server())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def cmd_coverage(args) -> int:
     """Render a persisted coverage map (`hunt --coverage-out`): slots
     hit, per-band marginals, the thinnest (band x phase) cells and, with
@@ -1795,17 +1885,30 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true", help="machine-readable output")
     p.set_defaults(fn=cmd_coverage)
 
-    p = sub.add_parser("serve", help="`--service stats`: serve the last run's StatsEmitter snapshot over HTTP "
-                       "(/stats JSON, /metrics Prometheus, /healthz); the host services (etcd, kafka, s3) "
-                       "are the JAX package's `python -m madsim_tpu serve`")
+    p = sub.add_parser("serve", help="run a host service (etcd, kafka, s3) over real TCP (MADSIM_TPU_MODE=real); "
+                       "pickle wire format, trusted networks only. `--service stats` serves the last run's "
+                       "StatsEmitter snapshot over HTTP instead (/stats JSON, /metrics Prometheus, /healthz; "
+                       "any mode)")
     p.add_argument("--service", default="etcd", choices=["etcd", "kafka", "s3", "stats"])
     p.add_argument("--addr", default="127.0.0.1:23790", help="host:port (port 0 = ephemeral)")
     p.add_argument("--stats", default=None, metavar="BASE",
-                   help="StatsEmitter base path to serve (default $MADSIM_TPU_STATS or ./madsim_stats)")
+                   help="stats service only: StatsEmitter base path to serve "
+                   "(default $MADSIM_TPU_STATS or ./madsim_stats)")
     p.add_argument("--port-file", default=None, metavar="PATH",
-                   help="atomically write the realized port to PATH after binding (with --addr host:0, "
-                   "a supervisor discovers the daemon without racing its stdout)")
-    p.set_defaults(fn=_serve_stats)
+                   help="stats service only: atomically write the realized port to PATH after binding "
+                   "(with --addr host:0, a supervisor discovers the daemon without racing its stdout)")
+    p.add_argument("--grpc", action="store_true",
+                   help="etcd only: serve the genuine etcd v3 gRPC wire protocol (etcdserverpb over grpc.aio) "
+                   "instead of the pickle sim protocol")
+    p.add_argument("--http", action="store_true",
+                   help="s3 only: serve the genuine S3 REST wire protocol instead of the pickle sim protocol")
+    p.add_argument("--wire", action="store_true",
+                   help="kafka only: serve the genuine Kafka wire protocol (ApiVersions/Metadata/Produce/Fetch/"
+                   "group APIs) instead of the pickle sim protocol")
+    p.add_argument("--advertise", default=None,
+                   help="kafka --wire only: hostname to advertise in Metadata/FindCoordinator responses "
+                   "(defaults to the bind host, or 127.0.0.1 when binding 0.0.0.0)")
+    p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("bench-ab", help="interleaved A/B cost of one engine gate: ABAB... paired reps over "
                        "identical seed ranges in one process; median paired delta with bootstrap 95%% CI and "

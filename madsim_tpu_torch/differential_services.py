@@ -5,14 +5,14 @@
 *claim* to mirror the semantics of host services (an etcd MVCC store, a
 Kafka group coordinator, an S3 object store). This module makes those
 claims checkable per seed, for the components where semantic drift is
-most likely. The services are host code that runs nothing on the card,
-so the port keeps no copy of them: each check takes the service as a
-factory argument (`service_factory=` / `broker_factory=` /
-`s3_factory=`; the JAX package's `EtcdService`, `Broker` and
-`S3Service` are the ones it was written against). The device side is
-the port's single-lane `replay`, on the engine's device.
+most likely. The services are the port's own (`services/etcd/service.py`,
+`services/kafka`, `services/s3`), host code that runs nothing on the
+card; each check also takes a factory (`service_factory=` /
+`broker_factory=` / `s3_factory=`) to drive another build of the
+service, such as a deliberately bugged one. The device side is the
+port's single-lane `replay`, on the engine's device.
 
-* `differential_etcd_mvcc(engine, seed, service_factory=...)` — replay
+* `differential_etcd_mvcc(engine, seed)` — replay
   the device lane, decode every request the MVCC server actually
   processed (the delivered M_REQ stream, dedup included), drive the
   service with the same ops at the same virtual times, and
@@ -23,7 +23,7 @@ the port's single-lane `replay`, on the engine's device.
   machine's strict `expiry < now` matches the service's
   `remaining <= 0`.
 
-* `differential_kafka_group(engine, seed, broker_factory=...)` — replay
+* `differential_kafka_group(engine, seed)` — replay
   the device lane, decode the membership timeline (heartbeats/joins)
   and commit stream, drive the broker's group coordinator with the same timeline
   (machine µs as broker ms, same session length, roundrobin strategy),
@@ -34,7 +34,7 @@ the port's single-lane `replay`, on the engine's device.
   session tick), so the adapter drives the broker's expiry from the
   machine's own session ticks.
 
-* `differential_s3(engine, seed, s3_factory=...)` — the full store
+* `differential_s3(engine, seed)` — the full store
   compared after every applied server event.
 
 Abstraction note (documented divergence): the machine models leases as
@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 from types import SimpleNamespace
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from .engine.replay import ReplayResult, replay
 
@@ -78,16 +78,16 @@ def _mvcc_key(machine, k: int) -> bytes:
     return f"client/{k}".encode()
 
 
-def drive_etcd_service(machine, trace, service_factory: Callable):
+def drive_etcd_service(machine, trace, service_factory: Optional[Callable] = None):
     """Apply the device lane's delivered M_REQ stream to an etcd service
-    (`service_factory(rng)`, e.g. the JAX package's `EtcdService`),
-    mirroring the machine's sweep-then-apply order and dedup rule. A
-    factory building a deliberately-bugged SERVICE lets the
-    bidirectional tests check that the differential catches drift
-    seeded on either side."""
+    (`service_factory(rng)`, `EtcdService` when None), mirroring the
+    machine's sweep-then-apply order and dedup rule. A factory building
+    a deliberately-bugged SERVICE lets the bidirectional tests check
+    that the differential catches drift seeded on either side."""
     from .models import etcd_mvcc as M
+    from .services.etcd.service import EtcdService
 
-    svc = service_factory(_SvcRng())
+    svc = (service_factory or EtcdService)(_SvcRng())
     last_req: Dict[int, int] = {}
     lease_of: Dict[int, int] = {}  # client -> service lease id (the slot)
     last_t = 0
@@ -139,7 +139,7 @@ def drive_etcd_service(machine, trace, service_factory: Callable):
 
 
 def differential_etcd_mvcc(
-    engine, seed: int, max_steps: int = 3000, *, service_factory: Callable
+    engine, seed: int, max_steps: int = 3000, service_factory: Optional[Callable] = None
 ) -> Dict:
     """One seed, both implementations, full MVCC state comparison.
 
@@ -211,10 +211,10 @@ GROUP = "diff-group"
 TOPIC = "diff-topic"
 
 
-def drive_kafka_coordinator(machine, trace, broker_factory: Callable):
+def drive_kafka_coordinator(machine, trace, broker_factory: Optional[Callable] = None):
     """Apply the device lane's membership timeline + commit stream to a
     broker's group coordinator (`broker_factory(expire_on_traffic=False)`,
-    e.g. the JAX package's `Broker`). Machine µs are passed as broker ms
+    `Broker` when None). Machine µs are passed as broker ms
     (same numeric session semantics, same strict expiry inequality).
 
     The broker runs in timer-driven expiry mode (`expire_on_traffic=False`) and the adapter
@@ -236,8 +236,9 @@ def drive_kafka_coordinator(machine, trace, broker_factory: Callable):
     (t, src, gen, part, off, accepted|None, before, after)."""
     from .engine.core import F_KILL, F_RESTART
     from .models import kafka_group as G
+    from .services.kafka import Broker
 
-    b = broker_factory(expire_on_traffic=False)
+    b = (broker_factory or Broker)(expire_on_traffic=False)
     b.create_topic(TOPIC, machine.P)
     member_of: Dict[int, str] = {}
     regime: Dict[int, int] = {}
@@ -328,7 +329,9 @@ def _machine_fencing_mirror(machine, trace):
     return gen, decisions
 
 
-def differential_kafka_group(engine, seed: int, max_steps: int = 4000, *, broker_factory: Callable) -> Dict:
+def differential_kafka_group(
+    engine, seed: int, max_steps: int = 4000, *, broker_factory: Optional[Callable] = None
+) -> Dict:
     """One seed, machine vs broker coordinator — the STRONG contract on
     every lane, faulted or not: exact member-set, generation, assignment and committed-offset equality.
     The adapter aligns the broker's evictions with the machine's session
@@ -446,9 +449,10 @@ def _s3_fold(body: bytes) -> int:
     return h
 
 
-def drive_s3_service(machine, trace, s3_factory: Callable, on_server_event=None):
+def drive_s3_service(machine, trace, s3_factory: Optional[Callable] = None, on_server_event=None):
     """Apply the device lane's effective server events to an S3 service
-    (`s3_factory(rng)`, e.g. the JAX package's `S3Service`), mirroring the machine's lazy lifecycle sweep (the
+    (`s3_factory(rng)`, `S3Service` when None), mirroring the machine's
+    lazy lifecycle sweep (the
     service's apply_lifecycle run at every live server event), the
     dedup rule, the kill/restart drop window (handler events on a dead
     server are dropped by the engine — the adapter tracks the fault
@@ -469,8 +473,9 @@ def drive_s3_service(machine, trace, s3_factory: Callable, on_server_event=None)
     Returns (svc, uid_of)."""
     from .engine.core import F_KILL, F_RESTART
     from .models import s3 as S
+    from .services.s3 import S3Service
 
-    svc = s3_factory(_S3Rng())
+    svc = (s3_factory or S3Service)(_S3Rng())
     svc.create_bucket(BUCKET)
     svc.put_bucket_lifecycle_configuration(
         BUCKET,
@@ -620,7 +625,9 @@ def _compare_s3(machine, snap, svc, uid_of, where: str, mismatches: List[str]) -
     return n_objects, m_sessions
 
 
-def differential_s3(engine, seed: int, max_steps: int = 4000, *, s3_factory: Callable) -> Dict:
+def differential_s3(
+    engine, seed: int, max_steps: int = 4000, *, s3_factory: Optional[Callable] = None
+) -> Dict:
     """One seed, machine vs the S3 service — EVENT-FOR-EVENT: the
     full store (objects, multipart sessions, lifecycle effects) is
     compared after every applied server event, not just at the end, so

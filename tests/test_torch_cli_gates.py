@@ -3,8 +3,9 @@ keeps exits with status 2 and one line naming the gate and its ROADMAP
 item (or that it has none), before any engine is built (the lifted
 mesh gates, `--devices N` and `--multihost`, are held against the JAX
 package in tests/test_torch_cli_mesh.py, tests/test_torch_multihost.py
-and tests/test_torch_cli_fleet.py), and the host services of
-`serve` exit 2 naming the JAX package's command line; without a card and without
+and tests/test_torch_cli_fleet.py); `serve` runs the host services
+(etcd, kafka, s3) in real mode and, outside it, exits with the
+reference's message naming the port's command line; without a card and without
 `--device cpu` a command exits non-zero and never falls back to the
 CPU; an unknown machine or fault kind exits as the reference's does.
 Then the short runs held against the JAX package's command line: the
@@ -49,20 +50,54 @@ def test_gates_exit_2_naming_themselves(gate, argv, item, capsys, monkeypatch):
     assert len(err.splitlines()) == 1 and gate in err and item in err and "not ported" in err
 
 
+_SERVICE_CALL = {
+    "etcd": "from madsim_tpu_torch.services.etcd import Client\n"
+            "cli = await Client.connect(ADDR)\n"
+            "print((await cli.put('k', 'v'))['revision'])",
+    "kafka": "from madsim_tpu_torch.services import kafka\n"
+             "admin = await kafka.ClientConfig({'bootstrap.servers': ADDR}).create_admin()\n"
+             "print(await admin.create_topics([kafka.NewTopic('t', 2)]))",
+    "s3": "from madsim_tpu_torch.services import s3\n"
+          "cli = s3.Client.from_conf(s3.Config(endpoint_url='http://' + ADDR))\n"
+          "print(await cli.create_bucket().bucket('b').send())",
+}
+_SERVICE_ANSWER = {"etcd": "2", "kafka": "[('t', None)]", "s3": "{'location': '/b'}"}
+
+
 @pytest.mark.parametrize("service", ["etcd", "kafka", "s3"])
-def test_host_services_exit_2_naming_the_jax_command_line(service, capsys, monkeypatch):
-    """`serve --service etcd|kafka|s3` serves host services over real
-    TCP and runs no engine: the port leaves it to `python -m madsim_tpu
-    serve`, in one line, before anything is bound."""
-    from madsim_tpu_torch.fleet import httpd
+def test_host_services_serve(service):
+    """`serve --service etcd|kafka|s3` under MADSIM_TPU_MODE=real prints
+    its ready line with the bound port and answers a client's call;
+    outside real mode it exits with the reference's message, naming
+    the port's command line."""
+    import os
+    import subprocess
+    import sys
 
-    def no_bind(*args, **kwargs):
-        raise AssertionError("a refused service bound a socket")
+    from madsim_tpu.__main__ import main as jax_main
+    from torch_mirror_util import load_pair
 
-    monkeypatch.setattr(httpd, "bind", no_bind)
-    assert main(["serve", "--service", service, "--addr", "127.0.0.1:0"]) == 2
-    err = capsys.readouterr().err.strip()
-    assert len(err.splitlines()) == 1 and "python -m madsim_tpu serve" in err and service in err
+    argv = ["serve", "--service", service, "--addr", "127.0.0.1:0"]
+    with pytest.raises(SystemExit) as want:
+        jax_main(argv)
+    with pytest.raises(SystemExit) as got:
+        main(argv)
+    assert str(got.value) == str(want.value).replace("-m madsim_tpu ", "-m madsim_tpu_torch ")
+    assert "MADSIM_TPU_MODE=real python -m madsim_tpu_torch serve --service " + service in str(got.value)
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, MADSIM_TPU_MODE="real", PYTHONPATH=repo)
+    server, addr = load_pair("test_real_mode")["port"].start_real_server(service, repo, env)
+    try:
+        body = _SERVICE_CALL[service].replace("\n", "\n    ")
+        code = f"import asyncio\nADDR = {addr!r}\nasync def main():\n    {body}\nasyncio.run(main())\n"
+        out = subprocess.run([sys.executable, "-c", code], env=env, cwd=repo, capture_output=True, text=True,
+                             timeout=60)
+    finally:
+        server.kill()
+        server.wait()
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == _SERVICE_ANSWER[service]
 
 
 @pytest.mark.parametrize("argv", [["explore", *ECHO], ["regress", "--corpus", "c.json"], ["check", *ECHO]],

@@ -2,8 +2,9 @@
 against the JAX package's, mirroring tests/test_differential_services.py
 case by case: the MVCC etcd machine against `EtcdService`, the consumer
 group machine against the Kafka `Broker` coordinator, the S3 machine
-against `S3Service`, each service passed in as the port's factory
-argument. The port's side is its single-lane replay on the CPU; every
+against `S3Service`, with the JAX package's services passed in as the
+port's factory argument, and with no factory, on the port's own
+services. The port's side is its single-lane replay on the CPU; every
 report equals the JAX package's on the same seed (`ok`, the mismatch
 list, revisions, op and commit counts, `replay_failed`), and the drift
 cases (a bugged machine variant, a bugged service through the factory)
@@ -248,11 +249,16 @@ def test_s3_differential_catches_semantic_drift():
 
 
 @pytest.mark.parametrize("check", ["etcd", "kafka", "s3"])
-def test_service_is_a_required_argument(check):
-    """The port keeps no copy of the host services: each check needs its
-    service passed in, and names the argument when it is missing."""
+def test_default_service_matches_jax(check):
+    """Called with no factory, each port check runs on the port's own
+    service, and its report equals the JAX package's default (its own
+    service) on the same seed."""
     engines = {"etcd": _mvcc, "kafka": _group, "s3": _s3}[check]()
     fn = {"etcd": differential_etcd_mvcc, "kafka": differential_kafka_group, "s3": differential_s3}[check]
-    arg = {"etcd": "service_factory", "kafka": "broker_factory", "s3": "s3_factory"}[check]
-    with pytest.raises(TypeError, match=arg):
-        fn(engines[1], 0)
+    jax_fn = {"etcd": jax_diff.differential_etcd_mvcc, "kafka": jax_diff.differential_kafka_group,
+              "s3": jax_diff.differential_s3}[check]
+    jax_eng, eng = engines
+    for seed in (0, 1):
+        got = fn(eng, seed)
+        assert got == jax_fn(jax_eng, seed), (check, seed)
+        assert got["ok"], (check, seed, got["mismatches"])

@@ -237,10 +237,12 @@ def test_port_runs_with_jax_blocked():
 
 
 def test_port_scripts_import_nothing_of_jax():
-    """The port's scripts beside the package (the smoke and the host
-    Raft example) import nothing of JAX either."""
+    """The port's scripts beside the package (the smoke and every
+    `examples/*_torch.py`) import nothing of JAX either."""
     banned = {"jax", "jaxlib", "flax", "madsim_tpu"}
-    for path in (REPO / "chip_smoke.py", REPO / "examples" / "raft_host_torch.py"):
+    examples = sorted((REPO / "examples").glob("*_torch.py"))
+    assert len(examples) >= 6
+    for path in (REPO / "chip_smoke.py", *examples):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -250,6 +252,31 @@ def test_port_scripts_import_nothing_of_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, (path, name)
+
+
+def test_port_services_import_without_grpc_or_protobuf():
+    """`import madsim_tpu_torch.services` needs neither grpcio nor
+    protobuf (only the real-mode gRPC half does, lazily), nor JAX: the
+    services run a sim workload with all of them blocked."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'madsim_tpu', 'grpc', 'google.protobuf'): sys.modules[m] = None\n"
+        "import madsim_tpu_torch, madsim_tpu_torch.services\n"
+        "from madsim_tpu_torch.services import etcd, kafka, s3\n"
+        "import madsim_tpu_torch.services.kafka.wire, madsim_tpu_torch.services.kafka.real_client\n"
+        "import madsim_tpu_torch.services.s3.real_client\n"
+        "from madsim_tpu_torch.services.etcd.service import EtcdService\n"
+        "from madsim_tpu_torch.services.kafka.wire import decode_record_blob, encode_record_batch\n"
+        "assert 'services' in dir(madsim_tpu_torch)\n"
+        "svc = EtcdService(None)\n"
+        "svc.put(b'k', b'v')\n"
+        "recs = [(0, b'k', b'v', 5, [('h', b'x')])]\n"
+        "assert decode_record_blob(encode_record_batch(recs)) == recs\n"
+        "print('services', svc.revision)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "services 2"
 
 
 def test_port_differential_runs_with_jax_blocked():

@@ -1,5 +1,8 @@
 """The port's examples, mirroring tests/test_examples.py: the host Raft
-example runs; the device examples' machines and configs
+example runs; the service examples (`chaos_pipeline_torch.py`,
+`etcd_dual_torch.py` in sim and in real mode against `python -m
+madsim_tpu_torch serve`, `group_consumers_torch.py`) print the JAX
+examples' lines; the device examples' machines and configs
 (`examples/bug_hunt_torch.py`, `examples/delay_hunt_torch.py`) equal the
 JAX examples' own classes (`examples/bug_hunt.py`, `delay_hunt.py`,
 loaded by path, their `main()` not run) lane for lane at 64 lanes; the
@@ -17,6 +20,7 @@ import sys
 import numpy as np
 import pytest
 
+from torch_mirror_util import load_pair
 from torch_port_util import same
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -102,6 +106,49 @@ def test_example_engine_matches_jax(case):
     assert (n_failed > 0) if must_fail else (n_failed == 0), (case, n_failed)
     if case == "delay-spikes":
         assert {int(c) for c in got.fail_code.tolist() if c} == {206}
+
+
+def _same_lines(script, *args):
+    """The port example's stdout, held equal to the JAX example's."""
+    got, want = _run(script.replace(".py", "_torch.py"), *args), _run(script, *args)
+    assert got.returncode == want.returncode == 0, got.stderr[-500:] + want.stderr[-500:]
+    assert got.stdout == want.stdout
+    return got.stdout
+
+
+def test_chaos_pipeline_example_deterministic():
+    out = _same_lines("chaos_pipeline.py", "7")
+    assert _run("chaos_pipeline_torch.py", "7").stdout == out
+    assert "evt-after-crash" in out
+
+
+def test_etcd_dual_example_sim_mode():
+    out = _same_lines("etcd_dual.py")
+    assert "[sim]" in out and "'txn_succeeded': True" in out
+
+
+def test_etcd_dual_example_real_mode():
+    """The same app bytes over real TCP: the port's example against the
+    port's `serve`, the JAX example against the JAX package's."""
+    pair = load_pair("test_real_mode")
+    env = dict(os.environ, MADSIM_TPU_MODE="real", PYTHONPATH=_REPO)
+    outs = []
+    for pkg, script in (("port", "etcd_dual_torch.py"), ("jax", "etcd_dual.py")):
+        server, addr = pair[pkg].start_real_server("etcd", _REPO, env)
+        try:
+            r = subprocess.run([sys.executable, os.path.join(_EXAMPLES, script), addr], env=env,
+                               capture_output=True, text=True, timeout=60)
+        finally:
+            server.kill()
+            server.wait()
+        assert r.returncode == 0, r.stdout + r.stderr
+        outs.append(r.stdout)
+    assert outs[0] == outs[1]
+    assert "[real]" in outs[0] and "'txn_succeeded': True" in outs[0]
+
+
+def test_group_consumers_example():
+    assert "at-least-once holds" in _same_lines("group_consumers.py", "7")
 
 
 @pytest.mark.parametrize("script", ["bug_hunt_torch.py", "delay_hunt_torch.py"])

@@ -1,9 +1,11 @@
 """The port's real-mode backend (`madsim_tpu_torch.real`, `.dual`):
-the same tag / RPC API over actual sockets on 127.0.0.1, mirroring the
-five cases of tests/test_real_mode.py that need no service. Each
-workload runs on the port and on the JAX package
-(`torch_host_util.both`) and gives equal values; the `MADSIM_TPU_MODE`
-switch selects the port's sim or asyncio Endpoint."""
+the same tag / RPC API over actual sockets on 127.0.0.1, mirroring
+tests/test_real_mode.py. Each workload runs on the port and on the JAX
+package (`torch_host_util.both`) and gives equal values; the
+`MADSIM_TPU_MODE` switch selects the port's sim or asyncio Endpoint.
+The service cases run the JAX file's own cases and their port copies
+(`torch_mirror_util`): the port's copy starts `python -m
+madsim_tpu_torch serve` and runs the same client script on the port."""
 
 import asyncio
 import os
@@ -17,6 +19,9 @@ import madsim_tpu.real.compat  # noqa: F401
 import madsim_tpu_torch.dual  # noqa: F401
 import madsim_tpu_torch.real.compat  # noqa: F401
 from torch_host_util import both
+from torch_mirror_util import load_pair, run_both
+
+PAIR = load_pair("test_real_mode")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -174,3 +179,15 @@ def test_real_compat_surface():
         return asyncio.run(main())
 
     assert both(work) == (True, True, (True, True, True, True, "x"))
+
+
+@pytest.mark.parametrize("service", ["etcd", "kafka", "s3"])
+def test_services_run_in_real_mode(service, tmp_path):
+    """The same service client code runs in production mode against a
+    real TCP server that `python -m madsim_tpu_torch serve` starts."""
+    run_both(PAIR, "test_services_run_in_real_mode", service=service, tmp_path=tmp_path)
+
+
+def test_real_mode_server_down_is_typed_error(tmp_path):
+    """Connect-refused surfaces as the drop-in clients' typed errors."""
+    run_both(PAIR, "test_real_mode_server_down_is_typed_error", tmp_path=tmp_path)
