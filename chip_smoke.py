@@ -156,12 +156,20 @@ last line):
      and on the CPU, equal; and in the window (`differential_whole`),
      the whole differential with both engines on the port: 256 seeds,
      the device side one 256-lane run_batch on the card, the host side
-     the port's own runtime (`run_host_raft` on each seed, its seconds
-     and seeds/s beside the card's name and power limit), with no
+     the port's own runtime on its native core (`run_host_raft` on each
+     seed, its seconds and seeds/s beside the card's name and power
+     limit, `host_native` and the core's `.so`), with no
      schedule mismatch, no violation on either engine and no
      disagreement; the vote bug planted in both engines caught by both
      (16 seeds, 3 s); `Runtime.check_determinism` of the host example's
-     scenario on 4 seeds; `guided_kernels` holds and times the
+     scenario on 4 seeds; before it, in the same process (`native`),
+     the host engine's native core (`_native/hostcore.cc`, g++) built
+     from the checkout, its seconds, and held against the pure-Python
+     path (a process under MADSIM_TPU_NO_NATIVE=1): `run_host_raft` on
+     64 fixture seeds with equal reports and both seeds/s, the chaos
+     scenario of tests/test_native.py at seed 11 with equal output, and
+     `check_determinism` on 4 seeds with the core observing every draw;
+     `guided_kernels` holds and times the
      megakernel and the flush at the escalated vocabulary's W (8192
      lanes), the megakernel at the 64-lane hunt's escalated W, and
      pop_gather at the differential's 64 and 256 lanes of Q = 96;
@@ -2047,6 +2055,12 @@ DIFF_WHOLE_LANES = 256
 DIFF_BUG = dict(horizon_us=3_000_000, queue_capacity=96)
 DIFF_BUG_FAULTS = dict(n_faults=2, t_max_us=2_000_000, dur_min_us=200_000, dur_max_us=600_000)
 DIFF_BUG_SEEDS, DIFF_DETERMINISM_SEEDS = 16, 4
+# the host engine's native core (madsim_tpu_torch/_native/hostcore.cc)
+# against its pure-Python path (MADSIM_TPU_NO_NATIVE=1, a process of its
+# own): run_host_raft on 64 seeds of the differential's fixture, the chaos
+# scenario of tests/test_native.py:80-116 at seed 11, and
+# Runtime.check_determinism of the host example's scenario on 4 seeds
+NATIVE_SEEDS, NATIVE_CHECK_SEEDS = 64, 4
 
 
 # phase 16, the perf tooling: the command line's perf commands on the
@@ -2709,12 +2723,21 @@ def differential_checks(torch, np, kernels):
     mismatch, no violation on either engine, no disagreement; the vote
     bug planted in both engines caught by both (16 seeds); and
     `Runtime.check_determinism` of the host example's scenario on 4
-    seeds."""
+    seeds. The host side runs on the native core (`native_checks` built
+    it and held it against the pure-Python path first)."""
+    import os
+
     from madsim_tpu_torch.differential import _load_raft_host, differential_raft, run_host_raft
     from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
     from madsim_tpu_torch.models import RaftMachine
     from madsim_tpu_torch.runtime import Runtime
 
+    from madsim_tpu_torch import _native
+    from madsim_tpu_torch.rand import GlobalRng
+
+    host_native = _native.available() and type(GlobalRng(0)._core) is _native.get_mod().Rng
+    if not host_native:
+        fail("the differential's host side is not on the native core")
     host = {"s": 0.0, "seeds": 0}
 
     def timed_host_run(*args, **kw):
@@ -2760,12 +2783,178 @@ def differential_checks(torch, np, kernels):
 
     emit({"phase": "differential_whole", "card": card_line(), "seeds": DIFF_WHOLE_LANES, **counts,
           "seconds": round(whole_s, 3), "device_s": round(whole_s - host["s"], 3), "host_s": round(host["s"], 3),
-          "host_seeds_per_s": round(DIFF_WHOLE_LANES / host["s"], 2), "launches": launches,
+          "host_seeds_per_s": round(DIFF_WHOLE_LANES / host["s"], 2), "host_native": host_native,
+          "native_so": os.path.relpath(_native.so_path(), pathlib.Path(__file__).resolve().parent),
+          "launches": launches,
           "bug_pair": {"seeds": DIFF_BUG_SEEDS, **bug_counts, "seconds": round(bug_s, 3)},
           "check_determinism": {"seeds": DIFF_DETERMINISM_SEEDS, "passed": True,
                                 "terms_with_leader": [r["terms_with_leader"] for r in determinism],
                                 "seconds": round(determinism_s, 3)}})
     return {"launches": launches}
+
+
+NATIVE_PURE_RAFT = (
+    "import json, sys, time\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "from madsim_tpu_torch import _native\n"
+    "from madsim_tpu_torch.differential import run_host_raft\n"
+    "assert not _native.available()\n"
+    "schedules = json.load(open(sys.argv[2]))\n"
+    "t0 = time.perf_counter()\n"
+    "reports = [run_host_raft(seed, sched) for seed, sched in enumerate(schedules)]\n"
+    "print(json.dumps({'s': time.perf_counter() - t0, 'reports': reports}))\n"
+)
+
+# tests/test_native.py:80-116 on the port: an RPC server killed and
+# restarted at random under 30 timed calls; its first line says which
+# path ran
+NATIVE_CHAOS = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import madsim_tpu_torch\n"
+    "from madsim_tpu_torch import _native, time as sim_time\n"
+    "from madsim_tpu_torch.runtime import Runtime, Handle\n"
+    "from madsim_tpu_torch.net import Endpoint, Request\n"
+    "class Ping(Request):\n"
+    "    def __init__(self, v): self.v = v\n"
+    "async def scenario():\n"
+    "    handle = Handle.current()\n"
+    "    state = {'sum': 0}\n"
+    "    async def serve():\n"
+    "        ep = await Endpoint.bind('0.0.0.0:77')\n"
+    "        async def on_ping(req, data):\n"
+    "            state['sum'] += req.v\n"
+    "            return req.v\n"
+    "        ep.add_rpc_handler(Ping, on_ping)\n"
+    "        await sim_time.sleep(1e9)\n"
+    "    srv = handle.create_node().ip('10.0.3.1').init(serve).restart_on_panic().build()\n"
+    "    client = handle.create_node().ip('10.0.3.2').build()\n"
+    "    async def drive():\n"
+    "        ep = await Endpoint.bind('0.0.0.0:0')\n"
+    "        rng = madsim_tpu_torch.rand.thread_rng()\n"
+    "        out = []\n"
+    "        for i in range(30):\n"
+    "            try:\n"
+    "                out.append(await ep.call_timeout('10.0.3.1:77', Ping(i), 1.0))\n"
+    "            except TimeoutError:\n"
+    "                out.append(-1)\n"
+    "            if rng.gen_bool(0.2):\n"
+    "                handle.kill(srv.id); handle.restart(srv.id)\n"
+    "            await sim_time.sleep(rng.random() * 0.1)\n"
+    "        return out, state['sum'], sim_time.now_ns()\n"
+    "    return await client.spawn(drive())\n"
+    "print(_native.available())\n"
+    "print(repr(Runtime(seed=11).block_on(scenario())))\n"
+)
+
+
+def native_build():
+    """The loader's g++ command run here, into a directory of its own,
+    timed: a failed build fails the smoke with g++'s stderr. Then the
+    loader itself must give the core (the `.so` it built or found)."""
+    import os
+    import shutil
+    import tempfile
+
+    from madsim_tpu_torch import _native
+
+    if os.environ.get("MADSIM_TPU_NO_NATIVE"):
+        fail("MADSIM_TPU_NO_NATIVE is set: the smoke runs the host engine on its native core")
+    tmp = tempfile.mkdtemp(prefix="madsim_native_")
+    try:
+        t0 = time.perf_counter()
+        out = subprocess.run(_native.build_command(os.path.join(tmp, "hostcore.so")), capture_output=True,
+                             text=True, timeout=300)
+        build_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if out.returncode != 0:
+        fail(f"the native host core did not build (g++ exit {out.returncode}):\n{out.stderr[-3000:]}")
+    if not _native.available():
+        fail(f"the native host core built but the loader gave none ({_native.so_path()})")
+    return {"build_s": build_s, "so": os.path.relpath(_native.so_path(), pathlib.Path(__file__).resolve().parent)}
+
+
+def native_checks(torch, np, kernels):
+    """Phase 15's native line (a check of the differential's CHECK_GROUPS
+    group, before the differential): the host engine's core built from
+    the checkout, and each workload on it held equal to the same workload
+    on the pure-Python path in a process under MADSIM_TPU_NO_NATIVE=1:
+    `run_host_raft` on NATIVE_SEEDS seeds of the differential's fixture
+    (both rates), the chaos scenario at seed 11; and
+    `Runtime.check_determinism` on NATIVE_CHECK_SEEDS seeds with the core
+    observing every draw while the log is on."""
+    import os
+    import tempfile
+
+    from madsim_tpu_torch import _native
+    from madsim_tpu_torch.differential import _load_raft_host, fault_schedules, run_host_raft
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+    from madsim_tpu_torch.rand import GlobalRng, thread_rng
+    from madsim_tpu_torch.runtime import Runtime
+
+    build = native_build()
+    if type(GlobalRng(0)._core) is not _native.get_mod().Rng:
+        fail("the port's GlobalRng does not draw from the native core")
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    pure_env = dict(os.environ, MADSIM_TPU_NO_NATIVE="1")
+
+    eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), EngineConfig(**DIFF, faults=FaultPlan(**DIFF_FAULTS)))
+    schedules = fault_schedules(eng, range(NATIVE_SEEDS))
+    t0 = time.perf_counter()
+    native = [run_host_raft(seed, sched) for seed, sched in enumerate(schedules)]
+    native_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="madsim_native_") as tmp:
+        path = pathlib.Path(tmp) / "schedules.json"
+        path.write_text(json.dumps(schedules))
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", NATIVE_PURE_RAFT, repo, str(path)], env=pure_env,
+                             capture_output=True, text=True, timeout=600)
+        pure_process_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"run_host_raft on the pure-Python path exited {out.returncode}:\n{out.stderr[-3000:]}")
+    pure = json.loads(out.stdout)
+    if pure["reports"] != json.loads(json.dumps(native)):
+        bad = [s for s, (a, b) in enumerate(zip(pure["reports"], json.loads(json.dumps(native)))) if a != b]
+        fail(f"run_host_raft differs between the native core and the pure-Python path on seeds {bad[:16]}")
+
+    chaos = {}
+    for name, env in (("native", dict(os.environ)), ("pure", pure_env)):
+        run = subprocess.run([sys.executable, "-c", NATIVE_CHAOS, repo], env=env, capture_output=True, text=True,
+                             timeout=300)
+        if run.returncode != 0:
+            fail(f"the chaos scenario on the {name} path exited {run.returncode}:\n{run.stderr[-3000:]}")
+        chaos[name] = run.stdout.split("\n", 1)
+    if (chaos["native"][0], chaos["pure"][0]) != ("True", "False"):
+        fail(f"the chaos scenario ran on the wrong paths: {chaos['native'][0]}, {chaos['pure'][0]}")
+    if chaos["native"][1] != chaos["pure"][1]:
+        fail(f"the chaos scenario differs: native {chaos['native'][1][:300]!r}, pure {chaos['pure'][1][:300]!r}")
+
+    scenario = _load_raft_host().scenario
+    observing = []
+
+    async def observed():
+        observing.append(thread_rng().native_observing)
+        return await scenario()
+
+    t0 = time.perf_counter()
+    determinism = [Runtime.check_determinism(seed, observed) for seed in range(NATIVE_CHECK_SEEDS)]
+    determinism_s = time.perf_counter() - t0
+    if observing != [True] * (2 * NATIVE_CHECK_SEEDS):
+        fail(f"check_determinism ran without the native core observing: {observing}")
+
+    emit({"phase": "native", "card": card_line(), "so": build["so"], "build_s": round(build["build_s"], 3),
+          "host_raft": {"seeds": NATIVE_SEEDS, "equal": True, "elected": sum(r["elected"] for r in native),
+                        "native_s": round(native_s, 3), "native_seeds_per_s": round(NATIVE_SEEDS / native_s, 2),
+                        "pure_s": round(pure["s"], 3), "pure_seeds_per_s": round(NATIVE_SEEDS / pure["s"], 2),
+                        "pure_process_s": round(pure_process_s, 3),
+                        "speedup": round(pure["s"] / native_s, 3)},
+          "chaos_seed_11": {"equal": True, "result_chars": len(chaos["native"][1])},
+          "check_determinism": {"seeds": NATIVE_CHECK_SEEDS, "passed": True, "native_observing": True,
+                                "terms_with_leader": [r["terms_with_leader"] for r in determinism],
+                                "seconds": round(determinism_s, 3)}})
+    return {"so": build["so"]}
 
 
 GUIDED_BEAT = re.compile(
@@ -4540,7 +4729,7 @@ CHECK_GROUPS = {
     "split_prov_clog": (("split", split_chain_checks), ("prov_legs", lambda torch, np, kernels: provenance_legs(np)),
                         ("clog", clog_checks)),
     "mesh": (("mesh", mesh_checks),),
-    "differential": (("differential", differential_checks),),
+    "differential": (("native", native_checks), ("differential", differential_checks)),
     "examples": (("card_vs_cpu_examples", card_vs_cpu_examples), ("host_facades", host_facades)),
     "services_drift": (("services_drift", lambda torch, np, kernels: services_checks(torch, np, kernels, "drift")),),
     "services_faithful": (("services_faithful",

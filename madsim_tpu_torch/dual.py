@@ -15,9 +15,9 @@ madsim-etcd-client/src/lib.rs:1-8). Python selects at import time:
 The L5 service clients/servers (`services.etcd/kafka/s3`) are built on
 this facade, so an app using them runs unmodified against a real server
 in real mode — the analogue of the reference's L5 crates re-exporting
-the real client (the port's `services/` is ROADMAP item 15's next
-group). `task`, `time`, and `rand` expose the subset of the sim surface
-the services use, bound to asyncio/stdlib in real mode. The variables
+the real client (the port's `services/` runs on it, as the JAX
+package's does). `task`, `time`, and `rand` expose the subset of the
+sim surface the services use, bound to asyncio/stdlib in real mode. The variables
 `MADSIM_TPU_MODE` and `MADSIM_TPU_REAL_PASSTHROUGH` are the JAX
 package's, so one environment selects the mode of both packages.
 """

@@ -25,6 +25,23 @@ from .errors import RecvError
 
 __all__ = ["PENDING", "Pollable", "Ready", "await_", "OneShotCell", "yield_now"]
 
+# Native __await__ iterator — resolved lazily on first await so that a
+# bare `import madsim_tpu` never triggers the g++ build of hostcore.
+_AwaitIter = None
+_await_iter_resolved = False
+
+
+def _resolve_await_iter():
+    global _AwaitIter, _await_iter_resolved
+    _await_iter_resolved = True
+    from . import _native
+
+    mod = _native.get_mod()
+    if mod is not None:
+        _AwaitIter = mod.AwaitIter
+    return _AwaitIter
+
+
 class _Pending:
     __slots__ = ()
 
@@ -58,9 +75,15 @@ class _Await:
     def __init__(self, pollable: Pollable):
         self.pollable = pollable
 
-    # The reference's native AwaitIter waits for the port of its C++ core
-    # (ROADMAP item 15, `_native/`); this is its pure-Python path.
     def __await__(self) -> Generator[None, None, Any]:
+        it = _AwaitIter
+        if it is None and not _await_iter_resolved:
+            it = _resolve_await_iter()
+        if it is not None:
+            return it(self.pollable)  # native iterator, same protocol
+        return self._await_py()
+
+    def _await_py(self) -> Generator[None, None, Any]:
         p = self.pollable
         try:
             while True:
@@ -78,7 +101,15 @@ class _Await:
 
 
 def await_(pollable: Pollable):
-    """Turn a Pollable into an awaitable: ``value = await await_(p)``."""
+    """Turn a Pollable into an awaitable: ``value = await await_(p)``.
+
+    With the native core, the AwaitIter IS the awaitable (its type has
+    am_await = self), skipping the _Await wrapper object per await."""
+    it = _AwaitIter
+    if it is None and not _await_iter_resolved:
+        it = _resolve_await_iter()
+    if it is not None:
+        return it(pollable)
     return _Await(pollable)
 
 

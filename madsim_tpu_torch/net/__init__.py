@@ -105,9 +105,23 @@ class NetSim(Simulator):
         # mid-rand_delay (sim/net/mod.rs:287-296).
         self._incarnation: Dict[int, int] = {}
         self._send_seq = 0
-        # The reference's native datagram hot path (hostcore.NetCore, the
-        # same draws as `_send_slow`) waits for the port of its C++ core
-        # (ROADMAP item 15, `_native/`).
+        # Native datagram hot path (hostcore.NetCore): the send -> wire
+        # -> delivery moments run in C when the native RNG + clock cores
+        # are live. State stays in THIS object (the core holds refs);
+        # hooks/ipvs/DNS fall back to the Python path automatically.
+        self._netcore = None
+        from .. import _native
+
+        rng_core = getattr(rng, "_core", None)
+        time_core = getattr(time, "_core", None)
+        if _native.available() and rng_core is not None and time_core is not None:
+            from .. import _context
+            from .endpoint import Message as _Msg
+
+            self._netcore = _native.get_mod().NetCore(
+                self, self.network, rng, rng_core, time_core, _Msg,
+                _context.current,
+            )
 
     # -- Simulator lifecycle ------------------------------------------------
 
@@ -249,22 +263,41 @@ class NetSim(Simulator):
     def send_fast(
         self, src_node, src_addr, dst, tag, payload, kind=None
     ) -> Optional[Any]:
-        """The non-async datagram send: returns the coroutine the caller
-        must await (the reference's native core returns None when the
-        send was scheduled synchronously; the pure-Python path always
-        returns the coroutine).
+        """The non-async datagram send: returns None when the send was
+        fully scheduled synchronously (the common case — zero coroutine
+        frames on the hot path), or a coroutine the caller must await
+        (the buggified 1-5 s / every-16th blocking-send cases, and the
+        whole Python path when the native core is absent).
 
         DNS errors surface to the caller (reference: lookup failure is
         the send's error); hooks still observe the ORIGINAL destination
         the sender used, and clog/loss/latency stay at the wire moment."""
         resolved = self.resolve_name(dst)
+        nc = self._netcore
+        if nc is not None:
+            out = nc.send(src_node, src_addr, dst, resolved, tag, payload, kind)
+            if out is None:
+                return None
+            return self._send_blocking_tail(
+                out[1], src_node, src_addr, dst, resolved, tag, payload, kind
+            )
         return self._send_slow(src_node, src_addr, dst, resolved, tag, payload, kind)
+
+    async def _send_blocking_tail(
+        self, delay_ns, src_node, src_addr, dst, resolved, tag, payload, kind
+    ) -> None:
+        # the two blocking-send cases: the buggified 1-5 s chaos delay
+        # and the every-16th suspension that keeps send-only loops
+        # driving virtual time (kill cancels the sender here, like the
+        # reference's rand_delay)
+        await sim_time.sleep_ns(delay_ns)
+        self._send_phase2(src_node, src_addr, dst, resolved, tag, payload, kind)
 
     async def _send_slow(
         self, src_node, src_addr, dst, resolved, tag, payload, kind
     ) -> None:
-        """The send path: the buggified 1-5 s delay, the every-16th
-        suspension, else a timer-scheduled wire moment."""
+        """Pure-Python send path (no native core): same draws, same
+        timer-scheduled wire moment."""
         if self.rng.buggify_with_prob(0.1):
             await sim_time.sleep_ns(self.rng.gen_range(1 * SEC, 5 * SEC))
             self._send_phase2(src_node, src_addr, dst, resolved, tag, payload, kind)

@@ -31,7 +31,7 @@ from .network import (
 
 class Message(NamedTuple):
     # a NamedTuple, not a __slots__ class: messages are minted on the
-    # datagram hot path and tuple.__new__
+    # datagram hot path (incl. by the native NetCore) and tuple.__new__
     # skips the Python __init__ frame entirely
     tag: int
     payload: Any
@@ -67,8 +67,20 @@ class Mailbox:
         self.registered = [(t, c) for (t, c) in self.registered if c is not cell]
 
     def recv(self, tag: int) -> "_MailboxRecv":
-        """Pollable for the next `tag` message."""
+        """Pollable for the next `tag` message (same surface as the
+        native hostcore.Mailbox.recv)."""
         return _MailboxRecv(self, tag)
+
+
+def _new_mailbox():
+    """Native tag-matched mailbox when the toolchain built hostcore
+    (one C object replaces the recv_cell/OneShotCell/_MailboxRecv stack
+    on the RPC hot path); Python twin otherwise — same deliver/recv
+    semantics, asserted by tests/test_torch_native.py."""
+    from .. import _native
+
+    mod = _native.get_mod()
+    return mod.Mailbox() if mod is not None else Mailbox()
 
 
 class _MailboxRecv(Pollable):
@@ -251,7 +263,7 @@ class Endpoint:
         self.node_id = node_id
         self.local_addr = local_addr
         self.peer: Optional[Addr] = None
-        self._mailbox = Mailbox()
+        self._mailbox = _new_mailbox()
         self._accept_queue: Deque[IncomingConn] = deque()
         self._accept_wakers: List[Callable[[], None]] = []
         self._closed = False

@@ -26,7 +26,7 @@ from ..rand.philox import splitmix64
 from ..task import spawn
 from ..task.join import JoinHandle
 from .endpoint import Endpoint
-from .network import Addr, ConnectionReset
+from .network import Addr, ConnectionReset, parse_addr
 
 
 def hash_str(s: str) -> int:
@@ -62,12 +62,73 @@ async def call(ep: Endpoint, dst: Any, req: Request, timeout: Optional[float] = 
     return rsp
 
 
+_NATIVE_MAILBOX = None
+_NATIVE_RECV_DEADLINE = None
+_native_resolved = False
+
+
+def _resolve_native_rpc():
+    """The fused recv-with-deadline pollable (hostcore.RecvDeadline):
+    one native poll replaces the timeout()/race/inline-future tower on
+    the RPC hot path. Resolved lazily, once."""
+    global _NATIVE_MAILBOX, _NATIVE_RECV_DEADLINE, _native_resolved
+    _native_resolved = True
+    from .. import _native
+
+    if _native.available():
+        mod = _native.get_mod()
+        _NATIVE_MAILBOX = mod.Mailbox
+        _NATIVE_RECV_DEADLINE = mod.RecvDeadline
+
+
 async def call_with_data(
     ep: Endpoint, dst: Any, req: Request, data: bytes, timeout: Optional[float] = None
 ) -> Tuple[Any, bytes]:
-    # The reference's fused native initiation (hostcore.RecvDeadline, the
-    # same draws and send as below) waits for the port of its C++ core
-    # (ROADMAP item 15, `_native/`).
+    if timeout is not None:
+        if not _native_resolved:
+            _resolve_native_rpc()
+        net = ep._net
+        nc = getattr(net, "_netcore", None)
+        mb = ep._mailbox
+        if (
+            nc is not None
+            and _NATIVE_RECV_DEADLINE is not None
+            and type(mb) is _NATIVE_MAILBOX
+        ):
+            # fully fused native initiation: rsp-tag draw (the same
+            # thread_rng().next_u64() the Python path makes), the
+            # recv-with-deadline registration (anchored at call start,
+            # like timeout() anchors before its first inner poll;
+            # register-before-send is equivalent since the response
+            # cannot arrive before the request leaves), and the send
+            th = net.time
+            resolved_dst = parse_addr(dst)
+            wait, blocking = nc.rpc_call(
+                mb, ep.node_id, ep.local_addr, resolved_dst,
+                net.resolve_name(resolved_dst), type(req).type_id(), req,
+                data, th.now_ns() + sim_time.to_ns(timeout),
+            )
+            if blocking is not None:
+                _mode, delay_ns, payload = blocking
+                await sim_time.sleep_ns(delay_ns)
+                net._send_phase2(
+                    ep.node_id, ep.local_addr, resolved_dst,
+                    net.resolve_name(resolved_dst), type(req).type_id(),
+                    payload, "rpc_req",
+                )
+            if ep._closed:
+                # the Python path consumes the same draws and sends the
+                # request, then raises at the recv step (recv_from_raw's
+                # closed check) — mirror it exactly so the RNG streams
+                # stay bit-identical across engines
+                wait.drop()
+                raise ConnectionReset("endpoint closed")
+            msg = await await_(wait)
+            if msg is None:
+                raise TimeoutError(f"timed out after {timeout}s (virtual)")
+            rsp, rsp_data = msg.payload
+            return rsp, rsp_data
+
     rsp_tag = rand.thread_rng().next_u64()
 
     async def round_trip() -> Tuple[Any, bytes]:

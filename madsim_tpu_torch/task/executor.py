@@ -93,13 +93,18 @@ class TaskEntry:
         self.location = location
         self.executor = executor
 
-        def waker(task: "TaskEntry" = self) -> None:
-            if task.finished or task.scheduled:
-                return
-            task.scheduled = True
-            task.executor.ready.append(task)
+        mod = executor._native_mod
+        if mod is not None:
+            # native wake callable — also fired C-internally by timers
+            self.waker = mod.TaskWaker(self, executor.ready)
+        else:
+            def waker(task: "TaskEntry" = self) -> None:
+                if task.finished or task.scheduled:
+                    return
+                task.scheduled = True
+                task.executor.ready.append(task)
 
-        self.waker = waker
+            self.waker = waker
 
     def cancel(self) -> None:
         """Drop the future (reference: kill path sim/task/mod.rs:133-140)."""
@@ -133,6 +138,10 @@ class Executor:
     def __init__(self, rng: GlobalRng, time: TimeHandle):
         self.rng = rng
         self.time = time
+        # draw-hash observation folds in the virtual clock (the native
+        # twin of _context.try_time_ns in GlobalRng._record)
+        if rng._core is not None and time._core is not None:
+            rng._core.bind_time(time._core)
         self.ready: List[TaskEntry] = []
         self.nodes: Dict[int, NodeInfo] = {}
         self._next_node_id = MAIN_NODE_ID
@@ -146,9 +155,13 @@ class Executor:
         self.create_hooks: List[Callable[[int], None]] = []
         # task census for metrics (reference: sim/runtime/metrics.rs)
         self.spawn_counts: Dict[int, Dict[str, int]] = {}
-        # The reference's native poll loop (hostcore.run_all_ready, draw
-        # for draw the loop below) waits for the port of its C++ core
-        # (ROADMAP item 15, `_native/`).
+        # Native poll loop (hostcore.run_all_ready): used when the RNG +
+        # clock cores are native and the determinism log/check is off
+        # (the log must observe every draw). Draw-for-draw identical to
+        # the Python loop, so either path replays the other's seeds.
+        from .. import _native
+
+        self._native_mod = _native.get_mod()
         self.main_node = self.create_node("madsim-main")  # reference 0.2.34 rename
 
     # -- nodes --------------------------------------------------------------
@@ -249,7 +262,8 @@ class Executor:
         simulated second (tasks, coroutines, pendings), and generational
         scans of the live runtime graph were ~20% of host-engine wall
         time. Virtually all sim garbage is acyclic (refcount-freed
-        immediately); the allocation counters keep
+        immediately — the native core's types all carry traverse/clear
+        so teardown cycles break); the allocation counters keep
         accumulating while collection is paused, so the NORMAL
         threshold-triggered collections fire in the windows between
         simulations and reclaim the rare surviving cycles (measured:
@@ -269,18 +283,34 @@ class Executor:
 
     def _block_on_inner(self, main_coro: Coroutine) -> Any:
         main_task = self.spawn(main_coro, self.main_node, location="<main>")
+        mod = self._native_mod
+        rng = self.rng
         while True:
-            self.run_all_ready()
-            if self.panic is not None:
-                code = 1
-            elif main_task.finished:
-                code = 0
-            elif self._time_limit_hit:
-                code = 2
-            elif not self.time.advance_to_next_event():
-                code = 3
+            if (
+                mod is not None
+                and rng._core is not None
+                and self.time._core is not None
+                and (not rng.recording or rng.native_observing)
+            ):
+                # the whole inner loop (drain + timer jump) runs in C;
+                # in check mode the core itself hashes every draw
+                # (scheduling draws included), so the loop users run is
+                # the loop the check validates
+                code = mod.drive(
+                    self, _context.current(), rng._core, self.time._core, main_task
+                )
             else:
-                continue
+                self.run_all_ready()
+                if self.panic is not None:
+                    code = 1
+                elif main_task.finished:
+                    code = 0
+                elif self._time_limit_hit:
+                    code = 2
+                elif not self.time.advance_to_next_event():
+                    code = 3
+                else:
+                    continue
             if code == 1:
                 panic, self.panic = self.panic, None
                 raise panic
@@ -294,6 +324,8 @@ class Executor:
                     f"time limit ({self.time_limit_ns / SEC}s) exceeded at "
                     f"t={self.time.elapsed()}s"
                 )
+            if code == 4:
+                self.rng.raise_native_mismatch()
             raise Deadlock(
                 "all tasks are blocked and no timer is pending — "
                 "the simulation would block forever (deadlock)"
@@ -301,7 +333,16 @@ class Executor:
 
     def run_all_ready(self) -> None:
         """Drain the ready queue in random order (reference :263-323)."""
+        mod = self._native_mod
         rng = self.rng
+        if (
+            mod is not None
+            and rng._core is not None
+            and self.time._core is not None
+            and (not rng.recording or rng.native_observing)
+        ):
+            mod.run_all_ready(self, _context.current(), rng._core, self.time._core)
+            return
         ready = self.ready
         while ready:
             # try_recv_random: swap-remove a uniformly random element

@@ -55,6 +55,23 @@ SEC = 1_000_000_000
 _JAN_2022_NS = 1_640_995_200 * SEC
 
 
+# Native sleep pollable — resolved lazily on first sleep so that a bare
+# `import madsim_tpu` never triggers the g++ build of hostcore.
+_SleepGate = None
+_sleep_gate_resolved = False
+
+
+def _resolve_sleep_gate():
+    global _SleepGate, _sleep_gate_resolved
+    _sleep_gate_resolved = True
+    from .. import _native
+
+    mod = _native.get_mod()
+    if mod is not None:
+        _SleepGate = mod.SleepGate
+    return _SleepGate
+
+
 def to_ns(duration: Union[int, float]) -> int:
     """Convert seconds (int/float) to integer nanoseconds.
 
@@ -75,9 +92,12 @@ class TimeHandle:
         self._now_ns = 0
         self._heap: List[Tuple[int, int, Callable[[], None]]] = []
         self._seq = 0  # FIFO tie-break for equal deadlines (deterministic)
-        # The reference's native clock core (hostcore.TimeCore) waits for
-        # the port of its C++ core (ROADMAP item 15, `_native/`); the heapq
-        # path here keeps its (deadline, seq) order.
+        # Native clock + timer heap (hostcore.TimeCore) when available —
+        # the same (deadline, seq) ordering as the heapq fallback, with
+        # callbacks held natively (no id->callback dict round trip).
+        from .. import _native
+
+        self._core = _native.make_time_core() if _native.available() else None
         # Random base wall clock ~year 2022 + up to one year of offset
         # (reference: sim/time/mod.rs:26-31).
         self.base_system_ns = _JAN_2022_NS + rng.gen_range(0, 365 * 24 * 3600) * SEC
@@ -85,7 +105,8 @@ class TimeHandle:
     # -- clock --------------------------------------------------------------
 
     def now_ns(self) -> int:
-        return self._now_ns
+        core = self._core
+        return core.now_ns() if core is not None else self._now_ns
 
     def elapsed(self) -> float:
         return self.now_ns() / SEC
@@ -95,15 +116,26 @@ class TimeHandle:
 
     def advance_ns(self, delta_ns: int) -> None:
         """Manually jump the clock forward (reference: mod.rs:185-190)."""
-        self._now_ns += delta_ns
+        core = self._core
+        if core is not None:
+            core.advance_ns(delta_ns)
+        else:
+            self._now_ns += delta_ns
 
     # -- timers -------------------------------------------------------------
 
     def add_timer_ns(self, deadline_ns: int, callback: Callable[[], None]) -> None:
-        self._seq += 1
-        heapq.heappush(self._heap, (deadline_ns, self._seq, callback))
+        core = self._core
+        if core is not None:
+            core.push(deadline_ns, callback)
+        else:
+            self._seq += 1
+            heapq.heappush(self._heap, (deadline_ns, self._seq, callback))
 
     def next_event_ns(self) -> Optional[int]:
+        core = self._core
+        if core is not None:
+            return core.peek()
         return self._heap[0][0] if self._heap else None
 
     def advance_to_next_event(self) -> bool:
@@ -112,6 +144,9 @@ class TimeHandle:
         Returns False when no timer is pending (deadlock, unless the main
         future completed). Reference: sim/time/mod.rs:45-59.
         """
+        core = self._core
+        if core is not None:
+            return core.advance_to_next_event()
         if not self._heap:
             return False
         deadline, _seq, callback = heapq.heappop(self._heap)
@@ -314,8 +349,15 @@ class Sleep(Pollable):
 
 
 def _sleep_pollable(th: "TimeHandle", deadline_ns: int):
-    """The sleep pollable. The reference's native gate waits for the port
-    of its C++ core (ROADMAP item 15, `_native/`)."""
+    """The sleep pollable: native gate (poll fully in C) when the clock
+    core is native, else the Python SleepFuture — same semantics."""
+    core = th._core
+    if core is not None:
+        gate = _SleepGate
+        if gate is None and not _sleep_gate_resolved:
+            gate = _resolve_sleep_gate()
+        if gate is not None:
+            return gate(deadline_ns, core)
     return SleepFuture(deadline_ns)
 
 
@@ -376,7 +418,7 @@ class _InlineFuture(Pollable):
         # coroutines drive directly; other awaitables via __await__()
         self._it = aw if hasattr(aw, "send") else aw.__await__()
         # coroutines are not iterators (no __next__) — step via send;
-        # plain __await__ iterators via next
+        # plain __await__ iterators (e.g. the native AwaitIter) via next
         send = getattr(self._it, "send", None)
         self._step = (lambda: send(None)) if send is not None else self._it.__next__
 

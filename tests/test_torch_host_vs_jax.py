@@ -3,12 +3,16 @@ workloads: the RNG's words and draws, the order of a timer storm with
 tied deadlines, the Raft example's results and its event trace,
 `run_host_raft` under every fault kind the differential schedules, the
 seed harness's reproduction line, and `check_determinism` on a workload
-that reads the wall clock. The JAX package runs its native core here;
-the port runs the pure-Python path (ROADMAP item 15, `_native/`)."""
+that reads the wall clock. Where g++ exists both packages run their
+native cores here (`_native/hostcore.cc`); `run_host_raft` is also held
+against the port's pure-Python path (`MADSIM_TPU_NO_NATIVE=1`)."""
 
 import importlib.util
+import json
 import os
 import re
+import subprocess
+import sys
 import time as wall_time
 
 import pytest
@@ -208,6 +212,35 @@ def test_run_host_raft_equals_jax_on_every_fault_kind():
         assert got == want, (seed, sched)
         kinds |= {e["op"] for e in sched}
     assert len(kinds) >= 10  # pair, kill, dir, group, storm, delay: apply and undo
+
+
+_PURE_HOST_RAFT = """
+import json, sys
+from madsim_tpu_torch import _native
+from madsim_tpu_torch.differential import run_host_raft
+assert not _native.available()
+schedules = json.load(open(sys.argv[1]))
+print(json.dumps([run_host_raft(seed, sched) for seed, sched in enumerate(schedules)]))
+"""
+
+
+def test_run_host_raft_native_pure_and_jax_agree(tmp_path):
+    """`run_host_raft` on the differential's 16 fixture seeds: the port
+    on its native core, the port on its pure-Python path (a process
+    under `MADSIM_TPU_NO_NATIVE=1`) and the JAX package give the same
+    reports."""
+    _, eng = differential_engines(JaxRaft(5, 8), RaftMachine(5, 8), FIXTURE_FAULTS)
+    schedules = fault_schedules(eng, range(16))
+    native = [run_host_raft(seed, sched) for seed, sched in enumerate(schedules)]
+    jax = [jax_run_host_raft(seed, sched) for seed, sched in enumerate(schedules)]
+    assert native == jax
+    path = tmp_path / "schedules.json"
+    path.write_text(json.dumps(schedules))
+    out = subprocess.run([sys.executable, "-c", _PURE_HOST_RAFT, str(path)], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, env=dict(os.environ, MADSIM_TPU_NO_NATIVE="1"))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout) == json.loads(json.dumps(native))
+    assert sum(r["elected"] for r in native) >= 8
 
 
 # -- the seed harness ------------------------------------------------------------
