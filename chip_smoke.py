@@ -267,6 +267,16 @@ last line):
      after the window, holds and times pop_gather at the batches' 1,024
      lanes and the replays' L = 1, and pop_earliest at L = 1, of Q = 48
      and 96;
+18c. lint (`lint_phase`): from a thread in the window, the port's static
+     analyzer on this checkout as a user runs it, one subprocess at a
+     time: `python -m madsim_tpu_torch lint` (the C import half on: the
+     models at one lane on the CPU) must exit 0 printing "lint: clean";
+     `lint --json` gives the counts (all 0) and, probed at its exit,
+     that the lint process made no CUDA context and loaded no kernel
+     library; a G-rule drift (shrink's ablation table loses `dup`)
+     injected into a scratch copy of the port's files under the run's
+     temp directory must exit 1 naming G003. Each run's seconds, with
+     the card's name and power limit;
  19. a `kernels` JSON line (with each kernel's launches on the perf path,
      `launches_perf`, on the fleet's card workers, `launches_fleet`, on
      the mesh path, `launches_mesh`, on the whole differential,
@@ -278,8 +288,8 @@ last line):
 
 From phase 4 on, the in-process CPU legs run on two intra-op threads.
 The work that times nothing runs at once, after phase 6's stream, with
-nothing timed beside it (`--only window` runs it alone): phases 17 and
-18 from threads, phase 16's checks, phase 6's single-lane replays in the
+nothing timed beside it (`--only window` runs it alone): phases 17, 18
+and 18c from threads, phase 16's checks, phase 6's single-lane replays in the
 main process, phase 18b's host half from a thread, and in eight
 processes of their own (niced) phase 4b, phase 6's card_vs_cpu_v2 and
 card_vs_cpu_multipaxos and the card-against-CPU checks of phases 7-9, 12
@@ -4790,19 +4800,100 @@ class ChildChecks:
         return res
 
 
+# phase 18c's drift: shrink's ablation table loses `dup`, in a scratch
+# copy of the files the G-pass reads
+LINT_G_FILES = (
+    "madsim_tpu_torch/kinds.py", "madsim_tpu_torch/__main__.py", "madsim_tpu_torch/engine/core.py",
+    "madsim_tpu_torch/engine/shrink.py", "madsim_tpu_torch/runtime/metrics.py", "madsim_tpu_torch/runtime/coverage.py",
+    "madsim_tpu_torch/ops/coverage.py", "madsim_tpu_torch/ops/step_rng.py", "madsim_tpu_torch/ops/rng_layout.manifest",
+    "madsim_tpu_torch/search/bias.py", "tests/test_torch_gates.py", "tests/test_torch_rng.py",
+)
+LINT_DRIFT = ("madsim_tpu_torch/engine/shrink.py", '"pause", "skew", "dup",', '"pause", "skew",', "G003")
+# run as `python -m madsim_tpu_torch lint ...`, then report on stderr
+# whether the process made a CUDA context or loaded a kernel library
+LINT_PROBE = """
+import runpy, sys
+try:
+    runpy.run_module("madsim_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    code = exc.code
+else:
+    code = 0
+torch = sys.modules.get("torch")
+kernels = sys.modules.get("madsim_tpu_torch.ops.build")
+print("probe", bool(torch and torch.cuda.is_initialized()), bool(kernels and kernels.load.cache_info().currsize),
+      file=sys.stderr)
+sys.exit(code)
+"""
+
+
+def lint_phase():
+    """Phase 18c: the port's `lint` on this checkout, then on a scratch
+    copy with one G-rule drift; one phase line."""
+    import os
+    import shutil
+    import tempfile
+
+    repo = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+
+    def lint(argv, cwd, probe=False):
+        head = ["-c", LINT_PROBE] if probe else ["-m", "madsim_tpu_torch"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, *head, "lint", *argv], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        _track(proc)
+        out, err = proc.communicate(timeout=600)
+        return proc.returncode, out, err, round(time.perf_counter() - t0, 3)
+
+    rc, out, err, secs = lint([], repo)
+    if rc != 0 or out.strip().splitlines()[-1:] != ["lint: clean"]:
+        fail(f"lint of the checkout exited {rc}:\n{out[-3000:]}\n{err[-3000:]}")
+    rc_j, out_j, err_j, secs_j = lint(["--json"], repo, probe=True)
+    if rc_j != 0:
+        fail(f"lint --json exited {rc_j}:\n{out_j[-3000:]}\n{err_j[-3000:]}")
+    counts = json.loads(out_j)["counts"]
+    probe = err_j.strip().splitlines()[-1].split()
+    if counts != {"baselined": 0, "error": 0, "warning": 0} or probe != ["probe", "False", "False"]:
+        fail(f"lint --json: counts {counts}, CUDA context / kernels loaded {probe[1:]}")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="madsim_lint_"))
+    try:
+        for rel in LINT_G_FILES:
+            (tmp / rel).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(repo / rel, tmp / rel)
+        rel, old, new, rule = LINT_DRIFT
+        src = (tmp / rel).read_text()
+        if old not in src:
+            fail(f"lint drift anchor not found in {rel}: {old!r}")
+        (tmp / rel).write_text(src.replace(old, new))
+        rc_d, out_d, err_d, secs_d = lint(["--rules", "G", "--repo-root", str(tmp),
+                                           str(tmp / "madsim_tpu_torch" / "kinds.py")], tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    named = [line for line in out_d.splitlines() if f" {rule} " in line]
+    if rc_d != 1 or not named or "dup" not in named[0]:
+        fail(f"lint of the drifted copy exited {rc_d}, expected 1 naming {rule}:\n{out_d[-3000:]}\n{err_d[-3000:]}")
+    emit({"phase": "lint", "seconds": secs, "rc": rc, "clean": True,
+          "json": {"seconds": secs_j, "counts": counts, "cuda_context": False, "kernels_loaded": False},
+          "drift": {"rule": rule, "rc": rc_d, "seconds": secs_d, "finding": named[0].split(": ", 1)[-1][:160]},
+          "card": card_line()})
+
+
 def window_phase(torch, np, kernels):
     """The work that times nothing, all at once: phase 17 (the fleet,
     driven from a thread), phase 18 (the examples' two processes, driven
     from a thread), phase 18b's host half (its servers and clients,
-    driven from a thread), phase 16's checks (PerfChecks), each group of
+    driven from a thread), phase 18c (lint, from a thread), phase 16's
+    checks (PerfChecks), each group of
     CHECK_GROUPS in a process of its own (phase 18b's device half among
     them), and in this process phase 6's replays. Returns the groups'
     results, the replays' launches and states (replay_and_corpus), the
     fleet's launches (fleet_jobs), the PerfChecks, joined, and the
     examples' records (examples_run)."""
     fleet, examples, perf_checks = InThread(fleet_jobs), InThread(examples_run), PerfChecks()
-    host = InThread(services_host)
+    host, lint = InThread(services_host), InThread(lint_phase)
     groups = [ChildChecks(g) for g in CHECK_GROUPS]
+    lint.start()
     fleet.start()
     examples.start()
     host.start()
@@ -4816,6 +4907,7 @@ def window_phase(torch, np, kernels):
     fleet_res = fleet.join()
     perf_checks.join()
     host.join()
+    lint.join()
     return checks, replays, fleet_res, perf_checks, examples.join()
 
 

@@ -39,12 +39,21 @@ process is rank 0 and starts the other N - 1 (`parallel/ranks.py`), one
 card each, or all on the CPU over gloo with `--device cpu`; the results
 are those of the unsharded run. `explore --multihost` joins a job of
 processes started from the MADSIM_TPU_* env (`parallel/multihost.py`).
-Only rank 0 prints or writes a file. What the port does not run (the
-compile cache and its autopsy `prof compile`, bench, lint) exits with
-status 2 and one line naming the gate, before any engine is built.
+Only rank 0 prints or writes a file. `lint` is the static analyzer
+(`analysis/`) pointed at this package; it imports no torch unless its C
+import half runs (`--no-import-check` turns that off). What the port
+does not run (the compile cache and its autopsy `prof compile`, bench)
+exits with status 2 and one line naming the gate, before any engine is
+built.
 """
 
 from __future__ import annotations
+
+# madsim: allow-file(D001) — every wall-clock read in this module goes
+# through the deliberately named `import time as wall` alias and only
+# measures host throughput (seeds/s, elapsed_s) or stamps report
+# metadata; nothing feeds simulation state. Virtual time lives in the
+# engine.
 
 import argparse
 import contextlib
@@ -60,7 +69,6 @@ PROG = "madsim_tpu_torch"
 # what the port refuses, and the ROADMAP.md item (queue 1) it waits for
 _GATED_COMMANDS = {
     "bench": ("the `bench` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
-    "lint": ("the `lint` command", "ROADMAP.md queue 1, item 14"),
 }
 _GATED_FLAGS = (
     ("compile_cache", "--compile-cache (a JAX compile cache)", "no port item: the port compiles no graph"),
@@ -1113,6 +1121,15 @@ def _serve_stats(args) -> int:
     srv, host, port = httpd.bind(args.addr, Handler)
     print(f"stats serving on {host}:{port} (GET /stats /metrics /healthz; files {base}.json/.prom)", flush=True)
     return httpd.run_http_server(srv, port_file=args.port_file)
+
+
+def cmd_lint(args) -> int:
+    """Static determinism & contract analysis of the port
+    (madsim_tpu_torch/analysis/). Runs torch-free except the C-rule
+    import half (--no-import-check disables it)."""
+    from .analysis.cli import main as lint_main
+
+    return lint_main(args)
 
 
 def cmd_serve(args) -> int:
@@ -2274,6 +2291,23 @@ def _parser() -> argparse.ArgumentParser:
     q.add_argument("--keep", action="store_true",
                    help="keep the scratch farm even on success")
     q.set_defaults(fn=cmd_fleet)
+
+    p = sub.add_parser(
+        "lint",
+        help="static determinism & contract analysis: D-rules "
+        "(wall-clock/entropy/set-order/callback hazards, AST-only), "
+        "C-rules (Machine contract: handler purity, durable/torn spec "
+        "congruence, coverage projection), G-rules (fault-kind mirror "
+        "and RNG-layout cross-checks), and the whole-program families "
+        "— L (torch-free layer map), T (tensor taint: host syncs, "
+        "donation), R (static RNG ledger), S (sharding readiness: "
+        "lane-axis dataflow vs the collective registry). Exit 0 clean / "
+        "1 findings / 2 usage error — pre-commit friendly",
+    )
+    from .analysis.cli import add_lint_args
+
+    add_lint_args(p)
+    p.set_defaults(fn=cmd_lint)
 
     for name, (what, item) in _GATED_COMMANDS.items():
         sub.add_parser(name, help=f"not ported ({item})", add_help=False)

@@ -1300,9 +1300,7 @@ class Engine:
                     return None
                 running = None
                 if buffered:
-                    running = (~(state.done | state.failed)).any()
-                    if mesh is not None:
-                        running = _par.any_rank(mesh, running)
+                    running = self._any_live(state, mesh)
                     if go is not None:
                         running = running & go
                 state = self.step_batch(state, running, go)
@@ -1310,6 +1308,16 @@ class Engine:
                     state = self._cov_flush_batch(state)
         # the exit flush, as the reference's, outside the step phase
         return self._cov_flush_batch(state) if buffered else state
+
+    @staticmethod
+    def _any_live(state: LaneState, mesh=None) -> torch.Tensor:
+        """A scalar bool tensor, no host read: whether any lane (of any
+        rank, under a `mesh`) is neither done nor failed. The segment
+        loop's early-exit check: each step of a buffered segment, and
+        `run_batch`'s between chunks."""
+        # madsim: collective(segment-done-any, reduce=any)
+        live = (~(state.done | state.failed)).any()
+        return live if mesh is None else _par.any_rank(mesh, live)
 
     @torch.inference_mode()
     def run_batch(self, seeds, max_steps: int = 10_000, mesh=None) -> BatchResult:
@@ -1328,10 +1336,7 @@ class Engine:
             k = min(chunk, max_steps - done_steps)
             state = self.run_segment(state, k, mesh=mesh)
             done_steps += k
-            live = (~(state.done | state.failed)).any()
-            if mesh is not None:
-                live = _par.any_rank(mesh, live)
-            if not bool(live):
+            if not bool(self._any_live(state, mesh)):
                 break
         return BatchResult(
             seeds=u32.to_i32(self._seed_values(seeds)),
@@ -1356,6 +1361,7 @@ class Engine:
         dev, cfg = self.device, self.config
         i64 = {"dtype": torch.int64, "device": dev}
         zero = torch.zeros((), **i64)
+        # madsim: collective(seed-counter-init, reduce=gather)
         last = seeds[-1] if mesh is None else _par.seed_counter(mesh, seeds[-1])
         c = StreamCarry(
             state=self.init_batch(seeds),
@@ -1397,8 +1403,9 @@ class Engine:
         #    (cumsum ranks + the device seed counter: gapless, in lane order)
         with _xprof.scope("refill"):
             refill = c.done if go is None else c.done & go
+            # madsim: collective(refill-ranks, reduce=scan)
             ranks = torch.cumsum(refill.to(torch.int64), dim=0) - 1
-            n_refill = refill.sum()
+            n_refill = refill.sum()  # madsim: collective(refill-count, reduce=sum)
             if mesh is not None:
                 offset, n_refill = _par.exclusive_count(mesh, n_refill, "refill-ranks", "refill-count")
                 ranks = ranks + offset
@@ -1430,10 +1437,11 @@ class Engine:
             if mesh is None:
                 found, n_fail = _par.compact(fail_mask, fails)
                 gone, n_ab = _par.compact(ab_mask, seeds[:, None])
-                completed = c.completed + harvest.sum()
+                completed = c.completed + harvest.sum()  # madsim: collective(harvest-completed, reduce=sum)
             else:
                 found, n_fail = _par.gather_masked(mesh, fail_mask, fails)
                 gone, n_ab = _par.gather_masked(mesh, ab_mask, seeds[:, None])
+                # madsim: collective(harvest-completed, reduce=sum)
                 completed = c.completed + _par.all_sum(mesh, harvest.sum(), "harvest-completed")
             fail_seeds = _place_ring(c.fail_seeds, c.fail_count, found[:, 0], n_fail, cap)
             fail_codes = _place_ring(c.fail_codes, c.fail_count, found[:, 1], n_fail, cap)
@@ -1451,10 +1459,13 @@ class Engine:
                 frs, nk, ne = state.fr, len(FAULT_KIND_NAMES), len(FR_EXTRA_NAMES)
                 done_i = harvest.to(torch.int64)
                 sums = torch.cat([
+                    # madsim: collective(fr-fold, reduce=sum)
                     (frs["inj"].to(torch.int64) * done_i[:, None]).sum(dim=0),
+                    # madsim: collective(fr-fold, reduce=sum)
                     torch.stack([(frs[k].to(torch.int64) * done_i).sum() for k in FR_EXTRA_NAMES]),
                 ])
                 hwm = torch.stack([
+                    # madsim: collective(fr-hwm, reduce=max)
                     torch.where(harvest, frs[k], 0).amax().to(torch.int64) for k in ("q_hwm", "clog_hwm", "kill_hwm")
                 ])
                 if mesh is not None:
@@ -1615,7 +1626,11 @@ class Engine:
         def poll(c):
             _xprof.sync_marker("counters_poll")
             with op("counters_poll"):
-                counters = c.counters.cpu().numpy()  # the blocking read
+                # madsim: allow(T002) — THE designed blocking poll: one
+                # small counters read per dispatch_depth dispatches,
+                # counted in stats["host_syncs"]; everything else in
+                # the dispatch region must stay async
+                counters = c.counters.cpu().numpy()
             stats["host_syncs"] += 1
             if counters[4]:
                 raise RuntimeError("run_stream result ring overflowed (drain policy bug)")
@@ -1624,6 +1639,10 @@ class Engine:
 
         def drain(c):
             with op("ring_drain"):
+                # madsim: allow(T002) — this IS a designed sync point: the
+                # ring drain runs only when a ring crosses its drain mark
+                # (or once at stream end), and its cost is budgeted in
+                # stats["drains"]; the T002 contract bans *hidden* fetches
                 rings = torch.cat([
                     c.fail_seeds, c.fail_codes, c.fail_provs, c.ab_seeds, c.fail_count[None], c.ab_count[None],
                 ]).cpu().numpy()
@@ -1851,18 +1870,21 @@ class Engine:
         patterns, so a word with bit 31, dup, is widened here)."""
         seeds = np.asarray(list(seeds), dtype=np.int64) & 0xFFFFFFFF
         res = self.make_runner(max_steps=max_steps)(seeds)
+        lanes = u32.from_i32(res.seeds).cpu().numpy()  # the lanes' seeds, as uint32 values
         done = res.done.cpu().numpy()
         failed = res.failed.cpu().numpy()
         codes = res.fail_code.cpu().numpy()
         failing, infra = [], []
-        for s, c in zip(seeds[failed].tolist(), codes[failed].tolist()):
+        # madsim: collective(final-fail-gather, reduce=gather)
+        for s, c in zip(lanes[failed].tolist(), codes[failed].tolist()):
             (infra if c == OVERFLOW else failing).append((s, c))
         out = {
             "completed": len(seeds),
             "failing": failing,
             "infra": infra,
             # over the step budget without finishing
-            "abandoned": seeds[~done & ~failed].tolist(),
+            # madsim: collective(final-abandoned-gather, reduce=gather)
+            "abandoned": lanes[~done & ~failed].tolist(),
             "seeds_consumed": len(seeds),
             "stats": {},
         }
@@ -1871,15 +1893,22 @@ class Engine:
 
             lane_words = res.cov["map"].cpu().numpy()
             out["cov_lane_words"] = lane_words
-            out["coverage_map"] = unpack_map(np.bitwise_or.reduce(lane_words, axis=0), self.config.cov_slots_log2)
+            out["coverage_map"] = unpack_map(
+                # madsim: collective(final-cov-or, reduce=or)
+                np.bitwise_or.reduce(lane_words, axis=0),
+                self.config.cov_slots_log2,
+            )
         if self.config.provenance:
+            # madsim: collective(final-prov-gather, reduce=gather)
             words = res.fail_prov.cpu().numpy()[failed].astype(np.int64) & 0xFFFFFFFF
-            out["provenance"] = dict(zip(seeds[failed].tolist(), words.tolist()))
+            # madsim: collective(final-prov-gather, reduce=gather)
+            out["provenance"] = dict(zip(lanes[failed].tolist(), words.tolist()))
         return out
 
     @staticmethod
     def failing_seeds(result: BatchResult) -> torch.Tensor:
         """The failing lanes' seeds, as uint32 values (int64)."""
+        # madsim: collective(final-fail-gather, reduce=gather)
         return u32.from_i32(result.seeds[result.failed])
 
     def ring_trace(self, result: BatchResult, lane: int):
@@ -1955,12 +1984,14 @@ def _push_all(eq, next_seq, pushes):
     k_at = (lands.to(torch.int64) * torch.arange(want.shape[1], device=want.device)[None, :, None]).sum(dim=1)
     kinds = pushes["kind"].expand_as(prior)
     names = ("time", "seq", "kind", "node", "src") + (("prov",) if "prov" in pushes else ())
+    lineage = [pushes["prov"]] if "prov" in pushes else []
     cols = torch.stack([pushes["time"], next_seq[:, None] + prior, kinds, pushes["node"], pushes["src"]]
-                       + [pushes[k] for k in names[5:]], dim=2)
+                       + lineage, dim=2)
     at = k_at[:, :, None]
     vals = torch.take_along_dim(cols.to(torch.int32), at, dim=1)  # [L, Q, 5 or 6]
     pay = torch.take_along_dim(pushes["payload"], at, dim=1)  # [L, Q, P]
-    out = {k: torch.where(hit, vals[:, :, i], eq[k]) for i, k in enumerate(names)}
+    planes = [eq["time"], eq["seq"], eq["kind"], eq["node"], eq["src"]] + ([eq["prov"]] if "prov" in pushes else [])
+    out = {k: torch.where(hit, vals[:, :, i], planes[i]) for i, k in enumerate(names)}
     out["payload"] = torch.where(hit[:, :, None], pay.to(torch.int32), eq["payload"])
     out["valid"] = eq["valid"] | hit
     return out, pushed, (want & ~fits).any(dim=1)

@@ -158,7 +158,7 @@ def cov_fold_words(lane_maps: torch.Tensor, chunk: int = 1024, mesh=None) -> tor
     hit = torch.zeros((words, COV_WORD_BITS), dtype=torch.bool, device=lane_maps.device)
     for start in range(0, lane_maps.shape[0], chunk):
         part = lane_maps[start : start + chunk]
-        hit |= ((part[:, :, None] & masks) != 0).any(dim=0)
+        hit |= ((part[:, :, None] & masks) != 0).any(dim=0)  # madsim: collective(cov-map-or, reduce=or)
     return u32.to_i32((hit.to(torch.int64) << bits.to(torch.int64)).sum(dim=1))
 
 

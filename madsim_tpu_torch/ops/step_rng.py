@@ -99,32 +99,45 @@ def layout_for(
         )
     if version != RNG_STREAM_COUNTER:
         raise ValueError(f"unknown rng_stream version {version!r}")
+    # the sections in manifest order (ops/rng_layout.manifest), each
+    # written as `X_off = cursor; cursor += width`: the lint R-pass
+    # reads this walk to audit the ledger, so keep the idiom
     cursor = h + m
-    offsets = {}
-    for name, possible, width in (
-        ("drop", loss_possible, m),
-        ("spike", spike_possible, 2 * m),
-        ("restart", restart_possible, 2),
-        ("dup", dup_possible, 2 * m),
-        ("torn", torn_possible, 1),
-    ):
-        offsets[name] = cursor if possible else None
-        cursor += width if possible else 0
+    drop_off = None
+    if loss_possible:
+        drop_off = cursor
+        cursor += m
+    spike_off = None
+    if spike_possible:
+        spike_off = cursor
+        cursor += 2 * m
+    restart_off = None
+    if restart_possible:
+        restart_off = cursor
+        cursor += 2
+    dup_off = None
+    if dup_possible:
+        dup_off = cursor
+        cursor += 2 * m
+    torn_off = None
+    if torn_possible:
+        torn_off = cursor
+        cursor += 1
     return StepRngLayout(
         version=version,
         handler_words=h,
         max_msgs=m,
         lat_off=h,
-        drop_off=offsets["drop"],
-        spike_off=offsets["spike"],
-        restart_off=offsets["restart"],
+        drop_off=drop_off,
+        spike_off=spike_off,
+        restart_off=restart_off,
         total_words=cursor,
         loss_active=loss_possible,
         spike_active=spike_possible,
         restart_active=restart_possible,
-        dup_off=offsets["dup"],
+        dup_off=dup_off,
         dup_active=dup_possible,
-        torn_off=offsets["torn"],
+        torn_off=torn_off,
         torn_active=torn_possible,
     )
 

@@ -303,10 +303,11 @@ def compact(mask: torch.Tensor, values: torch.Tensor):
     an unsharded batch. Fixed shapes: no host read."""
     lanes = mask.shape[0]
     with _xprof.scope("ring_append"):
-        csum = torch.cumsum(mask.to(torch.int64), dim=0)
+        csum = torch.cumsum(mask.to(torch.int64), dim=0)  # madsim: collective(ring-append-ranks, reduce=scan)
         n = csum[-1] if lanes else torch.zeros((), dtype=torch.int64, device=mask.device)
         want = torch.arange(1, lanes + 1, device=mask.device, dtype=torch.int64)
         src = torch.searchsorted(csum, want, side="left").clamp(0, max(lanes - 1, 0))
+        # madsim: collective(ring-append-gather, reduce=gather)
         return torch.where((want <= n)[:, None], values[src], 0), n
 
 

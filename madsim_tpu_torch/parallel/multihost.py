@@ -160,6 +160,7 @@ def run_batch_global(
     mesh = mesh if mesh is not None else global_mesh()
     seeds = global_seeds(n_seeds, seed_start, mesh)
     res = engine.run_batch(seeds, max_steps=max_steps, mesh=mesh)
+    # madsim: collective(multihost-completed-sum, reduce=sum)
     completed = all_sum(mesh, res.done.sum(dtype=torch.int64), "multihost-completed-sum")
     pairs = torch.stack([u32.from_i32(res.seeds), res.fail_code.to(torch.int64)], dim=1)
     found, n_fail = gather_masked(mesh, res.failed, pairs, ranks="multihost-fail-ranks", name="multihost-fail-ring")

@@ -24,7 +24,7 @@ callables being timed do the device work.
 
 from __future__ import annotations
 
-# The A/B harness's contract is timing host reps with the wall clock
+# madsim: allow-file(D001) — the A/B harness's contract is timing host reps with the wall clock
 # (perf_counter around opaque rep callables). No simulation state is
 # derived from these reads.
 import dataclasses

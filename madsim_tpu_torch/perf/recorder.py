@@ -44,10 +44,10 @@ is the bottleneck).
 
 from __future__ import annotations
 
-# This module's contract is reading the host wall clock: it measures
-# real elapsed time of host operations (compile, dispatch, poll).
-# Nothing here can reach simulation state; virtual time stays in the
-# engine.
+# madsim: allow-file(D001) — this module's *contract* is reading the
+# host wall clock: it measures real elapsed time of host operations
+# (compile, dispatch, poll). Nothing here can reach simulation state;
+# virtual time stays in the engine.
 import contextlib
 import contextvars
 import json

@@ -54,10 +54,11 @@ virtual        simulated us from the seed's event schedule, NOT wall time
 
 from __future__ import annotations
 
-# This module's contract is wall-clock profiling: it stamps wall-epoch
-# clock-sync markers and drives torch.profiler captures. Nothing here
-# can reach simulation state; the gate is off by default and gate-off
-# inserts nothing (one shared nullcontext).
+# madsim: allow-file(D001) — this module's *contract* is wall-clock
+# profiling: it stamps wall-epoch clock-sync markers and drives
+# torch.profiler captures. Nothing here can reach simulation state; the
+# gate is off by default and gate-off inserts nothing (one shared
+# nullcontext).
 import contextlib
 import glob
 import gzip

@@ -41,10 +41,11 @@ streaming executor path byte-for-byte untouched.
 
 from __future__ import annotations
 
-# Wall-clock reads here go through the `import time as wall` alias and
-# only measure host throughput (seeds/s heartbeats, elapsed_s); nothing
-# feeds simulation state or the seed schedule, which is a pure function
-# of (checkpointed) search state. Same contract as __main__'s batch loop.
+# madsim: allow-file(D001) — wall-clock reads here go through the
+# `import time as wall` alias and only measure host throughput (seeds/s
+# heartbeats, elapsed_s); nothing feeds simulation state or the seed
+# schedule, which is a pure function of (checkpointed) search state.
+# Same contract as __main__'s batch loop.
 import dataclasses
 import logging
 import sys
@@ -212,7 +213,7 @@ def run_guided(eng, args, purpose: str = "hunt") -> dict:
     {"trail": per-batch (seed schedule, bias state) records,
     "bias": final bias state, "escalation": final step,
     "failing_escalation": {seed: step it was found under}}."""
-    import time as wall  # host throughput only
+    import time as wall  # madsim: allow(D001) — host throughput only
 
     from ..__main__ import _make_emitter
     from ..runtime.coverage import (

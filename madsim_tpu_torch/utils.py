@@ -53,7 +53,7 @@ def norm_index(i: torch.Tensor, n: int) -> torch.Tensor:
 
 def gather_at(arr: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """`arr[l, i[l], ...]` for an index already in range (`norm_index`)."""
-    at = i.reshape((-1, 1) + (1,) * (arr.dim() - 2)).expand((-1, 1) + arr.shape[2:])
+    at = i.reshape(i.shape + (1,) * (arr.dim() - 1)).expand((-1, 1) + arr.shape[2:])
     return arr.gather(1, at).squeeze(1)
 
 
@@ -73,7 +73,7 @@ def set2d(arr: torch.Tensor, i, j, value) -> torch.Tensor:
     n0, n1 = arr.shape[1:]
     r0 = torch.arange(n0, device=arr.device)
     r1 = torch.arange(n1, device=arr.device)
-    mask = (r0[None, :, None] == i.reshape(-1, 1, 1)) & (r1[None, None, :] == j.reshape(-1, 1, 1))
+    mask = (r0[None, :, None] == i.reshape(i.shape + (1, 1))) & (r1[None, None, :] == j.reshape(j.shape + (1, 1)))
     if isinstance(value, torch.Tensor) and value.dim() > 0:
-        value = value.reshape(-1, 1, 1)
+        value = value.reshape(value.shape + (1, 1))
     return torch.where(mask, value, arr)

@@ -1,6 +1,7 @@
 """The port's command line where it refuses or stops: every gate the port
 keeps exits with status 2 and one line naming the gate and its ROADMAP
-item (or that it has none), before any engine is built (the lifted
+item (or that it has none), before any engine is built; `lint` runs
+with its own exit codes, baseline and cache (the lifted
 mesh gates, `--devices N` and `--multihost`, are held against the JAX
 package in tests/test_torch_cli_mesh.py, tests/test_torch_multihost.py
 and tests/test_torch_cli_fleet.py); `serve` runs the host services
@@ -31,7 +32,6 @@ GATES = [
     # the fleet runs; what it cannot run yet stays refused
     pytest.param("--compile-cache", ["fleet", "worker", "--root", "farm", "--compile-cache", "cache"], "compile",
                  id="fleet-worker--compile-cache"),
-    pytest.param("lint", ["lint"], "item 14", id="lint"),
     pytest.param("--compile-cache", ["replay", "--machine", "echo", "--compile-cache", "cache"], "compile",
                  id="--compile-cache"),
 ]
@@ -48,6 +48,59 @@ def test_gates_exit_2_naming_themselves(gate, argv, item, capsys, monkeypatch):
     assert main([*argv, "--device", "cpu"] if argv[0] in ("explore", "hunt", "replay", "prof") else argv) == 2
     err = capsys.readouterr().err.strip()
     assert len(err.splitlines()) == 1 and gate in err and item in err and "not ported" in err
+
+
+def test_lint_runs_with_its_exit_codes(tmp_path, capsys):
+    """`lint` is open (the static analyzer, `analysis/`): exit 0 clean,
+    1 findings, 2 usage error, as the JAX package's `analysis/cli.py`
+    states."""
+    clean = tmp_path / "clean.py"
+    clean.write_text("x = 1\n")
+    dirty = tmp_path / "dirty.py"
+    dirty.write_text("import time\nts = time.time()\n")
+    assert main(["lint", "--no-import-check", str(clean)]) == 0
+    assert capsys.readouterr().out.strip() == "lint: clean"
+    assert main(["lint", "--no-import-check", str(dirty)]) == 1
+    out = capsys.readouterr().out
+    assert "D001" in out and "madsim_tpu_torch.time" in out and "lint: 1 error(s)" in out
+    assert main(["lint", str(tmp_path / "missing.py")]) == 2
+    assert "no such path" in capsys.readouterr().err
+
+
+def test_lint_without_import_check_imports_no_torch():
+    """The default run (the port's package, every pass but the C import
+    half) imports neither torch nor JAX nor the JAX package."""
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    code = (
+        "import sys\n"
+        "from madsim_tpu_torch.__main__ import main\n"
+        "rc = main(['lint', '--no-import-check'])\n"
+        "print(rc, sorted(m for m in ('torch', 'jax', 'madsim_tpu') if m in sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.splitlines()[-2:] == ["lint: clean", "0 []"]
+
+
+def test_lint_keeps_its_own_baseline_and_cache(tmp_path, capsys):
+    """`--update-baseline` and `--cache` write the port's files, never
+    the JAX package's `.madsim-lint-baseline.json` or `.madsim-lint-cache/`."""
+    root = tmp_path / "repo"
+    (root / "madsim_tpu_torch" / "engine").mkdir(parents=True)
+    (root / "madsim_tpu_torch" / "engine" / "core.py").write_text("X = 1\n")
+    (root / "madsim_tpu_torch" / "foo.py").write_text("import time\nts = time.time()\n")
+    pkg = str(root / "madsim_tpu_torch")
+    argv = ["lint", "--no-import-check", "--rules", "D", "--repo-root", str(root), pkg]
+    assert main([*argv, "--update-baseline"]) == 0
+    assert main([*argv, "--cache"]) == 0
+    assert "1 baselined" in capsys.readouterr().out
+    assert sorted(p.name for p in root.iterdir()) == [
+        ".madsim-torch-lint-baseline.json", ".madsim-torch-lint-cache", "madsim_tpu_torch",
+    ]
 
 
 _SERVICE_CALL = {

@@ -335,3 +335,60 @@ def test_storage_schedules_match_pinned_literals(rng_stream):
         assert s.eq_node[0, rows].tolist() == expect["node"], kind_flags
         assert s.eq_valid[0, rows].tolist() == expect["valid"], kind_flags
         assert s.eq_payload[0, rows].tolist() == expect["pay"], kind_flags
+
+
+def _flagship_engine(rng_stream=2, **flags):
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+
+    faults = {f.name: getattr(V1_FAULTS, f.name) for f in dataclasses.fields(FaultPlan)}
+    return Engine(RaftMachine(num_nodes=5, log_capacity=8),
+                  EngineConfig(horizon_us=5_000_000, queue_capacity=32,
+                               faults=FaultPlan(**{**faults, **flags}), rng_stream=rng_stream),
+                  device="cpu")
+
+
+def test_engine_v2_block_matches_module():
+    """The engine's own layout for the bench config agrees with the
+    module-level layouts the golden words pin (guards against the engine
+    silently re-sizing the legacy block), on both streams, as the JAX
+    package's pin of the same name."""
+    kw = dict(loss_possible=False, spike_possible=False, delay_enabled=False, restart_possible=True)
+    assert _flagship_engine(2)._rng_layout == step_rng.layout_for(2, 4, 4, **kw)
+    assert _flagship_engine(3)._rng_layout == step_rng.layout_for(3, 4, 4, **kw)
+
+
+# the engine's layout under each chaos flag that draws words or must not:
+# (total_words, spike_off, restart_off, dup_off) per stream
+_FLAG_LAYOUTS = {
+    "allow_delay": {2: (20, 12, None, None), 3: (18, 8, 16, None)},
+    "allow_dup": {2: (20, None, None, 12), 3: (18, None, 8, 10)},
+    "strict_restart": {2: (12, None, None, None), 3: (10, None, 8, None)},
+}
+
+
+@pytest.mark.parametrize("flag", sorted(_FLAG_LAYOUTS))
+@pytest.mark.parametrize("rng_stream", [2, 3])
+def test_engine_chaos_flag_block_pinned(flag, rng_stream):
+    """Each chaos flag's word block held to the pinned literals through
+    the engine that builds it (the flagship Raft, V1 plan plus the flag):
+    allow_delay's spike section and allow_dup's dup section keep the
+    legacy words as v2's prefix and, on v3, the restart key at its
+    pinned words; strict_restart draws no word, so its blocks are the
+    pinned kill blocks word for word, as are the restart keys."""
+    eng = _flagship_engine(rng_stream, **{flag: True})
+    layout = eng._rng_layout
+    got = (layout.total_words, layout.spike_off, layout.restart_off, layout.dup_off)
+    assert got == _FLAG_LAYOUTS[flag][rng_stream]
+    if rng_stream == 2:
+        _, words, k_restart = step_rng.step_words(_lane_key(7), torch.tensor([0]), layout)
+        assert words[0, :12].tolist() == V2_WORDS[7][0]
+        assert k_restart[0].tolist() == V2_K_RESTART[7][0]
+        if flag == "allow_dup":
+            assert words[0, 12:].tolist() == V2_DUP_TAIL_7
+        return
+    _, words, k_restart = step_rng.step_words_v3(_lane_key(7), torch.tensor([0]), layout)
+    if flag in ("allow_dup", "strict_restart"):
+        pinned = V3_DUP_WORDS if flag == "allow_dup" else V3_WORDS
+        assert words[0].tolist() == pinned[7][0]
+    assert torch.equal(k_restart, words[:, layout.restart_off:layout.restart_off + 2])
