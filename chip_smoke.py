@@ -113,8 +113,11 @@ last line):
      --diff-seed`, `trace --perfetto --jsonl` (message flows) and `shrink`
      run beside it; its first four finds replay on the CPU engine to the
      same codes; `regress` and `audit` of the found corpus on the card
-     and with `--device cpu` and `coverage` run on what it wrote;
-     `explore --stream` of the flagship at one batch of 8192 lanes,
+     and with `--device cpu` and `coverage` run on what it wrote (these
+     two stages from a thread in the window, once its single-lane replays
+     are done: the hunt's seeds/s and each command's seconds are taken
+     beside the window's other work); `explore --stream` of the flagship at one batch of 8192
+     lanes, lanes cut at 1,152 events (three segments), after the window,
      pipelined and with `--no-pipeline` side by side, prints the same
      lines, with each one's seeds/s, host syncs, dispatches, and the
      segments issued (megakernel launches over 384) against those
@@ -183,7 +186,7 @@ last line):
      capture's events, export seconds and bytes, and a virtual track
      equal to the CPU's `prof --merge` of 8 lanes (`prof`); once that
      capture has stopped, beside prof's host tail, `perf` of the flagship
-     at 2 x 8192 lanes, whose host timeline covers >= 90% of the wall with
+     at one batch of 8192 lanes, whose host timeline covers >= 90% of the wall with
      every executor span (`perf_timeline`: each span's seconds and share,
      the device wait, the dispatch gap, the verdict, the card's memory);
      the v2 leg (`prof --rng-stream 2`, whose capture holds
@@ -277,20 +280,39 @@ last line):
      injected into a scratch copy of the port's files under the run's
      temp directory must exit 1 naming G003. Each run's seconds, with
      the card's name and power limit;
+ 18d. the bench command (`bench`, `bench_kernels`), after the perf
+     tooling and with nothing beside it, each form in a process of its
+     own as a user runs it, writing to a history file in a temporary
+     directory: `python -m madsim_tpu_torch bench --reps 1` (the flagship
+     at its full width, 8192 lanes: v3, recorder, buffered coverage; a
+     warm run and one timed rep of 2 x 8192 seeds), `bench --machine echo
+     --seeds 8192 --reps 1` (the command line's split chain, Q = 96, 8192
+     lanes) and `bench report`, which must render both rows and import no
+     torch; each line's seeds/s, `compile_s`, `compile_s_warm` and card,
+     the history's rows and each kernel's launches (the flagship's
+     megakernel and flush, the machine's pop_gather). `bench_kernels`
+     holds pop_gather against its twin at the machine's 8192 lanes of
+     Q = 96 and times it there;
  19. a `kernels` JSON line (with each kernel's launches on the perf path,
      `launches_perf`, on the fleet's card workers, `launches_fleet`, on
      the mesh path, `launches_mesh`, on the whole differential,
-     `launches_differential`, in the examples, `launches_examples`, and
-     in the service differentials, `launches_services`; pop_gather's
-     `differential` holds its time at the differential's 256 lanes, each
-     pop kernel's `examples` and `services` its times at those paths'
-     shapes); the last line is {"ok": true, "device": ...}.
+     `launches_differential`, in the examples, `launches_examples`, in
+     the service differentials, `launches_services`, and in the bench
+     command, `launches_bench`; pop_gather's `differential` and `bench`
+     hold its times at the differential's 256 lanes and the bench's 8192
+     lanes of Q = 96, each pop kernel's `examples` and `services` its
+     times at those paths' shapes); the last line is {"ok": true,
+     "device": ...}.
 
 From phase 4 on, the in-process CPU legs run on two intra-op threads.
 The work that times nothing runs at once, after phase 6's stream, with
-nothing timed beside it (`--only window` runs it alone): phases 17, 18
-and 18c from threads, phase 16's checks, phase 6's single-lane replays in the
-main process, phase 18b's host half from a thread, and in eight
+nothing timed beside it but phase 11's first two stages (`--only window`
+runs it alone): phases 17, 18 and 18c from threads, phase 16's checks,
+phase 6's single-lane replays in the main process, phase 18b's host half
+from a thread, phase 11's first two stages from a thread once those
+replays are done (its hunt's seeds/s, warm-up and commands' seconds are
+taken beside this work, so they read lower than the same commands
+alone), and in eight
 processes of their own (niced) phase 4b, phase 6's card_vs_cpu_v2 and
 card_vs_cpu_multipaxos and the card-against-CPU checks of phases 7-9, 12
 and 13, phase 17b, phase 15's whole differential, phase 18's checks and
@@ -317,8 +339,9 @@ runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phase
 15's whole differential then phases 14-15, `--only perf` phase 16, `--only fleet` phase 17, `--only mesh`
 phase 17b and `mesh_kernels`, `--only examples` phase 18 (the examples,
 their checks, then `examples_kernels`), `--only services` phase 18b (both
-halves, then `services_kernels`), `--only window` the work that
-times nothing (short checks; they print no result line).
+halves, then `services_kernels`), `--only bench` phase 18d (`bench`,
+then `bench_kernels`), `--only window` the work that times nothing
+(short checks; they print no result line).
 """
 
 import argparse
@@ -1995,9 +2018,14 @@ def ptxas_line(build, libs):
 CLI_LANES = 8192
 CLI_SHAPE = ["--rng-stream", "3", "--queue", "32", "--horizon", "5", "--faults", "2", "--fault-tmax", "3000000"]
 CLI_HUNT = ["--machine", "demo-volatilecommit-raft", "--strict-restart", *CLI_SHAPE]
+# the explore pair: lanes cut at 1,152 events, three 384-step segments,
+# where a flagship lane ends (so the pipelined executor predicates
+# segments and stops issuing as it does uncut)
 CLI_EXPLORE = ["explore", "--stream", "--machine", "raft", "--seeds", str(CLI_LANES), "--batch",
-               str(CLI_LANES), *CLI_SHAPE, "--flight-recorder", "--coverage", "--log-level", "INFO"]
-CLI_SMALL = ["explore", "--stream", "--machine", "raft", "--seeds", "64", "--batch", "64", "--max-steps", "768",
+               str(CLI_LANES), "--max-steps", "1152", *CLI_SHAPE, "--flight-recorder", "--coverage", "--log-level",
+               "INFO"]
+# the 64-lane explore on the card and the CPU: lanes cut at 384 events
+CLI_SMALL = ["explore", "--stream", "--machine", "raft", "--seeds", "64", "--batch", "64", "--max-steps", "384",
              *CLI_SHAPE, "--flight-recorder", "--coverage"]
 CLI_JOBS = 6  # commands run at once where nothing is timed (8 host cores)
 # the hunt's first failing seed (code 102), so the commands that take only
@@ -2057,6 +2085,7 @@ GUIDED_STATE_STEPS = 64  # the escalated batch's state its kernels are timed on:
 DIFF = dict(horizon_us=5_000_000, queue_capacity=96)
 DIFF_FAULTS = dict(n_faults=2, t_max_us=3_000_000, dur_min_us=200_000, dur_max_us=800_000)
 DIFF_LANES, DIFF_STEPS = 64, 3000
+DIFF_STATE_STEPS = 96  # the differential's states its pop is timed on: this far in (lanes live)
 # the whole differential, both engines on the port: 256 seeds of the
 # fixture; the vote bug planted in both engines, on the plan of
 # tests/test_differential.py:62-102 (16 seeds, a 3 s horizon); and
@@ -2075,8 +2104,8 @@ NATIVE_SEEDS, NATIVE_CHECK_SEEDS = 64, 4
 
 # phase 16, the perf tooling: the command line's perf commands on the
 # flagship (raft, the command line's flagship shape, the recorder and
-# buffered coverage on). `perf` streams 2 x 8192 lanes in 384-step
-# segments; `prof` captures one 256-step segment (its run_stream's
+# buffered coverage on). `perf` streams one batch of 8192 lanes in
+# 384-step segments; `prof` captures one 256-step segment (its run_stream's
 # default) of 8192 lanes, its lanes cut at 256 events so that one
 # segment completes them all: ~1,050 kernels a step, their launches and
 # kineto's flow arrows make ~1.1 M events; the v2 leg the same on the
@@ -2223,22 +2252,22 @@ def cli_rates(err):
             "warm_s": float(warm[0]) if warm else None}
 
 
-def cli_phase(torch, np):
-    """Phase 11: the command line as a user runs it, in subprocesses on
-    the card (`cli` line), in three stages. (1) A full-width `hunt
-    --stream` (one batch of 8192 lanes, rng_stream 3) finds, shrinks and
-    records, while the commands that need nothing of it or only its
-    first find (CLI_FIRST_FIND, checked against it) run beside it:
-    `regress` and `audit` of a copy of corpus.json, `check`, the 64-lane
-    explore on the card and on the CPU (equal stdout), `replay`, `replay
-    --diff-seed`, `trace --perfetto --jsonl` (message flows), `shrink` and
-    `why` on the card and the CPU. (2) On what the hunt wrote, at once:
-    its first four failing seeds replay on the CPU engine to the same
-    codes; `regress` and `audit` of the found corpus on the card and with
-    `--device cpu`, and `coverage`. (3) `explore --stream` of the flagship at one batch of 8192
-    lanes, pipelined and with `--no-pipeline`, the two at once and
-    nothing else beside them, so both see the same host: the same lines,
-    and each one's seeds/s, host syncs and steps issued."""
+def cli_stages(torch, np):
+    """Phase 11's first two stages, which the full run drives from a
+    thread in the window once its single-lane replays are done (their
+    timings are taken beside other work either way). (1) A full-width
+    `hunt --stream` (one batch of 8192 lanes, rng_stream 3) finds,
+    shrinks and records, while the commands that need nothing of it or
+    only its first find (CLI_FIRST_FIND, checked against it) run beside
+    it: `regress` and `audit` of a copy of corpus.json, `check`, the
+    64-lane explore on the card and on the CPU (equal stdout), `replay`,
+    `replay --diff-seed`, `trace --perfetto --jsonl` (message flows),
+    `shrink` and `why` on the card and the CPU. (2) On what the hunt
+    wrote, at once: its first four failing seeds replay on the CPU engine
+    to the same codes; `regress` and `audit` of the found corpus on the
+    card and with `--device cpu`, and `coverage`. Returns the `cli`
+    line's fields but the explore pair's, with the provenance hunt's and
+    each command's launches."""
     import re
     import shutil
     import tempfile
@@ -2272,7 +2301,7 @@ def cli_phase(torch, np):
                 "corpus_audit": (["audit", "--corpus", files["repo_corpus"]], 0),
                 "small_card": (CLI_SMALL, 0),
                 "corpus_regress": (["regress", "--corpus", files["repo_corpus"]], 0),
-                "check": (["check", *CLI_HUNT, "--seeds", "256", "--max-steps", "384"], 0),
+                "check": (["check", *CLI_HUNT, "--seeds", "256", "--max-steps", "192"], 0),
                 "small_cpu": ([*CLI_SMALL, "--device", "cpu"], 0, 2),
                 "replay_diff": (["replay", *one, "--diff-seed", str(CLI_FIRST_FIND + 1)], 0),
                 "replay": (["replay", *one, "--tail", "5"], 1),
@@ -2358,6 +2387,37 @@ def cli_phase(torch, np):
             if sum(res[name]["launches"].values()) <= 0:
                 fail(f"cli {name} on the card launched no kernel: {res[name]['launches']}")
 
+        out = {
+            "hunt": {"machine": "demo-volatilecommit-raft", "seeds": int(m.group(1)), "failing": int(m.group(2)),
+                     "codes": sorted({c for _, c in failing}), "recorded": int(added.group(1)),
+                     "first_finds": failing[:4], "subprocess_s": hunt["s"], "launches": hunt["launches"],
+                     **cli_rates(hunt["err"]), **{key: [c[key] for c in hunt["streams"]] for key in (
+                         "device_segments", "dispatches", "host_syncs", "drains")}},
+            "stage_s": [stage1_s, stage2_s],
+            "commands": {k: {"s": r["s"], "rc": r["rc"]} for k, r in res.items()},
+            "found_entries": n_found, "trace_flows": int(flows.group(2)), "small_equal": True,
+        }
+        prov.pop("words")
+        out["provenance"] = {**prov, "subprocess_s": hunt_prov["s"], "launches": hunt_prov["launches"],
+                             **cli_rates(hunt_prov["err"])}
+    out["launches"] = {k: r["launches"] for k, r in res.items()}
+    return out
+
+
+def cli_phase(torch, np, stages=None):
+    """Phase 11: the command line as a user runs it, in subprocesses on
+    the card (`cli` line): `stages`, the first two stages' fields
+    (cli_stages, run here unless the window ran them), then (3) `explore
+    --stream` of the flagship at one batch of 8192 lanes, lanes cut at
+    1,152 events, pipelined and with `--no-pipeline`, the two at once and
+    nothing else beside them, so both see the same host: the same lines,
+    and each one's seeds/s, host syncs and steps issued."""
+    import re
+    import tempfile
+
+    if stages is None:
+        stages = cli_stages(torch, np)
+    with tempfile.TemporaryDirectory(prefix="madsim_cli_") as tmp:
         # 3. pipelined against per-segment, the two at once
         t0 = time.perf_counter()
         pair = run_cli_jobs(tmp, {"pipelined": (CLI_EXPLORE, 0), "per_segment": ([*CLI_EXPLORE, "--no-pipeline"], 0)})
@@ -2384,22 +2444,8 @@ def cli_phase(torch, np):
             explore[name]["segments_issued"] = round(explore[name]["steps_issued"] / 384, 3)
             if explore[name]["segments_issued"] < sum(explore[name]["device_segments"]):
                 fail(f"cli explore {name}: fewer segments issued than executed: {explore[name]}")
-        out = {
-            "hunt": {"machine": "demo-volatilecommit-raft", "seeds": int(m.group(1)), "failing": int(m.group(2)),
-                     "codes": sorted({c for _, c in failing}), "recorded": int(added.group(1)),
-                     "first_finds": failing[:4], "subprocess_s": hunt["s"], "launches": hunt["launches"],
-                     **cli_rates(hunt["err"]), **{key: [c[key] for c in hunt["streams"]] for key in (
-                         "device_segments", "dispatches", "host_syncs", "drains")}},
-            "stage_s": [stage1_s, stage2_s, stage3_s],
-            "commands": {k: {"s": r["s"], "rc": r["rc"]} for k, r in res.items()},
-            "found_entries": n_found, "trace_flows": int(flows.group(2)), "small_equal": True,
-            "explore": explore,
-        }
-        prov.pop("words")
-        out["provenance"] = {**prov, "subprocess_s": hunt_prov["s"], "launches": hunt_prov["launches"],
-                             **cli_rates(hunt_prov["err"])}
-    emit({"phase": "cli", **{k: v for k, v in out.items() if k != "provenance"}})
-    out["launches"] = {k: r["launches"] for k, r in res.items()}
+    out = {**stages, "stage_s": [*stages["stage_s"], stage3_s], "explore": explore}
+    emit({"phase": "cli", **{k: v for k, v in out.items() if k not in ("provenance", "launches")}})
     return out
 
 
@@ -3167,8 +3213,8 @@ def guided_phase(torch, np, kernels, dev, diff_whole):
     from madsim_tpu_torch.models import RaftMachine
 
     d_eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), EngineConfig(**DIFF, faults=FaultPlan(**DIFF_FAULTS)))
-    d_state = d_eng.run_segment(d_eng.init_batch(np.arange(DIFF_LANES, dtype=np.uint32)), 300)
-    w_state = d_eng.run_segment(d_eng.init_batch(np.arange(DIFF_WHOLE_LANES, dtype=np.uint32)), 300)
+    d_state = d_eng.run_segment(d_eng.init_batch(np.arange(DIFF_LANES, dtype=np.uint32)), DIFF_STATE_STEPS)
+    w_state = d_eng.run_segment(d_eng.init_batch(np.arange(DIFF_WHOLE_LANES, dtype=np.uint32)), DIFF_STATE_STEPS)
     return time_kernel_shapes(kernels, dev, "guided_kernels", steps, flushes, pops=(
         (f"pop_gather_differential_L{DIFF_LANES}_Q{DIFF['queue_capacity']}", d_state, diff_launches["pop_gather"]),
         (f"pop_gather_differential_L{DIFF_WHOLE_LANES}_Q{DIFF['queue_capacity']}", w_state,
@@ -3334,7 +3380,7 @@ def perf_phase(torch, np, kernels, dev, checks=None):
     time by device phase, and a virtual track equal to the CPU's (`prof`
     line). (2) Once that capture has stopped, beside prof's host tail
     (its export, its JSON, its one-lane replay), `perf` of the flagship at
-    2 x 8192 lanes: the host timeline is written, its spans cover >= 90%
+    one batch of 8192 lanes: the host timeline is written, its spans cover >= 90%
     of the wall and name every executor span (`perf_timeline` line: each
     span's seconds and share, the device wait, the dispatch gap, the
     verdict and the card's memory). (3) `PerfChecks` (the v2 leg and
@@ -3368,7 +3414,7 @@ def perf_phase(torch, np, kernels, dev, checks=None):
 
             # 2. the host timeline of a full-width run
             t1 = time.perf_counter()
-            perf = run_cli(tmp, "perf", ["perf", files["timeline"], *PERF_ARGS, "--seeds", str(2 * PERF_LANES),
+            perf = run_cli(tmp, "perf", ["perf", files["timeline"], *PERF_ARGS, "--seeds", str(PERF_LANES),
                                          "--batch", str(PERF_LANES), "--log-level", "INFO"], 0)
             perf_s = round(time.perf_counter() - t1, 3)
             if checks is None:
@@ -3720,8 +3766,10 @@ def fleet_jobs():
 
             # 5. store health
             fsck = {}
-            for name, at in (("farm", root), ("profile", profile_root)):
-                doc = json.loads(run_cli(tmp, "fsck", ["fleet", "fsck", "--root", at, "--json"])["out"])
+            fsck_jobs = {name: spawn(f"fsck_{name}", ["fleet", "fsck", "--root", at, "--json"])
+                         for name, at in (("farm", root), ("profile", profile_root))}
+            for name, job in fsck_jobs.items():
+                doc = json.loads(reap_cli(job)["out"])
                 if doc["corrupt"] or doc["stale_tmp"]:
                     fail(f"fleet fsck of the {name} store: {doc}")
                 fsck[name] = {k: doc[k] for k in ("corrupt", "stale_tmp", "stale_claims", "queue_log_lag", "jobs")}
@@ -4716,6 +4764,108 @@ def services_kernels(np, kernels, dev, services):
                  ("pop_earliest_L1_Q96", states["L1_Q96"], earliest.get("L1_Q96", 0))))
 
 
+# phase 18d, the bench command: the flagship (no --machine) at its full
+# width, 8192 lanes, one timed rep; `--machine echo` on the command line's
+# defaults (the split chain, Q = 96) at 8192 lanes over 8192 seeds a rep
+# (echo, whose lanes end soonest, keeps the phase short);
+# then `bench report` of the history both wrote, run as LINT_PROBE runs
+# lint, saying at its exit whether the process imported torch
+BENCH_MACHINE = ["--machine", "echo", "--seeds", str(LANES)]
+BENCH_STATE_STEPS = 32  # the machine bench's state pop_gather is timed on: this far in (lanes live)
+BENCH_PROBE = """
+import runpy, sys
+try:
+    runpy.run_module("madsim_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    code = exc.code
+else:
+    code = 0
+print("probe", "torch" in sys.modules, file=sys.stderr)
+sys.exit(code)
+"""
+
+
+def bench_phase():
+    """Phase 18d: the three forms of `bench` in subprocesses, one at a
+    time and nothing beside them, writing one history in a temporary
+    directory (`bench` line). Fails unless each line names the card,
+    each form launched its kernels (the flagship the megakernel and the
+    flush and no pop_gather, the machine bench pop_gather), the history
+    holds the two rows and the report renders both without torch.
+    Returns the launches, the machine's and both summed."""
+    import os
+    import tempfile
+
+    repo = pathlib.Path(__file__).resolve().parent
+    card_name, _, card_limit = card_line().rpartition(",")
+    card = {"name": card_name.strip(), "power_limit": card_limit.strip()}
+    with tempfile.TemporaryDirectory(prefix="madsim_bench_") as tmp:
+        hist = str(pathlib.Path(tmp) / "bench_history.jsonl")
+        runs = {name: run_cli(tmp, f"bench_{name}", [*argv, "--reps", "1", "--history", hist], 0)
+                for name, argv in (("flagship", ["bench"]), ("machine", ["bench", *BENCH_MACHINE]))}
+        lines = {}
+        for name, r in runs.items():
+            found = [json.loads(ln) for ln in r["out"].splitlines() if ln.startswith("{")]
+            if len(found) != 1 or found[0].get("platform") != "cuda" or found[0].get("card") != card or \
+                    found[0]["diagnostics"]["lanes"] != LANES or not found[0]["value"] > 0:
+                fail(f"bench {name}: want one line on the card ({card}) at {LANES} lanes:\n{r['out'][-3000:]}\n"
+                     f"{r['err'][-3000:]}")
+            lines[name] = found[0]
+        flag, mach = lines["flagship"], lines["machine"]
+        if flag["metric"] != "madraft5_seeds_per_sec_per_chip" or len(flag["diagnostics"]["reps"]) != 1 or \
+                not flag["gates"]["pallas_megakernel"] or flag["gates"]["rng_stream"] != 3 or \
+                not flag["diagnostics"]["coverage"]["slots_hit"] or not flag["compile_s_warm"] > 0:
+            fail(f"bench (the flagship): {flag}")
+        if mach["metric"] != f"{BENCH_MACHINE[1]}_seeds_per_sec" or mach["diagnostics"]["queue_capacity"] != 96 or \
+                len(mach["diagnostics"]["reps"]) != 1:
+            fail(f"bench {' '.join(BENCH_MACHINE)}: {mach}")
+        fl, ml = runs["flagship"]["launches"], runs["machine"]["launches"]
+        if not (fl.get("step_megakernel") and fl.get("cov_flush")) or fl.get("pop_gather") or \
+                not ml.get("pop_gather") or ml.get("step_megakernel"):
+            fail(f"bench: the flagship launched {fl}, the machine bench {ml}")
+        rows = [json.loads(ln) for ln in pathlib.Path(hist).read_text().splitlines() if ln.strip()]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", BENCH_PROBE, "bench", "report", "--history", hist], cwd=tmp,
+                              env=dict(os.environ, PYTHONPATH=str(repo)), capture_output=True, text=True,
+                              timeout=300)
+        report_s = round(time.perf_counter() - t0, 3)
+        report = [ln for ln in proc.stdout.splitlines() if ln[:1] == "r"]
+        if [r.get("source") for r in rows] != ["bench", "bench --machine"] or proc.returncode != 0 or \
+                [ln.split()[0] for ln in report] != ["r01", "r02"] or \
+                proc.stderr.strip().splitlines()[-1:] != ["probe False"]:
+            fail(f"bench report of {len(rows)} rows exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr[-3000:]}")
+    launches = {k: fl.get(k, 0) + ml.get(k, 0) for k in set(fl) | set(ml)}
+
+    def summary(name, line, row):
+        r = runs[name]
+        return {"value": line["value"], "compile_s": row["compile_s"], "compile_s_warm": row["compile_s_warm"],
+                "card": line["card"], "reps": line["diagnostics"]["reps"], "lanes": line["diagnostics"]["lanes"],
+                "subprocess_s": r["s"], "launches": r["launches"],
+                **{key: [c[key] for c in r["streams"]] for key in ("device_segments", "dispatches", "host_syncs")}}
+
+    emit({"phase": "bench", "card": card_line(), "flagship": {
+        **summary("flagship", flag, rows[0]), "flight_recorder": flag["diagnostics"]["flight_recorder"],
+        "slots_hit": flag["diagnostics"]["coverage"]["slots_hit"]},
+        "machine": {**summary("machine", mach, rows[1]), "failing_total": mach["diagnostics"]["failing_total"],
+                    "queue_capacity": mach["diagnostics"]["queue_capacity"]},
+        "history_rows": len(rows), "report": {"rc": proc.returncode, "s": report_s, "torch_imported": False,
+                                              "rows": report}, "launches": launches})
+    return {"machine": ml, "all": launches}
+
+
+def bench_kernels(np, kernels, dev, bench):
+    """The shape phase 18d first launches, held against its twin and
+    timed on a state of the engine the command builds (`bench_kernels`
+    line): pop_gather at the machine bench's 8192 lanes of Q = 96."""
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+
+    eng = _build_engine(_parser().parse_args(["bench", *BENCH_MACHINE]))
+    state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), BENCH_STATE_STEPS)
+    q = eng.config.queue_capacity
+    return time_kernel_shapes(kernels, dev, "bench_kernels", (), (), pops=(
+        (f"pop_gather_L{LANES}_Q{q}", state, bench["machine"].get("pop_gather", 0)),))
+
+
 # Phase 4b and the card-against-CPU checks of phases 6-9, 12 and 13 time
 # nothing: each group (~2 minutes on its own) runs in a process of its own (`python -c`, niced so
 # that the fleet's workers and the main process come first) beside the
@@ -4880,18 +5030,23 @@ def lint_phase():
 
 
 def window_phase(torch, np, kernels):
-    """The work that times nothing, all at once: phase 17 (the fleet,
+    """The work that times nothing, all at once, with phase 11's first
+    two stages, whose hunt rates and command seconds are taken beside it:
+    phase 17 (the fleet,
     driven from a thread), phase 18 (the examples' two processes, driven
     from a thread), phase 18b's host half (its servers and clients,
     driven from a thread), phase 18c (lint, from a thread), phase 16's
     checks (PerfChecks), each group of
     CHECK_GROUPS in a process of its own (phase 18b's device half among
-    them), and in this process phase 6's replays. Returns the groups'
-    results, the replays' launches and states (replay_and_corpus), the
-    fleet's launches (fleet_jobs), the PerfChecks, joined, and the
-    examples' records (examples_run)."""
+    them), and in this process phase 6's replays, then phase 11's first
+    two stages (cli_stages, from a thread). Returns
+    the groups' results, the replays' launches and states
+    (replay_and_corpus), the fleet's launches (fleet_jobs), the
+    PerfChecks, joined, the examples' records (examples_run) and phase
+    11's first two stages."""
     fleet, examples, perf_checks = InThread(fleet_jobs), InThread(examples_run), PerfChecks()
     host, lint = InThread(services_host), InThread(lint_phase)
+    cli = InThread(lambda: cli_stages(torch, np))
     groups = [ChildChecks(g) for g in CHECK_GROUPS]
     lint.start()
     fleet.start()
@@ -4901,6 +5056,7 @@ def window_phase(torch, np, kernels):
         g.start()
     perf_checks.start()
     replays = replay_and_corpus(torch, np, kernels)
+    cli.start()
     checks = {}
     for g in groups:
         checks.update(g.join())
@@ -4908,7 +5064,7 @@ def window_phase(torch, np, kernels):
     perf_checks.join()
     host.join()
     lint.join()
-    return checks, replays, fleet_res, perf_checks, examples.join()
+    return checks, replays, fleet_res, perf_checks, examples.join(), cli.join()
 
 
 def main(argv=None):
@@ -4918,12 +5074,12 @@ def main(argv=None):
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
     args.add_argument("--only", choices=("cli", "prov", "guided", "perf", "fleet", "mesh", "examples", "services",
-                                         "window"),
+                                         "bench", "window"),
                       default=None,
                       help="build, then run phase 11 alone (cli), phases 11-13 (prov), phases 14-15 (guided), "
                       "phase 16 (perf), phase 17 (fleet), phase 17b (mesh), phase 18 (examples), phase 18b "
-                      "(services) or the work that times nothing, at once (window): a short check that prints no "
-                      "result line")
+                      "(services), phase 18d (bench) or the work that times nothing, at once (window): a short "
+                      "check that prints no result line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -4992,8 +5148,12 @@ def main(argv=None):
         services_kernels(np, kernels, torch.device("cuda"), services_launches(services))
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
+    if args.only == "bench":
+        bench_kernels(np, kernels, torch.device("cuda"), bench_phase())
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
     if args.only == "window":
-        checks, _, (_, w3_launches), perf_checks, examples = window_phase(torch, np, kernels)
+        checks, _, (_, w3_launches), perf_checks, examples, _ = window_phase(torch, np, kernels)
         examples_kernels(np, kernels, torch.device("cuda"), examples)
         services_kernels(np, kernels, torch.device("cuda"), services_launches(checks))
         mesh_kernels(np, kernels, torch.device("cuda"), checks["mesh"]["launches_mesh"])
@@ -5146,8 +5306,8 @@ def main(argv=None):
     # gossip and other models, 8. the chaos palette (pause, skew, dup and strict restarts), 9. the
     # storage kinds, 12. causal provenance and 13. the unpacked clog
     # matrix; 16.'s commands that time nothing; 17. the hunt fleet
-    checks, (replay_launches, replay_state, corpus_states), (fleet_launches, w3_launches), perf_checks, examples = \
-        window_phase(torch, np, kernels)
+    checks, (replay_launches, replay_state, corpus_states), (fleet_launches, w3_launches), perf_checks, examples, \
+        cli_first = window_phase(torch, np, kernels)
     model_states = model_states_of(np, checks["models"])
     palette_states = palette_states_of(np, checks["palette"])
     storage = {**checks["storage"], "soak_state": soak_state_of(np)}
@@ -5224,8 +5384,9 @@ def main(argv=None):
               **head_to_head})
     emit({"phase": "profile_v2", **profile_steps(v2_eng, v2_state, steps=8)})
 
-    # 11. the command line, in subprocesses on the card
-    cli = cli_phase(torch, np)
+    # 11. the command line, in subprocesses on the card (its first two
+    #     stages ran in the window)
+    cli = cli_phase(torch, np, cli_first)
     cli_kernels(kernels, np, dev, cli)
 
     # 12. the provenance gate's cost; 13. the clog matrix's kernel shapes
@@ -5248,6 +5409,10 @@ def main(argv=None):
                      "pop_gather": perf["prof_v2"].get("pop_gather", 0),
                      "pop_earliest": perf["prof"].get("pop_earliest", 0)}
 
+    # 18d. the bench command, its three forms, with nothing beside it
+    bench = bench_phase()
+    bench_pop = bench_kernels(np, kernels, dev, bench)[f"pop_gather_L{LANES}_Q96"]
+    launches_bench = bench["all"]
 
     emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
 
@@ -5261,7 +5426,8 @@ def main(argv=None):
          "launches_mesh": launches_mesh.get("step_megakernel", 0),
          "launches_differential": launches_differential.get("step_megakernel", 0),
          "launches_examples": launches_examples["step_megakernel"],
-         "launches_services": launches_services["step_megakernel"]},
+         "launches_services": launches_services["step_megakernel"],
+         "launches_bench": launches_bench.get("step_megakernel", 0)},
         {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
@@ -5270,7 +5436,8 @@ def main(argv=None):
          "launches_mesh": launches_mesh.get("cov_flush", 0),
          "launches_differential": launches_differential.get("cov_flush", 0),
          "launches_examples": launches_examples["cov_flush"],
-         "launches_services": launches_services["cov_flush"]},
+         "launches_services": launches_services["cov_flush"],
+         "launches_bench": launches_bench.get("cov_flush", 0)},
         # each at the shape where its launches run: pop_earliest's are the
         # single-lane replay's
         *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
@@ -5280,6 +5447,7 @@ def main(argv=None):
            "launches_fleet": fleet_launches[name], "launches_mesh": launches_mesh.get(name, 0),
            "launches_differential": launches_differential.get(name, 0),
            "launches_examples": launches_examples[name], "launches_services": launches_services[name],
+           "launches_bench": launches_bench.get(name, 0),
            # the examples' shapes (phase 18), held and timed in examples_kernels
            "examples": {shape: {key: k_ex[key] for key in (
                "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}
@@ -5290,6 +5458,10 @@ def main(argv=None):
                for shape, k_svc in svc_kernels.items() if shape.startswith(name)},
            # the whole differential's shape (phase 15), held and timed there
            **({"differential": {key: diff_pop[key] for key in (
+               "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}}
+              if name == "pop_gather" else {}),
+           # the bench command's machine shape (phase 18d), held and timed in bench_kernels
+           **({"bench": {key: bench_pop[key] for key in (
                "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}}
               if name == "pop_gather" else {})}
           for name, replaces, n, k in (

@@ -15,6 +15,9 @@ reports and the stats endpoint.
     python -m madsim_tpu_torch perf    host.json --machine raft --seeds 16384 --batch 8192
     python -m madsim_tpu_torch prof    --merge --out m.json --machine raft --seeds 8192 --batch 8192
     python -m madsim_tpu_torch bench-ab --gate coverage --lanes 1024 --reps 4
+    python -m madsim_tpu_torch bench   [--lanes 8192] [--reps 3] [--history TORCH_BENCH_HISTORY.jsonl]
+    python -m madsim_tpu_torch bench   --machine raft --seeds 16384
+    python -m madsim_tpu_torch bench   report [--history TORCH_BENCH_HISTORY.jsonl]
     python -m madsim_tpu_torch fleet serve --root farm --port-file farm.port
     python -m madsim_tpu_torch fleet submit --port-file farm.port --machine raft --seeds 16384 --batch 8192
     python -m madsim_tpu_torch fleet worker --root farm --drain [--device cpu]
@@ -24,7 +27,8 @@ defaults, printed lines and exit codes for explore, hunt (with
 `--guided`), replay, trace, why, shrink, regress, audit, check, coverage,
 `serve` (the stats endpoint and the host services etcd, kafka and s3),
 the perf tooling (`perf`, `prof`,
-`bench-ab`, `--perf-timeline`, `--xla-profile`) and the hunt farm
+`bench-ab`, `--perf-timeline`, `--xla-profile`), `bench` (the flagship,
+`--machine NAME` and `report`; `perf/flagship.py`) and the hunt farm
 (`fleet serve|worker|submit|status|result|cancel|queue|watch|timeline|
 profile|top|fsck|chaos`), `--provenance` among
 the flags, and the same files (corpus, checkpoint with its guided trail,
@@ -41,10 +45,10 @@ are those of the unsharded run. `explore --multihost` joins a job of
 processes started from the MADSIM_TPU_* env (`parallel/multihost.py`).
 Only rank 0 prints or writes a file. `lint` is the static analyzer
 (`analysis/`) pointed at this package; it imports no torch unless its C
-import half runs (`--no-import-check` turns that off). What the port
-does not run (the compile cache and its autopsy `prof compile`, bench)
-exits with status 2 and one line naming the gate, before any engine is
-built.
+import half runs (`--no-import-check` turns that off), and neither does
+`bench report`. What the port does not run (the compile cache and its
+autopsy `prof compile`) exits with status 2 and one line naming the
+gate, before any engine is built.
 """
 
 from __future__ import annotations
@@ -66,10 +70,7 @@ import sys
 
 PROG = "madsim_tpu_torch"
 
-# what the port refuses, and the ROADMAP.md item (queue 1) it waits for
-_GATED_COMMANDS = {
-    "bench": ("the `bench` command", "ROADMAP.md queue 1, item 6: the port's bench waits for the benchmark PR"),
-}
+# what the port refuses, and why
 _GATED_FLAGS = (
     ("compile_cache", "--compile-cache (a JAX compile cache)", "no port item: the port compiles no graph"),
 )
@@ -89,9 +90,6 @@ def _gate(args) -> str:
         # compile into its trace, lowering and backend stages
         return (f"{PROG}: `prof compile` is not ported: it reads the JAX compile autopsy, and eager "
                 f"PyTorch has no trace, lowering or backend stage (no port item)")
-    if args.cmd in _GATED_COMMANDS:
-        what, item = _GATED_COMMANDS[args.cmd]
-        return f"{PROG}: {what} is not ported yet ({item})"
     hits = [attr for attr, _what, _item in _GATED_FLAGS if getattr(args, attr, None)]
     return _gate_line(hits[0]) if hits else ""
 
@@ -1370,7 +1368,7 @@ def cmd_prof(args) -> int:
 
 
 _AB_GATES = ("flight_recorder", "coverage", "provenance", "clog-packed",
-             "rng-stream", "coverage-unbuffered")
+             "rng-stream", "coverage-unbuffered", "pallas-megakernel")
 
 
 def cmd_bench_ab(args) -> int:
@@ -1397,6 +1395,12 @@ def cmd_bench_ab(args) -> int:
         cfg_a = dataclasses.replace(base, coverage=True)
         cfg_b = dataclasses.replace(base, coverage=True, cov_buffer=0)
         label_a, label_b = "cov_buffer=on", "cov_buffer=0"
+    elif args.gate == "pallas-megakernel":
+        # the step-prefix kernel against its plain PyTorch twin, both on
+        # the v3 stream the kernel serves
+        cfg_a = dataclasses.replace(base, rng_stream=3, pallas_megakernel=True)
+        cfg_b = dataclasses.replace(base, rng_stream=3, pallas_megakernel=False)
+        label_a, label_b = "pallas_megakernel=on", "pallas_megakernel=off"
     else:
         field = args.gate.replace("-", "_")
         cfg_a = dataclasses.replace(base, **{field: True})
@@ -1436,6 +1440,77 @@ def cmd_bench_ab(args) -> int:
     }))
     print(res.summary())
     return 0
+
+
+def _cmd_bench_report(args) -> int:
+    """`bench report`: render the port's bench history trend, read where
+    the bench forms write it. It builds no engine and imports no torch,
+    so it runs where there is no card."""
+    from .perf import flagship, history
+
+    print(history.render_report(history.load(flagship.history_path(args.history))))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """`bench`: with no --machine the flagship (`perf/flagship.py`, the
+    port of the repo-root bench.py); with `--machine NAME` a streaming
+    throughput bench of any registered machine under the usual engine
+    flags: `run(64)` and one untimed rep, then `--reps` timed reps of
+    max(--seeds, lanes) seeds, the median rate in one JSON line with the
+    reference's keys and the card's name and power limit (`card`). Both
+    run the flagship's timed protocol (`flagship.capture`): each appends
+    a row to the history (--history, else $MADSIM_TPU_BENCH_HISTORY, else
+    TORCH_BENCH_HISTORY.jsonl here) and checks the budget against its
+    newest comparable row."""
+    if getattr(args, "action", None) == "report":
+        return _cmd_bench_report(args)
+    if args.lanes < 0 or args.reps < 1 or args.seeds < 1:
+        sys.exit("bench needs --lanes >= 1 (or 0 = default), --reps >= 1, --seeds >= 1")
+    from .perf import flagship
+
+    if not getattr(args, "machine", None):
+        # the reference's mapping, kept as it is: the default --reps 3
+        # passes no reps, so the flagship runs its own default of 5
+        return flagship.run(args.lanes or flagship.DEFAULT_LANES,
+                            args.reps if args.reps != 3 else flagship.DEFAULT_REPS,
+                            device=_device(args), history_file=args.history)
+
+    import time as wall
+
+    from .perf import history
+
+    eng = _build_engine(args)
+    lanes = args.lanes or flagship.DEFAULT_LANES
+    n = max(args.seeds, lanes)
+    fingerprint = history.env_fingerprint(
+        backend_platform=eng.device.type, lanes=lanes, reps=args.reps, segment_steps=flagship.SEGMENT_STEPS,
+        gates=flagship.gates_of(eng), device_count=_device_count(args), machine=args.machine)
+    with _streaming(args) as stream:
+        run = functools.partial(stream, eng, batch=lanes, segment_steps=flagship.SEGMENT_STEPS,
+                                max_steps=args.max_steps)
+        t0 = wall.perf_counter()
+        run(64)
+        first_s = wall.perf_counter() - t0
+        run(n, seed_start=500_000)
+        cap = flagship.capture(eng, run, n=n, reps=args.reps, seed_start=args.seed, stride=4 * n,
+                               fingerprint=fingerprint, history_file=args.history, source="bench --machine",
+                               compile_s=first_s)
+    st = cap["outs"][-1]["stats"]
+    print(json.dumps({
+        "metric": f"{args.machine}_seeds_per_sec",
+        **cap["fields"],
+        "diagnostics": {
+            "reps": [round(x, 1) for x in cap["rates"]],
+            "failing_total": sum(len(out["failing"]) + len(out["infra"]) for out in cap["outs"]),
+            "lanes": lanes,
+            "queue_capacity": args.queue,
+            "fault_kinds": getattr(args, "fault_kinds", "pair,kill"),
+            **{k: st[k] for k in ("host_syncs", "device_segments", "dispatch_depth", "segments_per_dispatch",
+                                  "donation", "pipelined")},
+        },
+    }))
+    return 1 if cap["violated"] else 0
 
 
 def _format_fleet_event(ev: dict, t0: float) -> str:
@@ -1932,13 +2007,32 @@ def _parser() -> argparse.ArgumentParser:
                        "sign test (one JSON line)")
     common(p)
     p.add_argument("--gate", required=True, choices=_AB_GATES,
-                   help="the gate to cost: A runs it on, B off (rng-stream: A = v3, B = v2); every other "
-                   "engine flag comes from the usual options")
+                   help="the gate to cost: A runs it on, B off (rng-stream: A = v3, B = v2; pallas-megakernel: "
+                   "A the step-prefix kernel, B its plain twin, both v3); every other engine flag comes from the "
+                   "usual options")
     p.add_argument("--lanes", type=int, default=1024, help="lanes per streaming batch")
     p.add_argument("--seeds", type=int, default=0, help="seeds per rep (0 = 2*lanes)")
     p.add_argument("--reps", type=int, default=4, metavar="PAIRS", help="A/B rep PAIRS")
     stream_flags(p)
     p.set_defaults(fn=cmd_bench_ab, seed=3_000_000)
+
+    p = sub.add_parser("bench", help="flagship benchmark (one JSON line); with --machine, a streaming throughput "
+                       "bench of any registered machine; `bench report` renders the port's bench history trend "
+                       "(no torch)")
+    common(p)
+    p.add_argument("action", nargs="?", choices=("report",), default=None,
+                   help="report: render the drift-aware bench history trend (each capture's delta against its "
+                   "own comparable neighbour: same platform, card, kernels, lanes, gates, machine and host)")
+    p.add_argument("--lanes", type=int, default=0, help="lanes per streaming batch (0 = 8192)")
+    p.add_argument("--seeds", type=int, default=16384, help="seeds per rep (--machine)")
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--history", default=None, metavar="PATH",
+                   help="bench history JSONL to render or append to (default $MADSIM_TPU_BENCH_HISTORY, else "
+                   "./TORCH_BENCH_HISTORY.jsonl)")
+    stream_flags(p)
+    # no machine: the flagship; timed seed ranges start clear of the
+    # validation sweeps
+    p.set_defaults(fn=cmd_bench, machine=None, seed=1_000_000)
 
     p = sub.add_parser("perf", help="host wall-clock observatory: stream a workload with the PerfRecorder on "
                        "and write the Perfetto host timeline, with a compile- vs device- vs dispatch-gap-bound "
@@ -2308,9 +2402,6 @@ def _parser() -> argparse.ArgumentParser:
 
     add_lint_args(p)
     p.set_defaults(fn=cmd_lint)
-
-    for name, (what, item) in _GATED_COMMANDS.items():
-        sub.add_parser(name, help=f"not ported ({item})", add_help=False)
     return parser
 
 
@@ -2330,9 +2421,11 @@ def main(argv=None) -> int:
     # the fleet's control plane, a synthetic-driver worker and a
     # synthetic chaos run build no engine and run without a card; a
     # real worker is refused here, before it leases anything
-    builds_engines = args.cmd != "fleet" or (
+    builds_engines = (args.cmd != "fleet" or (
         args.fleet_cmd == "worker" and args.driver == "real") or (
-        args.fleet_cmd == "chaos" and args.real)
+        args.fleet_cmd == "chaos" and args.real)) and not (
+        # `bench report` renders the history: no engine, no torch
+        args.cmd == "bench" and args.action == "report")
     if hasattr(args, "device") and builds_engines:
         from .engine.core import resolve_device
 

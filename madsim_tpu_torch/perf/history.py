@@ -16,6 +16,9 @@ What differs from the reference:
   two rows from different kernel designs never compare;
 * the gate keys are the port's (`pallas_megakernel` where the reference
   has `pallas_pop`), and rows whose card names differ never compare;
+* `machine` names what a `bench --machine NAME` row streamed (None for
+  the flagship), and rows of different machines never compare; a row
+  also keeps `compile_s_warm`, a second fresh engine's first run;
 * there is no legacy import: the reference seeds its history from its
   `BENCH_r*.json` series, which are TPU numbers, and the port's history
   holds the card's numbers only. `DEFAULT_BASENAME` is the port's own
@@ -89,12 +92,14 @@ def env_fingerprint(
     segment_steps: Optional[int] = None,
     gates: Optional[dict] = None,
     device_count: Optional[int] = None,
+    machine: Optional[str] = None,
 ) -> dict:
     """The comparability fingerprint for one bench capture.
     `backend_platform` is the engine's device type ("cuda" / "cpu");
     on "cuda" the card's name and power limit are read from nvidia-smi.
     `device_count` is the number of cards the stream spanned (None/1 =
-    one) and is part of the comparability key."""
+    one) and is part of the comparability key, as is `machine` (the
+    registry name a `bench --machine` row streamed; None: the flagship)."""
     try:
         import torch
 
@@ -116,6 +121,7 @@ def env_fingerprint(
         "segment_steps": segment_steps,
         "gates": _norm_gates(gates),
         "device_count": device_count,
+        "machine": machine,
     }
 
 
@@ -141,6 +147,7 @@ def make_record(
     *,
     reps: Optional[List[float]] = None,
     compile_s: Optional[float] = None,
+    compile_s_warm: Optional[float] = None,
     spread_pct: Optional[float] = None,
     host_load1: Optional[float] = None,
     step_cost: Optional[dict] = None,
@@ -149,7 +156,8 @@ def make_record(
 ) -> dict:
     """One history row. `compile_s` is the first run's seconds (in
     eager PyTorch: the kernels' build and load at first use and the
-    first run of every op)."""
+    first run of every op); `compile_s_warm` is the first run of a second
+    fresh engine in the same process."""
     # madsim: allow(D001) — capture timestamp (host metadata, not sim)
     return {
         "tag": tag,
@@ -157,6 +165,7 @@ def make_record(
         "value": value,
         "reps": reps,
         "compile_s": compile_s,
+        "compile_s_warm": compile_s_warm,
         "spread_pct": spread_pct,
         "host_load1": host_load1,
         "step_cost": step_cost,
@@ -199,7 +208,8 @@ def next_tag(rows: List[dict]) -> str:
 def comparable(fp_a: Optional[dict], fp_b: Optional[dict]) -> bool:
     """Two fingerprints describe the same measurement: platform, lanes
     and the gate tuple must be recorded and equal, and so must the card
-    (its name; None on both off the card) and the kernel sources' hash;
+    (its name; None on both off the card), the kernel sources' hash and
+    the machine (None on both for the flagship);
     the host must match when both rows recorded one."""
     if not fp_a or not fp_b:
         return False
@@ -208,7 +218,7 @@ def comparable(fp_a: Optional[dict], fp_b: Optional[dict]) -> bool:
             return False
     if fp_a.get("gates") is None or fp_a.get("gates") != fp_b.get("gates"):
         return False
-    for key in ("device", "kernels"):
+    for key in ("device", "kernels", "machine"):
         if fp_a.get(key) != fp_b.get(key):
             return False
     if (fp_a.get("device_count") or 1) != (fp_b.get("device_count") or 1):
@@ -265,7 +275,9 @@ def _gates_str(fp: Optional[dict]) -> str:
                 parts.append(short[k])
         elif v is not None:
             parts.append(f"{short[k]}{v}")
-    return "+".join(parts) or "none"
+    text = "+".join(parts) or "none"
+    # a `bench --machine` row names its machine before its gates
+    return f"{fp['machine']}: {text}" if fp.get("machine") else text
 
 
 def render_report(rows: List[dict]) -> str:
@@ -298,7 +310,7 @@ def render_report(rows: List[dict]) -> str:
     lines.append("-" * 72)
     lines.append(
         "`vs prev` compares each row against its newest COMPARABLE "
-        "neighbor (same platform/card/kernels/lanes/gates, same host when "
+        "neighbor (same platform/card/kernels/lanes/gates/machine, same host when "
         "recorded): drift and config changes are separated by construction."
     )
     return "\n".join(lines)

@@ -28,7 +28,6 @@ GATES = [
     # `prof compile` reads the JAX compile autopsy: eager PyTorch has no
     # stage for it to time, so it stays refused with a line of its own
     pytest.param("prof", ["prof", "compile"], "no trace, lowering or backend stage", id="prof"),
-    pytest.param("bench", ["bench", "--lanes", "64"], "item 6", id="bench"),
     # the fleet runs; what it cannot run yet stays refused
     pytest.param("--compile-cache", ["fleet", "worker", "--root", "farm", "--compile-cache", "cache"], "compile",
                  id="fleet-worker--compile-cache"),
@@ -153,8 +152,9 @@ def test_host_services_serve(service):
     assert out.stdout.strip() == _SERVICE_ANSWER[service]
 
 
-@pytest.mark.parametrize("argv", [["explore", *ECHO], ["regress", "--corpus", "c.json"], ["check", *ECHO]],
-                         ids=["explore", "regress", "check"])
+@pytest.mark.parametrize("argv", [["explore", *ECHO], ["regress", "--corpus", "c.json"], ["check", *ECHO],
+                                  ["bench", "--lanes", "64"], ["bench", "--machine", "echo"]],
+                         ids=["explore", "regress", "check", "bench", "bench-machine"])
 def test_no_card_exits_without_falling_back(argv, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert main(argv) != 0

@@ -11,8 +11,9 @@ Left out of tests/test_perf.py, each for its reason:
   * :324 and :343 (the legacy BENCH_r*.json import and the seeded
     BENCH_HISTORY.jsonl report): those rows are TPU numbers, which the
     port's history never imports (perf/history.py's docstring);
-  * :356 (`bench report`): `bench`, in every form, waits for the port's
-    benchmark (ROADMAP.md queue 1, item 6);
+  * :356 (`bench report` past the backend watchdog): the port has no
+    watchdog, and its `bench report` is held in tests/test_torch_bench.py
+    (a process of its own that imports no torch);
   * :467-603 (the JAX compile cache, the compile split and the AOT
     artifacts): eager PyTorch has no compile to cache, split or export.
 """
