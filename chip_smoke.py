@@ -55,7 +55,8 @@ last line):
      failing with its code (card_vs_cpu_models: mvcc and s3 at Q = 48,
      gossip at 33 nodes and Q = 256); the MVCC give-up hunt at 8192 lanes
      under delay spikes (stream_mvcc), whose first ABANDONED_WRITE seed
-     replays equal on the card and the CPU; then the pop kernels against
+     is MVCC_FIRST and replays equal on the card and the CPU (the CPU's
+     replay made in the window: hunt_replays_cpu); then the pop kernels against
      their twins and timed at the new shapes (pop_kernels: pop + gather
      at the hunt's Q = 48 and the replay's L = 1, the pop at L = 1 with
      Q = 48 and 256 on the corpus replays' states);
@@ -67,9 +68,10 @@ last line):
      with honest Raft clean, the duplicate-vote tally fails 101 under dup,
      and its first seed's traced replay is equal (card_vs_cpu_demos); the
      dup-vote hunt at 8192 lanes under the whole palette (stream_palette),
-     whose first ELECTION_SAFETY seed replays equal on the card and the
-     CPU, and whose seeds failing with another code are replayed on the
-     CPU and listed; the megakernel at Q = 96, W = 18 and the flush at two
+     whose first ELECTION_SAFETY seed (PALETTE_FIRST) replays equal on
+     the card and the CPU, and whose first seeds failing with another
+     code (PALETTE_OTHERS) are replayed on the CPU to their codes and
+     listed (the CPU's replays made in the window); the megakernel at Q = 96, W = 18 and the flush at two
      entries a step in `kernels`, the pops at Q = 96 in `pop_kernels`;
   9. the storage kinds (torn restarts, asymmetric heals) and the models
      raft-compact, paxos, etcd and group: run_batch on the card against
@@ -78,7 +80,8 @@ last line):
      honest Raft at Q = 48, and honest raft-compact under every kind at
      once with 1% loss (no failure; the megakernel at W = 31); the
      torn-snapshot hunt at 8192 lanes (stream_torn), failing 102 only,
-     whose first find replays equal on the card and the CPU; then the
+     whose first find (TORN_FIRST) replays equal on the card and the CPU
+     (the CPU's replay made in the window); then the
      megakernel at W = 11 / Q = 64 (8192 lanes and the replay's L = 1),
      W = 31 / Q = 96 and L = 1 / Q = 96 and the flush on the torn hunt,
      each against its twin and timed (storage_kernels); the pop kernels
@@ -91,14 +94,16 @@ last line):
      EagerCommitTwoPc, each failing with its code only; `triage` hunts
      the double-grant etcd demo at 8192 lanes through make_runner with
      the trace ring (at least 1,024 lanes failing, 8 steps profiled with
-     the ring on and off), holds the first failing lanes' rings against
-     the tails of their replays on the card and those replays against
-     the CPU's, shrinks the first seed on the card and on the CPU (equal
-     results), records the shrunk entry on the card, adds it to a corpus
-     file and checks and audits it on the CPU (and audits one recorded
-     on the CPU on the card), and exports the card's and the CPU's traces
-     byte for byte; `triage_kernels` holds and times the megakernel at
-     the hunt's Q = 96 / W = 10 (8192 lanes and the replays' L = 1) and
+     the ring on and off); on a hunt of the same lanes in a process of
+     its own in the window (`triage_checks`, a check group), it holds the
+     first failing lanes' rings against the tails of their replays on the
+     card and those replays against the CPU's, shrinks the first seed on
+     the card and on the CPU (equal results), records the shrunk entry on
+     the card, adds it to a corpus file and checks and audits it on the CPU
+     (and audits one recorded on the CPU on the card), and exports the
+     card's and the CPU's traces byte for byte; `triage_kernels` holds
+     and times the megakernel at the hunt's Q = 96 / W = 10 (8192 lanes
+     and the replays' L = 1) and
      at the model leg's shapes, and the flush on the hunt's buffers;
      pop_kernels adds pop_gather at the model leg's batch and
      pop_earliest at the triage replays' L = 1;
@@ -114,16 +119,17 @@ last line):
      run beside it; its first four finds replay on the CPU engine to the
      same codes; `regress` and `audit` of the found corpus on the card
      and with `--device cpu` and `coverage` run on what it wrote (these
-     two stages from a thread in the window, once its single-lane replays
-     are done: the hunt's seeds/s and each command's seconds are taken
-     beside the window's other work); `explore --stream` of the flagship at one batch of 8192
-     lanes, lanes cut at 1,152 events (three segments), after the window,
-     pipelined and with `--no-pipeline` side by side, prints the same
-     lines, with each one's seeds/s, host syncs, dispatches, and the
-     segments issued (megakernel launches over 384) against those
-     executed; `cli_kernels` holds and times the megakernel at the
-     replays' L = 1, `check`'s 256 lanes and the small explore's 64, and
-     the flush at 64 lanes. Beside the hunt runs the same hunt with
+     two stages from a thread in the window, from its start: the hunt's
+     seeds/s and each command's seconds are taken beside the window's
+     other work); `explore --stream` of the flagship
+     at one batch of 8192 lanes, lanes cut at 1,152 events (three
+     segments), after the window, pipelined and with `--no-pipeline` side
+     by side and nothing else beside them, prints the same lines, with
+     each one's seeds/s, host syncs, dispatches, and the segments issued
+     (megakernel launches over 384) against those executed;
+     `cli_kernels` holds and times the megakernel at the replays' L = 1,
+     `check`'s 256 lanes and the small explore's 64, and the flush at 64
+     lanes. Beside the hunt runs the same hunt with
      `--provenance`, which must find the same seeds, print the fault
      attribution line, harvest a word for every find (the first four
      equal to one-lane replays on the card) and shrink its first find
@@ -293,12 +299,35 @@ last line):
      megakernel and flush, the machine's pop_gather). `bench_kernels`
      holds pop_gather against its twin at the machine's 8192 lanes of
      Q = 96 and times it there;
+ 18e. the repo-root bench scripts' port copies (`benches/*_torch.py`),
+     each a process of its own as a user runs it: after 18d, alone,
+     `rpc_bench_torch.py` on the host engine's native core and under
+     MADSIM_TPU_NO_NATIVE=1 (`rpc_bench`: the JAX script's six lines and
+     keys, every figure > 0, the core loaded or not, no CUDA context; the
+     figures are the host's, beside the card's name and power limit),
+     then `tpu_sweep_torch.py 32768 192`, the sweep grid's widest point
+     (`sweep`: its line on the card with the card's name and power limit,
+     at least 3 x 32768 seeds with coverage, its peak device memory, the
+     megakernel and the flush launched), then `sweep_kernels`, the
+     megakernel with the digest (Q = 96, W = 10) and the flush at 32768
+     lanes against their twins on a state of the sweep's engine, timed;
+     in the window, from a thread, `tpu_sweep_torch.py --mesh` at its own
+     defaults (`sweep_mesh`: 1,024 lanes, one NCCL rank and two gloo ranks
+     sharing the card, each point the 1-rank point's completed seeds and
+     coverage, the document marked `shared_card`, a history row a point,
+     in a temporary directory) and, in a process of its own,
+     `guided_compare_torch.py`'s raft coverage row (3 nodes, 3 faults,
+     2 s, 1,200 steps, 64 lanes, a budget of 256) through its own
+     run_unguided and run_guided on the card and in a niced --device cpu
+     process (`guided_compare`: every deterministic column equal on the
+     two devices, the script's raft verdict, guided strictly more slots);
  19. a `kernels` JSON line (with each kernel's launches on the perf path,
      `launches_perf`, on the fleet's card workers, `launches_fleet`, on
      the mesh path, `launches_mesh`, on the whole differential,
      `launches_differential`, in the examples, `launches_examples`, in
-     the service differentials, `launches_services`, and in the bench
-     command, `launches_bench`; pop_gather's `differential` and `bench`
+     the service differentials, `launches_services`, in the bench
+     command, `launches_bench`, and in the sweep's point, `launches_sweep`;
+     pop_gather's `differential` and `bench`
      hold its times at the differential's 256 lanes and the bench's 8192
      lanes of Q = 96, each pop kernel's `examples` and `services` its
      times at those paths' shapes); the last line is {"ok": true,
@@ -306,17 +335,21 @@ last line):
 
 From phase 4 on, the in-process CPU legs run on two intra-op threads.
 The work that times nothing runs at once, after phase 6's stream, with
-nothing timed beside it but phase 11's first two stages (`--only window`
+nothing timed beside it but phase 11's three stages (`--only window`
 runs it alone): phases 17, 18 and 18c from threads, phase 16's checks,
 phase 6's single-lane replays in the main process, phase 18b's host half
-from a thread, phase 11's first two stages from a thread once those
-replays are done (its hunt's seeds/s, warm-up and commands' seconds are
-taken beside this work, so they read lower than the same commands
-alone), and in eight
+from a thread, phase 11's first two stages and its explore pair from two
+threads once those replays are done (its hunt's and its explore pair's
+seeds/s, warm-up and commands' seconds are taken beside this work, so
+they read lower than the same commands alone), then in the main process
+the states the serial tail's kernel phases time on where they depend on
+nothing the tail runs (and, as each check group ends, those built from
+its results: `window_states`), and in nine
 processes of their own (niced) phase 4b, phase 6's card_vs_cpu_v2 and
 card_vs_cpu_multipaxos and the card-against-CPU checks of phases 7-9, 12
-and 13, phase 17b, phase 15's whole differential, phase 18's checks and
-phase 18b's device half (two processes);
+and 13, phase 17b, phase 15's whole differential, phase 18's checks,
+phase 18b's device half (two processes) and phase 18e's guided_compare;
+phase 18e's sweep_mesh from a thread;
 the states the timed phases need from those checks are rebuilt in the
 main process. The delay engine's megakernel at
 8192 lanes is timed after it (`delay_kernels`).
@@ -340,8 +373,12 @@ runs phase 11 alone, `--only prov` phases 11-13, `--only guided` phase
 phase 17b and `mesh_kernels`, `--only examples` phase 18 (the examples,
 their checks, then `examples_kernels`), `--only services` phase 18b (both
 halves, then `services_kernels`), `--only bench` phase 18d (`bench`,
-then `bench_kernels`), `--only window` the work that times nothing
-(short checks; they print no result line).
+then `bench_kernels`), `--only sweep` phase 18e with the sweep's whole
+default grid in place of its widest point (4096 to 32768 lanes by 192
+and 384 steps, each point a process of its own, one at a time), its
+kernels at 16384 and 32768 lanes, then sweep_mesh and guided_compare at
+once, `--only window` the work that times nothing (short checks; they
+print no result line).
 """
 
 import argparse
@@ -369,6 +406,11 @@ LANES, SEGMENT_STEPS = 8192, 384
 # 8192 lanes (the flagship stream keeps two), which keeps the smoke
 # inside its time limit
 HUNT_SEEDS = LANES
+# phases 7-9's hunts' finds, fixed by their seeds as phase 11's is
+# (CLI_FIRST_FIND): each tail hunt is held to them and replays them on the
+# card, while their replays on the CPU run in the window (hunt_replays_cpu)
+MVCC_FIRST, PALETTE_FIRST, TORN_FIRST = 8195, 8327, 8200
+PALETTE_OTHERS = ((8256, 102), (8301, 102), (8335, 102), (9748, 102))
 # phases 4 and 6: lanes and run_batch's step budget (flagship lanes run
 # it out); small enough that the script fits half its time limit
 CHECK_LANES, CHECK_STEPS = 256, 256
@@ -1211,9 +1253,7 @@ def delay_kernels(np, kernels, dev):
     """The delay engine's megakernel (v3, W = 18) at the hunt's width,
     8192 lanes 96 steps in: held against its twin and timed
     (`delay_kernels`)."""
-    card = delay_engine(3)
-    w = card._rng_layout.total_words
-    big = card.run_segment(card.init_batch(np.arange(LANES, dtype=np.uint32)), 96)
+    big, w = built("delay", lambda: delay_state(np))
     big_ins, big_d = step_kernel_ins(big)
     err = max_abs_err(flat_prefix(kernels.step_megakernel(*big_ins, w, *big_d)),
                       flat_prefix(kernels.step_prefix_plain(*big_ins, w, *big_d)))
@@ -1227,23 +1267,72 @@ def delay_kernels(np, kernels, dev):
         "bytes": nbytes, "ops": ops}})
 
 
-def stream_mvcc_phase(torch, np, kernels):
+def mvcc_hunt_engine(device=None):
+    """The give-up hunt's engine: demo-giveup-mvcc under delay spikes."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import build_machine
+
+    return Engine(build_machine("demo-giveup-mvcc"), EngineConfig(**MVCC_HUNT, faults=FaultPlan(**MVCC_HUNT_FAULTS)),
+                  device=device)
+
+
+def hunt_replays_cpu(torch, np, kernels):
+    """The CPU's side of phases 7-9's replays (a CHECK_GROUPS check: it
+    times nothing): MVCC_FIRST, PALETTE_FIRST and TORN_FIRST replayed on
+    their hunt's CPU engine (replay_doc: code, trace, final state), and
+    each of PALETTE_OTHERS replayed there to its code."""
+    from madsim_tpu_torch.engine.replay import replay
+
+    palette = palette_hunt_engine("cpu")
+    out = {name: replay_doc(replay(eng, seed)) for name, eng, seed in (
+        ("mvcc", mvcc_hunt_engine("cpu"), MVCC_FIRST), ("palette", palette, PALETTE_FIRST),
+        ("torn", torn_hunt_engine("cpu"), TORN_FIRST))}
+    out["palette_others"] = [[seed, replay(palette, seed, trace=False).fail_code] for seed, _ in PALETTE_OTHERS]
+    return out
+
+
+def replay_doc(rp):
+    """A replay's code, trace (each event's fields) and final state (each
+    leaf's dtype, shape and values by its path), as JSON gives them back."""
+    import dataclasses
+
+    from madsim_tpu_torch.interop import tree_to_numpy
+
+    leaves = {}
+
+    def walk(tree, path):
+        if isinstance(tree, (dict, tuple)):
+            for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+                walk(v, f"{path}.{k}")
+        else:
+            leaves[path] = [str(tree.dtype), list(tree.shape), tree.ravel().tolist()]
+
+    walk(tree_to_numpy(rp.state), "")
+    return json.loads(json.dumps({"fail_code": rp.fail_code, "trace": [dataclasses.astuple(e) for e in rp.trace],
+                                  "state": leaves}))
+
+
+def replay_diff(card, cpu):
+    """Where the card's replay differs from the CPU's replay_doc: the
+    code, the trace, each state leaf's path."""
+    card = replay_doc(card)
+    state = sorted(k for k in card["state"].keys() | cpu["state"].keys() if card["state"].get(k) != cpu["state"].get(k))
+    return [k for k in ("fail_code", "trace") if card[k] != cpu[k]] + state
+
+
+def stream_mvcc_phase(torch, np, kernels, cpu):
     """Phase 7's stream_mvcc: the give-up hunt at 8192 lanes, its first
-    ABANDONED_WRITE seed replayed on the card and the CPU. Returns the
-    hunt's launch counts and its batch state (8192 lanes, Q = 48, P = 5),
-    where pop + gather is timed."""
+    ABANDONED_WRITE seed (MVCC_FIRST) replayed on the card against `cpu`,
+    the CPU's replay (hunt_replays_cpu). Returns the hunt's launch counts
+    and its batch state (8192 lanes, Q = 48, P = 5), where pop + gather
+    is timed."""
     from collections import Counter
 
-    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
     from madsim_tpu_torch.engine.replay import replay
-    from madsim_tpu_torch.interop import tree_to_numpy
-    from madsim_tpu_torch.models import build_machine
     from madsim_tpu_torch.models.etcd_mvcc import ABANDONED_WRITE
 
     # stream_mvcc: the give-up hunt at full width, through the entry points
-    machine = build_machine("demo-giveup-mvcc")
-    cfg = EngineConfig(**MVCC_HUNT, faults=FaultPlan(**MVCC_HUNT_FAULTS))
-    eng = Engine(machine, cfg)
+    eng = mvcc_hunt_engine()
     state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 24)
     run = eng.make_stream_runner(batch=LANES, segment_steps=SEGMENT_STEPS, pipelined=False)
     # no warm stream run: the state run above warmed the batch's shapes
@@ -1259,19 +1348,17 @@ def stream_mvcc_phase(torch, np, kernels):
             fail(f"the mvcc hunt never launched {name}")
     by_code = Counter(code for _, code in res["failing"])
     first = next((seed for seed, code in res["failing"] if code == ABANDONED_WRITE), None)
-    if first is None or res["completed"] < HUNT_SEEDS:
-        fail(f"the mvcc hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: no "
-             f"ABANDONED_WRITE seed")
+    if first != MVCC_FIRST or res["completed"] < HUNT_SEEDS:
+        fail(f"the mvcc hunt completed {res['completed']} seeds, failing by code {dict(by_code)}, its first "
+             f"ABANDONED_WRITE seed {first}, not {MVCC_FIRST}")
     t1 = time.perf_counter()
     before = kernels.launches["pop_earliest"]
-    on_card = replay(Engine(machine, cfg), first)
+    on_card = replay(mvcc_hunt_engine(), first)
     t_replay = time.perf_counter() - t1
     pops = kernels.launches["pop_earliest"] - before
-    on_cpu = replay(Engine(machine, cfg, device="cpu"), first)
-    bad = tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))
-    if on_card.fail_code != ABANDONED_WRITE or on_card.trace != on_cpu.trace or bad:
-        fail(f"mvcc seed {first}: the card replay gave {on_card.fail_code} and differs from the CPU's in "
-             f"{bad[:8] or 'the trace'}")
+    bad = replay_diff(on_card, cpu)
+    if on_card.fail_code != ABANDONED_WRITE or bad:
+        fail(f"mvcc seed {first}: the card replay gave {on_card.fail_code} and differs from the CPU's in {bad[:8]}")
     segments = res["stats"]["device_segments"]
     emit({"phase": "stream_mvcc", "completed": res["completed"], "failing_by_code": dict(by_code),
           "n_infra": len(res["infra"]), "n_abandoned": len(res["abandoned"]), "seconds": round(elapsed, 3),
@@ -1501,15 +1588,17 @@ def palette_states_of(np, info):
             "dupvote_replay": d_eng.run_segment(d_eng.init_batch(DUPVOTE_SEEDS[:1]), info["dupvote_events"] // 2)}
 
 
-def stream_palette_phase(torch, np, kernels, states):
+def stream_palette_phase(torch, np, kernels, states, cpu):
     """Phase 8's stream_palette: the dup-vote hunt at 8192 lanes, its first
-    ELECTION_SAFETY seed replayed on the card and the CPU. Adds to
-    `states` the hunt replay's lane (v3, Q = 96), where the pops are
-    timed; returns the hunt's launch counts."""
+    ELECTION_SAFETY seed (PALETTE_FIRST) replayed on the card against
+    `cpu`, the CPU's replays (hunt_replays_cpu: that seed's and those of
+    PALETTE_OTHERS, the hunt's first four seeds failing with another
+    code, to their codes). Adds to `states` the hunt replay's lane (v3,
+    Q = 96), where the pops are timed; returns the hunt's launch
+    counts."""
     from collections import Counter
 
     from madsim_tpu_torch.engine.replay import replay
-    from madsim_tpu_torch.interop import tree_to_numpy
     from madsim_tpu_torch.models.raft import ELECTION_SAFETY
 
     # stream_palette: the dup-vote hunt at full width, through the entry points
@@ -1530,28 +1619,25 @@ def stream_palette_phase(torch, np, kernels, states):
             fail(f"the palette hunt never launched {name}")
     by_code = Counter(code for _, code in res["failing"])
     first = next((seed for seed, code in res["failing"] if code == ELECTION_SAFETY), None)
-    if first is None or res["completed"] < HUNT_SEEDS:
-        fail(f"the palette hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: no "
-             f"ELECTION_SAFETY seed")
+    if first != PALETTE_FIRST or res["completed"] < HUNT_SEEDS:
+        fail(f"the palette hunt completed {res['completed']} seeds, failing by code {dict(by_code)}, its first "
+             f"ELECTION_SAFETY seed {first}, not {PALETTE_FIRST}")
     t1 = time.perf_counter()
     before = dict(kernels.launches)
     on_card = replay(eng, first)
     t_replay = time.perf_counter() - t1
     pops = kernels.launches["pop_earliest"] - before["pop_earliest"]
     replay_steps = kernels.launches["step_megakernel"] - before["step_megakernel"]
-    cpu_eng = palette_hunt_engine("cpu")
-    on_cpu = replay(cpu_eng, first)
-    bad = tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))
-    if on_card.fail_code != ELECTION_SAFETY or on_card.trace != on_cpu.trace or bad:
+    bad = replay_diff(on_card, cpu["palette"])
+    if on_card.fail_code != ELECTION_SAFETY or bad:
         fail(f"palette hunt seed {first}: the card replay gave {on_card.fail_code} and differs from the CPU's in "
-             f"{bad[:8] or 'the trace'}")
+             f"{bad[:8]}")
     # seeds failing with another code are findings: each replays on the CPU
     # with the code the card gave
     others = [(seed, code) for seed, code in res["failing"] if code != ELECTION_SAFETY][:4]
-    for seed, code in others:
-        got = replay(cpu_eng, seed, trace=False)
-        if got.fail_code != code:
-            fail(f"palette hunt seed {seed} failed {code} on the card and {got.fail_code} on the CPU")
+    if others != list(PALETTE_OTHERS) or [list(o) for o in others] != cpu["palette_others"]:
+        fail(f"palette hunt: the card's first other finds {others}, PALETTE_OTHERS {list(PALETTE_OTHERS)}, "
+             f"their codes on the CPU {cpu['palette_others']}")
     segments = res["stats"]["device_segments"]
     fr = res["stats"]["flight_recorder"]
     emit({"phase": "stream_palette", "completed": res["completed"], "failing_by_code": dict(by_code),
@@ -1649,16 +1735,16 @@ def soak_state_of(np):
     return card.run_segment(card.init_batch(np.arange(STORAGE_LANES, dtype=np.uint32) + 60_000), 96)
 
 
-def stream_torn_phase(torch, np, kernels, found):
+def stream_torn_phase(torch, np, kernels, found, cpu):
     """Phase 9's stream_torn: the torn-snapshot hunt at 8192 lanes, its
-    first seed replayed on the card and the CPU. Adds to `found` the
+    first seed (TORN_FIRST) replayed on the card against `cpu`, the
+    CPU's replay (hunt_replays_cpu). Adds to `found` the
     states and launch counts the new kernel shapes are timed at: the
     hunt's batch (8192 lanes, Q = 64, W = 11) with its buffers a flush
     period in and the hunt replay's lane (Q = 64)."""
     from collections import Counter
 
     from madsim_tpu_torch.engine.replay import replay
-    from madsim_tpu_torch.interop import tree_to_numpy
     from madsim_tpu_torch.models.raft import LOG_MATCHING
 
     # stream_torn: the torn-snapshot hunt at full width, through the entry points
@@ -1677,20 +1763,19 @@ def stream_torn_phase(torch, np, kernels, found):
         if launches[name] <= 0:
             fail(f"the torn hunt never launched {name}")
     by_code = Counter(code for _, code in res["failing"])
-    if set(by_code) != {LOG_MATCHING} or res["completed"] < HUNT_SEEDS:
+    first = res["failing"][0][0] if res["failing"] else None
+    if set(by_code) != {LOG_MATCHING} or res["completed"] < HUNT_SEEDS or first != TORN_FIRST:
         fail(f"the torn hunt completed {res['completed']} seeds, failing by code {dict(by_code)}: not "
-             f"LOG_MATCHING alone")
-    first = res["failing"][0][0]
+             f"LOG_MATCHING alone, or its first seed {first}, not {TORN_FIRST}")
     t1 = time.perf_counter()
     before = dict(kernels.launches)
     on_card = replay(eng, first)
     t_replay = time.perf_counter() - t1
     replay_launches = {k: kernels.launches[k] - before[k] for k in ("pop_earliest", "step_megakernel")}
-    on_cpu = replay(torn_hunt_engine("cpu"), first)
-    bad = tree_diff(tree_to_numpy(on_card.state), tree_to_numpy(on_cpu.state))
-    if on_card.fail_code != LOG_MATCHING or on_cpu.fail_code != LOG_MATCHING or on_card.trace != on_cpu.trace or bad:
-        fail(f"torn hunt seed {first}: the card replay gave {on_card.fail_code}, the CPU's {on_cpu.fail_code}, "
-             f"differing in {bad[:8] or 'the trace'}")
+    bad = replay_diff(on_card, cpu)
+    if on_card.fail_code != LOG_MATCHING or cpu["fail_code"] != LOG_MATCHING or bad:
+        fail(f"torn hunt seed {first}: the card replay gave {on_card.fail_code}, the CPU's {cpu['fail_code']}, "
+             f"differing in {bad[:8]}")
     segments = res["stats"]["device_segments"]
     fr = res["stats"]["flight_recorder"]
     emit({"phase": "stream_torn", "completed": res["completed"], "failing_by_code": dict(by_code),
@@ -1725,29 +1810,20 @@ def trace_keys(events):
     return [(e.step, e.time_us, e.kind, e.node, e.src, e.payload) for e in events]
 
 
-def triage_phase(torch, np, kernels, eng):
+def triage_phase(torch, np, kernels, eng, checks, states):
     """Phase 10: what a user does with a found bug, on the card. The hunt
     (make_runner at 8192 lanes, TRIAGE_STEPS events, with 8 steps profiled
-    with the ring on and off), the post-mortem (the first failing lanes'
-    rings against the tails of their replays on the card, those replays
-    against the CPU's), the shrink of the first failing seed on the card
-    and on the CPU, the shrunk entry recorded on the card, added to a
-    corpus file and checked and audited on the CPU (and one recorded on
-    the CPU audited on the card), and the exports of the card's and the
-    CPU's traces, byte for byte. Returns what `triage_kernels` and
-    `pop_kernels` time: the hunt's state and launches, a replay's state
-    and the post-mortem's launches."""
+    with the ring on and off), then `checks`, what the window's triage
+    check group (triage_checks) gave for a hunt of the same lanes, and
+    `states`, what triage_states_of built from it. One `triage` line.
+    Returns what `triage_kernels` and `pop_kernels` time: the hunt's
+    state and launches, a replay's state and the post-mortem's launches."""
     import dataclasses
-    import tempfile
     from collections import Counter
 
-    from madsim_tpu_torch.engine import Engine, audit, corpus, trace_export
-    from madsim_tpu_torch.engine.replay import replay
-    from madsim_tpu_torch.engine.shrink import shrink
-    from madsim_tpu_torch.models import build_machine
+    from madsim_tpu_torch.engine import Engine
     from madsim_tpu_torch.models.etcd import LEASE_SAFETY
 
-    cpu = triage_engine("cpu")
     seeds = np.arange(LANES, dtype=np.uint32)
 
     # 1. the hunt, through the entry points: make_runner, failing_seeds
@@ -1778,6 +1854,40 @@ def triage_phase(torch, np, kernels, eng):
     hunt = {"lanes": LANES, "max_steps": TRIAGE_STEPS, "seconds": round(elapsed, 3),
             "ms_per_step": round(elapsed * 1e3 / TRIAGE_STEPS, 3), "n_failing": len(failing),
             "failing_by_code": dict(by_code), "ring_bytes": ring_bytes, "launches": hunt_launches, **profiles}
+    if checks["seeds"] != res.seeds.tolist() or checks["failed"] != res.failed.tolist():
+        fail("the triage hunt's lanes differ from those of the same hunt the window checked")
+    emit({"phase": "triage", "hunt": hunt, **checks["line"]})
+    for _ in range(eng._cov_flush_every):
+        state = eng.step_batch(state)  # a flush period of entries in the buffers
+    return {"hunt_state": state, "hunt_launches": hunt_launches, "words": eng._rng_layout.total_words, **states}
+
+
+def triage_checks(torch, np, kernels):
+    """Phase 10's checks (in CHECK_GROUPS' tail_replays: a process of its
+    own in the window, so that its launch counts are its own), on an untimed
+    triage hunt of the lanes the tail's timed hunt runs (triage_phase
+    holds the two equal): the post-mortem (the first failing lanes'
+    rings against the tails of their replays on the card, those replays
+    against the CPU's), the shrink of the first failing seed on the card
+    and on the CPU, the shrunk entry recorded on the card, added to a
+    corpus file and checked and audited on the CPU (and one recorded on
+    the CPU audited on the card), and the exports of the card's and the
+    CPU's traces, byte for byte. Returns the `triage` line's fields but
+    the hunt's, the post-mortem's and the corpus replays' launches, what
+    triage_states_of builds the kernel phases' states from (the first
+    failing seed and its whole shrunk config) and the hunt's seeds and
+    failed lanes."""
+    import dataclasses
+    import tempfile
+
+    from madsim_tpu_torch.engine import audit, corpus, trace_export
+    from madsim_tpu_torch.engine.replay import replay
+    from madsim_tpu_torch.engine.shrink import shrink
+    from madsim_tpu_torch.models import build_machine
+    from madsim_tpu_torch.models.etcd import LEASE_SAFETY
+
+    eng, cpu = triage_engine(), triage_engine("cpu")
+    res = eng.make_runner(max_steps=TRIAGE_STEPS)(np.arange(LANES, dtype=np.uint32))
 
     # 2. the post-mortem: the first failing lanes' rings are the tails of
     #    their replays on the card, and those replays are the CPU's
@@ -1865,18 +1975,29 @@ def triage_phase(torch, np, kernels, eng):
             if blobs[0] != blobs[1]:
                 fail(f"the {name} export of seed {seed}'s card trace differs from the CPU's")
             sizes[name] = len(blobs[0])
-    emit({"phase": "triage", "hunt": hunt, "postmortem": postmortem, "shrink": shrunk, "corpus": corpus_line,
-          "export": {"seed": seed, "bytes": sizes, "equal": True}})
-    for _ in range(eng._cov_flush_every):
-        state = eng.step_batch(state)  # a flush period of entries in the buffers
-    shrunk_eng = Engine(eng.machine, dataclasses.replace(sr.shrunk, trace_ring=0, flight_recorder=True,
-                                                         fr_digest_every=TRIAGE_DIGEST_EVERY))
-    return {"hunt_state": state, "hunt_launches": hunt_launches, "words": eng._rng_layout.total_words,
-            "replay_state": eng.run_segment(eng.init_batch([seed]), TRIAGE_STATE_STEPS),
-            "replay_launches": postmortem_launches,
-            # the corpus replays' shape: the shrunk config's lane, the recorder on
+    return {"line": {"postmortem": postmortem, "shrink": shrunk, "corpus": corpus_line,
+                     "export": {"seed": seed, "bytes": sizes, "equal": True}},
+            "replay_launches": postmortem_launches, "entry_launches": corpus_launches, "seed": seed,
+            "shrunk": dataclasses.asdict(sr.shrunk), "seeds": res.seeds.tolist(), "failed": res.failed.tolist()}
+
+
+def triage_states_of(np, info):
+    """The states triage_kernels and pop_kernels time on, from the triage
+    check group's results `info`: the first failing seed's lane
+    TRIAGE_STATE_STEPS in, and the corpus replays' shape (that seed's
+    lane under its shrunk config, the recorder on); with the group's
+    launches."""
+    import dataclasses
+
+    from madsim_tpu_torch.engine import Engine, corpus
+
+    eng, seed = triage_engine(), info["seed"]
+    shrunk_eng = Engine(eng.machine, dataclasses.replace(corpus.config_from_dict(info["shrunk"]), trace_ring=0,
+                                                         flight_recorder=True, fr_digest_every=TRIAGE_DIGEST_EVERY))
+    return {"replay_state": eng.run_segment(eng.init_batch([seed]), TRIAGE_STATE_STEPS),
+            "replay_launches": info["replay_launches"],
             "entry_state": shrunk_eng.run_segment(shrunk_eng.init_batch([seed]), TRIAGE_STATE_STEPS),
-            "entry_words": shrunk_eng._rng_layout.total_words, "entry_launches": corpus_launches}
+            "entry_words": shrunk_eng._rng_layout.total_words, "entry_launches": info["entry_launches"]}
 
 
 def triage_kernels(kernels, dev, found, model_states):
@@ -2254,8 +2375,8 @@ def cli_rates(err):
 
 def cli_stages(torch, np):
     """Phase 11's first two stages, which the full run drives from a
-    thread in the window once its single-lane replays are done (their
-    timings are taken beside other work either way). (1) A full-width
+    thread in the window from its start (their timings are taken beside
+    other work either way; they launch nothing in this process). (1) A full-width
     `hunt --stream` (one batch of 8192 lanes, rng_stream 3) finds,
     shrinks and records, while the commands that need nothing of it or
     only its first find (CLI_FIRST_FIND, checked against it) run beside
@@ -2355,8 +2476,8 @@ def cli_stages(torch, np):
             replay = cpu_eng.run_batch(np.array([s for s, _ in failing[:4]], dtype=np.uint32), 3000)
             torch.set_num_threads(threads)
             # and the provenance hunt's words of its first finds against
-            # one-lane replays on the card
-            prov["replays"] = cli_prov_replays(prov["words"], failing[:PROV_REPLAYS])
+            # one-lane replays on the card, in a process of their own
+            prov["replays"] = cli_prov_replays_process(tmp, prov["words"], failing[:PROV_REPLAYS])
             res.update(jobs.result())
         stage2_s = round(time.perf_counter() - t0, 3)
         codes = [int(c) if f else 0 for f, c in zip(replay.failed.tolist(), replay.fail_code.tolist())]
@@ -2407,16 +2528,25 @@ def cli_stages(torch, np):
 def cli_phase(torch, np, stages=None):
     """Phase 11: the command line as a user runs it, in subprocesses on
     the card (`cli` line): `stages`, the first two stages' fields
-    (cli_stages, run here unless the window ran them), then (3) `explore
-    --stream` of the flagship at one batch of 8192 lanes, lanes cut at
-    1,152 events, pipelined and with `--no-pipeline`, the two at once and
-    nothing else beside them, so both see the same host: the same lines,
-    and each one's seeds/s, host syncs and steps issued."""
+    (cli_stages, run here unless the window ran them), then the third
+    (cli_explore_pair), here with nothing beside it."""
+    if stages is None:
+        stages = cli_stages(torch, np)
+    explore, stage3_s = cli_explore_pair()
+    out = {**stages, "stage_s": [*stages["stage_s"], stage3_s], "explore": explore}
+    emit({"phase": "cli", **{k: v for k, v in out.items() if k not in ("provenance", "launches")}})
+    return out
+
+
+def cli_explore_pair():
+    """Phase 11's third stage: `explore --stream` of the flagship at one
+    batch of 8192 lanes, lanes cut at 1,152 events, pipelined and with
+    `--no-pipeline`, the two at once and nothing else beside them, so
+    both see the same host: the same lines, and each one's seeds/s, host
+    syncs and steps issued. Returns ({name: fields}, the stage's seconds)."""
     import re
     import tempfile
 
-    if stages is None:
-        stages = cli_stages(torch, np)
     with tempfile.TemporaryDirectory(prefix="madsim_cli_") as tmp:
         # 3. pipelined against per-segment, the two at once
         t0 = time.perf_counter()
@@ -2444,9 +2574,7 @@ def cli_phase(torch, np, stages=None):
             explore[name]["segments_issued"] = round(explore[name]["steps_issued"] / 384, 3)
             if explore[name]["segments_issued"] < sum(explore[name]["device_segments"]):
                 fail(f"cli explore {name}: fewer segments issued than executed: {explore[name]}")
-    out = {**stages, "stage_s": [*stages["stage_s"], stage3_s], "explore": explore}
-    emit({"phase": "cli", **{k: v for k, v in out.items() if k not in ("provenance", "launches")}})
-    return out
+    return explore, stage3_s
 
 
 def cli_provenance_hunt(hunt, hunt_prov, files, failing):
@@ -2477,6 +2605,38 @@ def cli_provenance_hunt(hunt, hunt_prov, files, failing):
     return {"seeds": int(m_prov.group(1)), "failing": int(m_prov.group(2)), "attribution": att.group(1),
             "guided_attempts": int(guided.group(1)), "guided_by": guided.group(2), "same_finds": True,
             "same_shrunk_config": True, "words": {int(k): v for k, v in ckpt["prov"].items()}}
+
+
+# runs cli_prov_replays(words, finds) from the JSON file argv[2] and writes
+# its result to argv[3]
+CLI_PROV_REPLAYS = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import torch\n"
+    "torch.set_num_threads(2)\n"
+    "import chip_smoke\n"
+    "words, finds = json.load(open(sys.argv[2]))\n"
+    "res = chip_smoke.cli_prov_replays({int(k): v for k, v in words.items()}, [tuple(f) for f in finds])\n"
+    "json.dump(res, open(sys.argv[3], 'w'))\n"
+)
+
+
+def cli_prov_replays_process(tmp, words, finds):
+    """cli_prov_replays in a process of its own, so that phase 11 launches
+    no kernel in the smoke's process (the window counts launches there
+    while it runs); fails with that process's failure."""
+    import os
+
+    args, out = pathlib.Path(tmp) / "prov_replays_in.json", pathlib.Path(tmp) / "prov_replays.json"
+    args.write_text(json.dumps([{str(k): v for k, v in words.items()}, [list(f) for f in finds]]))
+    proc = subprocess.Popen([sys.executable, "-c", CLI_PROV_REPLAYS, str(pathlib.Path(__file__).resolve().parent),
+                             str(args), str(out)], env=dict(os.environ, OMP_NUM_THREADS="2"),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _track(proc)
+    _, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"cli hunt --provenance: the one-lane replays exited {proc.returncode}:\n{err[-3000:]}")
+    return json.loads(out.read_text())
 
 
 def cli_prov_replays(words, finds):
@@ -2522,20 +2682,11 @@ def cli_kernels(kernels, np, dev, cli):
     line): the megakernel at the found seed's single-lane replays (L = 1,
     Q = 32; `shrink`'s launches), at `check`'s 256 lanes and at the small
     explore's 64 lanes; the flush on the small explore's buffers."""
-    from madsim_tpu_torch.__main__ import _build_engine, _parser
-
-    def state_of(argv, lanes, seed0=0):
-        eng = _build_engine(_parser().parse_args(argv))
-        state = eng.run_segment(eng.init_batch(np.arange(seed0, seed0 + lanes, dtype=np.uint32)), 64)
-        for _ in range(eng._cov_flush_every):  # coverage buffers a flush period in
-            state = eng.step_batch(state)
-        return state, eng._rng_layout.total_words
-
     seed = cli["hunt"]["first_finds"][0][0]
     hunt_argv = ["explore", *CLI_HUNT]
-    replay_state, words = state_of(hunt_argv, 1, seed)
-    check_state, _ = state_of(hunt_argv, 256)
-    small_state, small_words = state_of(CLI_SMALL, 64)
+    replay_state, words = command_state(np, hunt_argv, 1, seed)
+    check_state, _ = built("cli_check", lambda: command_state(np, hunt_argv, 256))
+    small_state, small_words = built("cli_small", lambda: command_state(np, CLI_SMALL, 64))
     launches = cli["launches"]
     time_kernel_shapes(kernels, dev, "cli_kernels", (
         (f"step_megakernel_L1_Q32_W{words}", replay_state, words, launches["shrink"].get("step_megakernel", 0)),
@@ -3209,12 +3360,7 @@ def guided_phase(torch, np, kernels, dev, diff_whole):
                                 GUIDED_STATE_STEPS)
         n = sum(b["launches"].get("step_megakernel", 0) for b in small["small_card"]["batches"] if b["words"] == words)
         steps.append((f"step_megakernel_guided_L{GUIDED_SMALL_LANES}_Q32_W{words}", state, words, n))
-    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
-    from madsim_tpu_torch.models import RaftMachine
-
-    d_eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), EngineConfig(**DIFF, faults=FaultPlan(**DIFF_FAULTS)))
-    d_state = d_eng.run_segment(d_eng.init_batch(np.arange(DIFF_LANES, dtype=np.uint32)), DIFF_STATE_STEPS)
-    w_state = d_eng.run_segment(d_eng.init_batch(np.arange(DIFF_WHOLE_LANES, dtype=np.uint32)), DIFF_STATE_STEPS)
+    d_state, w_state = built("diff", lambda: diff_states(np))
     return time_kernel_shapes(kernels, dev, "guided_kernels", steps, flushes, pops=(
         (f"pop_gather_differential_L{DIFF_LANES}_Q{DIFF['queue_capacity']}", d_state, diff_launches["pop_gather"]),
         (f"pop_gather_differential_L{DIFF_WHOLE_LANES}_Q{DIFF['queue_capacity']}", w_state,
@@ -3502,18 +3648,9 @@ def perf_kernels(kernels, np, dev, perf):
     flush from both gates' engines, pop_gather from rng-stream's v2
     engine) and `prof --merge`'s single-lane replay (the megakernel with
     the digest at L = 1)."""
-    from madsim_tpu_torch.__main__ import _build_engine, _parser
-
-    def state_of(args, lanes, seed0=0):
-        eng = _build_engine(_parser().parse_args(["explore", *args]))
-        state = eng.run_segment(eng.init_batch(np.arange(seed0, seed0 + lanes, dtype=np.uint32)), 64)
-        for _ in range(eng._cov_flush_every):  # coverage buffers a flush period in
-            state = eng.step_batch(state)
-        return state, eng._rng_layout.total_words
-
-    ab_state, words = state_of(PERF_ARGS, AB_LANES)
-    ab_v2, _ = state_of(PERF_ARGS_V2, AB_LANES)
-    replay_state, _ = state_of(PERF_ARGS, 1, PROF_TRACE_SEED)
+    ab_state, words = built("perf_ab", lambda: command_state(np, ["explore", *PERF_ARGS], AB_LANES))
+    ab_v2, _ = built("perf_ab_v2", lambda: command_state(np, ["explore", *PERF_ARGS_V2], AB_LANES))
+    replay_state, _ = built("perf_replay", lambda: command_state(np, ["explore", *PERF_ARGS], 1, PROF_TRACE_SEED))
     cov, rng = perf["ab_cov"], perf["ab_rng"]
     time_kernel_shapes(kernels, dev, "perf_kernels", (
         (f"step_megakernel_L{AB_LANES}_Q32_W{words}", ab_state, words,
@@ -3843,13 +3980,7 @@ def fleet_kernels(np, kernels, dev, w3_launches):
     """The handover job's shapes, held against their twins and timed on a
     state of its engine (`fleet_kernels` line): pop_gather and the flush
     at its 64 lanes of Q = 32, with the card unit's launches."""
-    from madsim_tpu_torch.__main__ import _build_engine
-    from madsim_tpu_torch.fleet.store import normalize_spec, spec_to_args
-
-    eng = _build_engine(spec_to_args(normalize_spec(FLEET_GUIDED)))
-    state = eng.run_segment(eng.init_batch(np.arange(FLEET_GUIDED["batch"], dtype=np.uint32)), 64)
-    for _ in range(eng._cov_flush_every):
-        state = eng.step_batch(state)
+    state = built("fleet", lambda: fleet_state(np))
     time_kernel_shapes(kernels, dev, "fleet_kernels", (),
                        ((f"cov_flush_L{FLEET_GUIDED['batch']}", state.cov, w3_launches.get("cov_flush", 0)),),
                        pops=((f"pop_gather_L{FLEET_GUIDED['batch']}_Q{FLEET_GUIDED['queue']}", state,
@@ -4047,14 +4178,10 @@ def mesh_kernels(np, kernels, dev, launches_mesh):
     (`mesh_kernels` line): the megakernel and the flush at a rank's 4096
     lanes of the flagship (Q = 32, W = 10), on a state of rank 0's first
     seeds a flush period past 96 steps, with the mesh path's launches."""
-    eng = flagship_engine()
     lanes = LANES // MESH_RANKS
-    state = eng.run_segment(eng.init_batch(np.arange(LANES, LANES + lanes, dtype=np.uint32)), 96)
-    for _ in range(eng._cov_flush_every):
-        state = eng.step_batch(state)
+    state, words = built("mesh", lambda: mesh_state(np))
     time_kernel_shapes(kernels, dev, "mesh_kernels",
-                       ((f"step_megakernel_L{lanes}", state, eng._rng_layout.total_words,
-                         launches_mesh.get("step_megakernel", 0)),),
+                       ((f"step_megakernel_L{lanes}", state, words, launches_mesh.get("step_megakernel", 0)),),
                        ((f"cov_flush_L{lanes}", state.cov, launches_mesh.get("cov_flush", 0)),))
 
 
@@ -4374,7 +4501,7 @@ def examples_kernels(np, kernels, dev, examples):
     Q = 48 and at its replays' and shrink's L = 1, Q = 48; pop_earliest at
     bug_hunt's traced replays' L = 1, Q = 96; each with the launches the
     examples' processes counted for its shape."""
-    states = example_states(np, example_modules())
+    states = built("examples", lambda: example_states(np, example_modules()))
     bug, delay = (examples[s]["by_shape"].get("pop_gather", {}) for s in EXAMPLES)
     bug_earliest = examples[EXAMPLES[0]]["launches"]["pop_earliest"]
     return time_kernel_shapes(kernels, dev, "examples_kernels", (), (), pops=(
@@ -4745,14 +4872,7 @@ def services_kernels(np, kernels, dev, services):
     the replays' L = 1 of Q = 48 and 96; pop_earliest at the replays'
     L = 1 of Q = 48 and 96; each with the launches the services process
     counted for its shape."""
-    seeds = np.arange(SVC_LANES, dtype=np.uint32)
-    states = {}
-    for name in ("etcd_nodedup", "kafka_nofencing", "s3_arrival"):
-        eng = service_engine(name)
-        states[name] = eng.run_segment(eng.init_batch(seeds), SVC_STATE_STEPS)
-    for key, name, seed in (("L1_Q48", "etcd_chaos", 16), ("L1_Q96", "kafka_kill", 0)):
-        eng = service_engine(name)
-        states[key] = eng.run_segment(eng.init_batch([seed]), SVC_STATE_STEPS)
+    states = built("services", lambda: service_states(np))
     gather, earliest = (services["by_shape"].get(k, {}) for k in ("pop_gather", "pop_earliest"))
     big = [(f"pop_gather_L{SVC_LANES}_Q{SVC_PLANS[name][0]['queue_capacity']}_{name.split('_')[0]}", states[name])
            for name in ("etcd_nodedup", "kafka_nofencing", "s3_arrival")]
@@ -4796,9 +4916,10 @@ def bench_phase():
     import os
     import tempfile
 
+    from madsim_tpu_torch.perf.history import card as card_of
+
     repo = pathlib.Path(__file__).resolve().parent
-    card_name, _, card_limit = card_line().rpartition(",")
-    card = {"name": card_name.strip(), "power_limit": card_limit.strip()}
+    card = card_of()
     with tempfile.TemporaryDirectory(prefix="madsim_bench_") as tmp:
         hist = str(pathlib.Path(tmp) / "bench_history.jsonl")
         runs = {name: run_cli(tmp, f"bench_{name}", [*argv, "--reps", "1", "--history", hist], 0)
@@ -4857,13 +4978,278 @@ def bench_kernels(np, kernels, dev, bench):
     """The shape phase 18d first launches, held against its twin and
     timed on a state of the engine the command builds (`bench_kernels`
     line): pop_gather at the machine bench's 8192 lanes of Q = 96."""
-    from madsim_tpu_torch.__main__ import _build_engine, _parser
-
-    eng = _build_engine(_parser().parse_args(["bench", *BENCH_MACHINE]))
-    state = eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), BENCH_STATE_STEPS)
-    q = eng.config.queue_capacity
+    state = built("bench", lambda: bench_state(np))
+    q = state.eq_time.shape[1]
     return time_kernel_shapes(kernels, dev, "bench_kernels", (), (), pops=(
         (f"pop_gather_L{LANES}_Q{q}", state, bench["machine"].get("pop_gather", 0)),))
+
+
+# phase 18e, the repo-root bench scripts' port copies (benches/*_torch.py),
+# each a process of its own as a user runs it: rpc_bench_torch.py native
+# and pure (the host engine: no device), tpu_sweep_torch.py at the sweep
+# grid's widest point (SWEEP_POINT, alone on the serial tail; the whole
+# grid under `--only sweep`) and its --mesh form at its own defaults (in
+# the window), and guided_compare_torch.py's raft coverage row through
+# its own run_unguided / run_guided (in the window, on the card and in a
+# niced --device cpu process), at the script's shapes with the budget cut
+# to 4 batches a mode
+SWEEP_POINT = (32768, 192)
+SWEEP_STATE_STEPS = 96  # the sweep's states its kernels are timed on: this far in (lanes live)
+SWEEP_KERNEL_LANES = (16384, 32768)  # the grid's widths no other phase reaches
+RPC_KEYS = ["empty_rpc_us", "throughput_16B_MBps", "throughput_256B_MBps", "throughput_4KiB_MBps",
+            "throughput_64KiB_MBps", "throughput_1MiB_MBps"]
+GUIDED_COMPARE_ROW = ("raft", 3, 3, 2.0, 1200, "pair,kill", 256, 64, 0, False, 1)
+# runs a script as `python <script> args...` does, then writes to the path
+# given first the wrappers' launch counts of that process, whether it made
+# a CUDA context (and its peak device memory) and whether the host
+# engine's native core was loaded
+SCRIPT_LAUNCHER = (
+    "import atexit, json, runpy, sys\n"
+    "out = sys.argv.pop(1)\n"
+    "def counts():\n"
+    "    kernels = sys.modules.get('madsim_tpu_torch.ops.kernels')\n"
+    "    native = sys.modules.get('madsim_tpu_torch._native')\n"
+    "    torch = sys.modules.get('torch')\n"
+    "    cuda = bool(torch and torch.cuda.is_initialized())\n"
+    "    json.dump({'launches': dict(kernels.launches) if kernels else {},\n"
+    "               'native': bool(native and native.available()), 'cuda': cuda,\n"
+    "               'peak_bytes': torch.cuda.max_memory_allocated() if cuda else 0}, open(out, 'w'))\n"
+    "atexit.register(counts)\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+)
+# guided_compare's row on the CPU, niced, in a process of its own: the
+# deterministic columns as JSON
+GUIDED_COMPARE_CPU = (
+    "import json, os, sys\n"
+    "os.nice(5)\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import torch\n"
+    "torch.set_num_threads(2)\n"
+    "import chip_smoke\n"
+    "import time\n"
+    "row = chip_smoke.guided_compare_row('cpu')\n"
+    "json.dump({**row, 'end_wall': time.time()}, open(sys.argv[2], 'w'))\n"
+)
+
+
+def bench_script(name):
+    """A port copy under benches/ as a module, by path (its main() not run)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "benches" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_script(tmp, name, script, args=(), extra_env=None, timeout=900, nice=0):
+    """`python benches/<script> args...` in `tmp` through SCRIPT_LAUNCHER
+    (niced by `nice`, its children with it): {"rc", "out", "err", "s",
+    "launches", "native", "cuda", "peak_bytes"}."""
+    import os
+
+    repo = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo), **(extra_env or {}))
+    t = pathlib.Path(tmp)
+    t0 = time.perf_counter()
+    with open(t / f"{name}.out", "w") as out, open(t / f"{name}.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", SCRIPT_LAUNCHER, str(t / f"{name}.json"),
+                                 str(repo / "benches" / script), *args], cwd=tmp, env=env, stdout=out, stderr=err,
+                                preexec_fn=(lambda: os.nice(nice)) if nice else None)
+    _track(proc)
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    s = round(time.perf_counter() - t0, 3)
+    counts = t / f"{name}.json"
+    res = {"rc": proc.returncode, "out": (t / f"{name}.out").read_text(), "err": (t / f"{name}.err").read_text(),
+           "s": s, **(json.loads(counts.read_text()) if counts.exists() else
+                      {"launches": {}, "native": None, "cuda": None, "peak_bytes": 0})}
+    if proc.returncode != 0:
+        fail(f"{script} {' '.join(args)} exited {proc.returncode}:\n{res['out'][-3000:]}\n{res['err'][-3000:]}")
+    return res
+
+
+def rpc_bench_phase():
+    """Phase 18e's rpc leg: benches/rpc_bench_torch.py, native and under
+    MADSIM_TPU_NO_NATIVE=1, one process each and nothing beside them
+    (`rpc_bench` line: each run's JSON, its seconds, which path ran).
+    Fails unless each prints the JAX script's six lines and keys with
+    every figure > 0, the native run loaded the core, the pure run did
+    not, and neither made a CUDA context (the host engine runs no
+    kernel: the figures are the host's)."""
+    import tempfile
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="madsim_rpc_") as tmp:
+        for path, env in (("native", {}), ("pure", {"MADSIM_TPU_NO_NATIVE": "1"})):
+            r = run_script(tmp, f"rpc_{path}", "rpc_bench_torch.py", extra_env=env, timeout=600)
+            lines = r["out"].strip().splitlines()
+            doc = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+            if len(lines) != 7 or list(doc) != RPC_KEYS or not all(v > 0 for v in doc.values()) or \
+                    r["native"] != (path == "native") or r["cuda"]:
+                fail(f"rpc_bench_torch.py ({path}): native {r['native']}, CUDA context {r['cuda']}:\n{r['out']}\n"
+                     f"{r['err'][-3000:]}")
+            runs[path] = {**doc, "s": r["s"], "native": r["native"], "cuda_context": r["cuda"]}
+    emit({"phase": "rpc_bench", "card": card_line(), "note": "host figures: the host engine runs no kernel", **runs})
+    return runs
+
+
+def sweep_phase(points):
+    """Phase 18e's sweep leg: `python benches/tpu_sweep_torch.py BATCH SEG`
+    of each of `points`, one process each and nothing beside them
+    (`sweep` line: each point's line, its process's seconds, peak device
+    memory and launches). Fails unless each line is on the card (the
+    card's name and power limit, `pallas_megakernel` on, rng_stream 3),
+    completed at least 3 x batch seeds with coverage, and its process
+    launched the megakernel and the flush and no pop kernel. Returns the
+    launches, summed."""
+    import tempfile
+
+    from madsim_tpu_torch.perf.history import card as card_of
+
+    card = card_of()
+    out, total = [], {}
+    with tempfile.TemporaryDirectory(prefix="madsim_sweep_") as tmp:
+        for batch, seg in points:
+            r = run_script(tmp, f"sweep_{batch}_{seg}", "tpu_sweep_torch.py", (str(batch), str(seg)))
+            found = [json.loads(ln) for ln in r["out"].splitlines() if ln.startswith("{")]
+            p = found[0] if len(found) == 1 else {}
+            if p.get("platform") != "cuda" or p.get("card") != card or not p.get("pallas_megakernel") or \
+                    p.get("rng_stream") != 3 or (p.get("batch"), p.get("segment_steps")) != (batch, seg) or \
+                    p.get("completed", 0) < 3 * batch or not p.get("coverage", {}).get("slots_hit"):
+                fail(f"tpu_sweep_torch.py {batch} {seg}: want one line on the card ({card}):\n{r['out'][-3000:]}\n"
+                     f"{r['err'][-3000:]}")
+            ln = r["launches"]
+            if not (ln.get("step_megakernel") and ln.get("cov_flush")) or ln.get("pop_gather") or \
+                    ln.get("pop_earliest"):
+                fail(f"tpu_sweep_torch.py {batch} {seg} launched {ln}")
+            for k, n in ln.items():
+                total[k] = total.get(k, 0) + n
+            out.append({**p, "subprocess_s": r["s"], "peak_bytes": r["peak_bytes"], "launches": ln})
+    emit({"phase": "sweep", "card": card_line(), "points": out, "launches": total})
+    return total, out
+
+
+def sweep_kernels(np, kernels, dev, points):
+    """The sweep's new shapes, held against their twins and timed on a
+    state of the sweep's own engine (`sweep_kernels` line): the
+    megakernel with the digest (Q = 96, W = 10) and the flush (C = 16) at
+    each width of SWEEP_KERNEL_LANES, the state SWEEP_STATE_STEPS in and a
+    flush period past it, where one of the sweep's `points` ran; each
+    shape's launches those of the points at its width."""
+    steps, flushes = [], []
+    for lanes in [w for w in SWEEP_KERNEL_LANES if any(p["batch"] == w for p in points)]:
+        n = {k: sum(p["launches"].get(k, 0) for p in points if p["batch"] == lanes)
+             for k in ("step_megakernel", "cov_flush")}
+        state, words, q = built(f"sweep_{lanes}", lambda: sweep_state(np, lanes))
+        steps.append((f"step_megakernel_L{lanes}_Q{q}_W{words}", state, words, n["step_megakernel"]))
+        flushes.append((f"cov_flush_L{lanes}", state.cov, n["cov_flush"]))
+    return time_kernel_shapes(kernels, dev, "sweep_kernels", steps, flushes)
+
+
+def sweep_mesh_run():
+    """Phase 18e's mesh leg (from a thread in the window; it times
+    nothing): `python benches/tpu_sweep_torch.py --mesh OUT` at its own
+    defaults (1,024 lanes, 192-step segments) in a temporary directory,
+    its history there. Fails unless the 1-rank point ran NCCL and the
+    2-rank point gloo on the shared card, each point completed the 1-rank
+    point's seeds with its coverage, the document says the card is
+    shared and the history holds a row for each point (`sweep_mesh`)."""
+    import os
+    import tempfile
+
+    from madsim_tpu_torch.perf.history import card as card_of
+
+    card = card_of()
+    with tempfile.TemporaryDirectory(prefix="madsim_sweep_mesh_") as tmp:
+        out = pathlib.Path(tmp) / "mesh.json"
+        hist = pathlib.Path(tmp) / "history.jsonl"
+        r = run_script(tmp, "sweep_mesh", "tpu_sweep_torch.py", ("--mesh", str(out)),
+                       extra_env={"MADSIM_TPU_BENCH_HISTORY": str(hist)}, nice=10)
+        doc = json.loads(out.read_text())
+        rows = [json.loads(ln) for ln in hist.read_text().splitlines() if ln.strip()]
+        listed = os.listdir(tmp)
+    pts = doc["points"]
+    first = pts[0]
+    if [p["devices"] for p in pts] != [1, 2] or [p["backend"] for p in pts] != ["nccl", "gloo"] or \
+            any((p["completed"], p["coverage"]) != (first["completed"], first["coverage"]) for p in pts) or \
+            first["completed"] < 3 * doc["batch"] or not doc["shared_card"] or doc["card"] != card or \
+            [(w["tag"], w["fingerprint"]["device_count"]) for w in rows] != [("mesh_d1", 1), ("mesh_d2", 2)] or \
+            "TORCH_MULTICHIP.json" in listed:
+        fail(f"tpu_sweep_torch.py --mesh: {json.dumps(doc)[:3000]}\nhistory {rows}\n{r['err'][-3000:]}")
+    emit({"phase": "sweep_mesh", "card": card_line(), "batch": doc["batch"], "segment_steps": doc["segment_steps"],
+          "points": pts, "scaling_vs_1dev": doc["scaling_vs_1dev"], "shared_card": doc["shared_card"],
+          "reason": doc.get("shared_card_reason"), "s": r["s"], "equal": True})
+
+
+def guided_compare_row(device=None):
+    """benches/guided_compare_torch.py's raft coverage row at
+    GUIDED_COMPARE_ROW through its own run_unguided and run_guided on
+    `device` (None: the card): its deterministic columns (JSON's types),
+    each mode's seconds and the launches."""
+    mod = bench_script("guided_compare_torch")
+    ns = mod._args_ns(*GUIDED_COMPARE_ROW, "cpu" if device == "cpu" else "cuda")
+    eng = mod._build_engine(ns)
+    from madsim_tpu_torch.ops import kernels
+
+    before = dict(kernels.launches)
+    ug, g = mod.run_unguided(eng, ns), mod.run_guided(eng, ns)
+    det = {"unguided": {k: ug[k] for k in ("slots", "failing", "first_find")},
+           "guided": {k: g[k] for k in ("slots", "failing", "first_find", "escalation", "trail", "bias")}}
+    return {**json.loads(json.dumps(det)), "s": {"unguided": ug["elapsed_s"], "guided": g["elapsed_s"]},
+            "launches": {k: v - before.get(k, 0) for k, v in kernels.launches.items()}}
+
+
+def guided_compare_checks(torch, np, kernels):
+    """Phase 18e's guided_compare leg (a CHECK_GROUPS group: a process of
+    its own in the window; it times nothing): raft's coverage row of
+    benches/guided_compare_torch.py on the card, and the same row in a
+    niced --device cpu process beside it. Fails unless every
+    deterministic column (slots, failing seeds, first finds, escalation,
+    the trail and the bias) is equal on the two devices, guided strictly
+    beats unguided (the script's raft verdict) and the card's row
+    launched pop_gather and the flush (`guided_compare` line)."""
+    import os
+    import tempfile
+
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix="madsim_guided_compare_") as tmp:
+        out = pathlib.Path(tmp) / "cpu.json"
+        t0_wall = time.time()
+        with open(pathlib.Path(tmp) / "cpu.err", "w") as err:
+            proc = subprocess.Popen([sys.executable, "-c", GUIDED_COMPARE_CPU, repo, str(out)],
+                                    env=dict(os.environ, OMP_NUM_THREADS="2"), stdout=err, stderr=err)
+        _track(proc)
+        t0 = time.perf_counter()
+        card = guided_compare_row()
+        card_s = round(time.perf_counter() - t0, 3)
+        if proc.wait() != 0:
+            fail(f"guided_compare on the CPU exited {proc.returncode}:\n"
+                 f"{(pathlib.Path(tmp) / 'cpu.err').read_text()[-3000:]}")
+        cpu = json.loads(out.read_text())
+        # the CPU process's seconds, from its start here to the end it wrote
+        cpu_s = round(cpu.pop("end_wall") - t0_wall, 3)
+    for mode in ("unguided", "guided"):
+        if card[mode] != cpu[mode]:
+            diff = [k for k in card[mode] if card[mode][k] != cpu[mode][k]]
+            fail(f"guided_compare ({mode}): the card and the CPU differ in {diff}")
+    ug, g = card["unguided"], card["guided"]
+    verdict = "PASS" if g["slots"] > ug["slots"] else "FAIL"
+    if verdict != "PASS" or not card["launches"].get("pop_gather") or not card["launches"].get("cov_flush"):
+        fail(f"guided_compare: raft guided {g['slots']} against unguided {ug['slots']} slots (the script's "
+             f"verdict: guided must strictly beat unguided); launches {card['launches']}")
+    emit({"phase": "guided_compare", "card": card_line(), "model": GUIDED_COMPARE_ROW[0],
+          "budget": GUIDED_COMPARE_ROW[6], "batch": GUIDED_COMPARE_ROW[7], "max_steps": GUIDED_COMPARE_ROW[4],
+          "unguided_slots": ug["slots"], "guided_slots": g["slots"], "escalation": g["escalation"],
+          "first_find": [ug["first_find"], g["first_find"]], "finds": [len(ug["failing"]), len(g["failing"])],
+          "verdict": verdict, "equal": True, "card_s": card_s, "card_modes_s": card["s"],
+          "cpu_process_s": cpu_s, "cpu_modes_s": cpu["s"], "launches": card["launches"]})
+    return {"launches": card["launches"]}
 
 
 # Phase 4b and the card-against-CPU checks of phases 6-9, 12 and 13 time
@@ -4894,6 +5280,8 @@ CHECK_GROUPS = {
     "services_drift": (("services_drift", lambda torch, np, kernels: services_checks(torch, np, kernels, "drift")),),
     "services_faithful": (("services_faithful",
                            lambda torch, np, kernels: services_checks(torch, np, kernels, "faithful")),),
+    "guided_compare": (("guided_compare", guided_compare_checks),),
+    "tail_replays": (("triage", triage_checks), ("hunt_replays", hunt_replays_cpu)),
 }
 
 
@@ -5029,6 +5417,125 @@ def lint_phase():
           "card": card_line()})
 
 
+# The states the serial tail's kernel phases time their kernels on, where
+# they depend on nothing the tail runs: built in the window (prebuild_states
+# and, once their groups have joined, the check groups' model, palette,
+# clog and triage states), where the main process otherwise only waits;
+# each phase takes its state from here (built there when absent: `--only` runs)
+STATES = {}
+
+
+def built(key, build):
+    """The state the window built for `key` (taken once), else `build()`."""
+    return STATES.pop(key) if key in STATES else build()
+
+
+def flushed_state(eng, seeds, steps):
+    """`eng`'s batch of `seeds` `steps` in, then a coverage flush period
+    (its buffers full as at a cadence flush)."""
+    state = eng.run_segment(eng.init_batch(seeds), steps)
+    for _ in range(eng._cov_flush_every):
+        state = eng.step_batch(state)
+    return state
+
+
+def command_state(np, argv, lanes, seed0=0):
+    """A state of the engine the command line builds for `argv`: `lanes`
+    seeds from `seed0`, 64 steps and a flush period in; with its word
+    block."""
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+
+    eng = _build_engine(_parser().parse_args(argv))
+    return flushed_state(eng, np.arange(seed0, seed0 + lanes, dtype=np.uint32), 64), eng._rng_layout.total_words
+
+
+def mesh_state(np):
+    """Rank 0's share of the mesh path's lanes (4096 of the flagship) 96
+    steps and a flush period in; with its word block."""
+    eng = flagship_engine()
+    lanes = LANES // MESH_RANKS
+    return flushed_state(eng, np.arange(LANES, LANES + lanes, dtype=np.uint32), 96), eng._rng_layout.total_words
+
+
+def delay_state(np):
+    """The delay engine's v3 batch at the hunt's width, 96 steps in."""
+    eng = delay_engine(3)
+    return eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), 96), eng._rng_layout.total_words
+
+
+def service_states(np):
+    """The services' bugged batches SVC_STATE_STEPS in and single lanes of
+    the replays' engines."""
+    seeds = np.arange(SVC_LANES, dtype=np.uint32)
+    states = {}
+    for name in ("etcd_nodedup", "kafka_nofencing", "s3_arrival"):
+        eng = service_engine(name)
+        states[name] = eng.run_segment(eng.init_batch(seeds), SVC_STATE_STEPS)
+    for key, name, seed in (("L1_Q48", "etcd_chaos", 16), ("L1_Q96", "kafka_kill", 0)):
+        eng = service_engine(name)
+        states[key] = eng.run_segment(eng.init_batch([seed]), SVC_STATE_STEPS)
+    return states
+
+
+def fleet_state(np):
+    """The handover job's engine's 64 lanes, 64 steps and a flush period in."""
+    from madsim_tpu_torch.__main__ import _build_engine
+    from madsim_tpu_torch.fleet.store import normalize_spec, spec_to_args
+
+    eng = _build_engine(spec_to_args(normalize_spec(FLEET_GUIDED)))
+    return flushed_state(eng, np.arange(FLEET_GUIDED["batch"], dtype=np.uint32), 64)
+
+
+def diff_states(np):
+    """The differential's engine's 64 and 256 lanes, DIFF_STATE_STEPS in."""
+    from madsim_tpu_torch.engine import Engine, EngineConfig, FaultPlan
+    from madsim_tpu_torch.models import RaftMachine
+
+    eng = Engine(RaftMachine(num_nodes=5, log_capacity=8), EngineConfig(**DIFF, faults=FaultPlan(**DIFF_FAULTS)))
+    return tuple(eng.run_segment(eng.init_batch(np.arange(lanes, dtype=np.uint32)), DIFF_STATE_STEPS)
+                 for lanes in (DIFF_LANES, DIFF_WHOLE_LANES))
+
+
+def bench_state(np):
+    """The machine bench's engine's 8192 lanes, BENCH_STATE_STEPS in."""
+    from madsim_tpu_torch.__main__ import _build_engine, _parser
+
+    eng = _build_engine(_parser().parse_args(["bench", *BENCH_MACHINE]))
+    return eng.run_segment(eng.init_batch(np.arange(LANES, dtype=np.uint32)), BENCH_STATE_STEPS)
+
+
+def sweep_state(np, lanes):
+    """The sweep's engine's `lanes` lanes, SWEEP_STATE_STEPS and a flush
+    period in; with its word block and queue."""
+    eng = bench_script("tpu_sweep_torch").sweep_engine()
+    return (flushed_state(eng, np.arange(lanes, dtype=np.uint32), SWEEP_STATE_STEPS), eng._rng_layout.total_words,
+            eng.config.queue_capacity)
+
+
+def prebuild_states(np):
+    """The tail's states that depend on nothing it runs, into STATES."""
+    builders = {
+        "mesh": lambda: mesh_state(np),
+        "delay": lambda: delay_state(np),
+        "soak": lambda: soak_state_of(np),
+        "examples": lambda: example_states(np, example_modules()),
+        "services": lambda: service_states(np),
+        "fleet": lambda: fleet_state(np),
+        "cli_check": lambda: command_state(np, ["explore", *CLI_HUNT], 256),
+        "cli_small": lambda: command_state(np, CLI_SMALL, 64),
+        "diff": lambda: diff_states(np),
+        "perf_ab": lambda: command_state(np, ["explore", *PERF_ARGS], AB_LANES),
+        "perf_ab_v2": lambda: command_state(np, ["explore", *PERF_ARGS_V2], AB_LANES),
+        "perf_replay": lambda: command_state(np, ["explore", *PERF_ARGS], 1, PROF_TRACE_SEED),
+        "bench": lambda: bench_state(np),
+        f"sweep_{SWEEP_POINT[0]}": lambda: sweep_state(np, SWEEP_POINT[0]),
+    }
+    t0 = time.perf_counter()
+    for key, build in builders.items():
+        STATES[key] = build()
+    return round(time.perf_counter() - t0, 3)
+
+
 def window_phase(torch, np, kernels):
     """The work that times nothing, all at once, with phase 11's first
     two stages, whose hunt rates and command seconds are taken beside it:
@@ -5038,32 +5545,56 @@ def window_phase(torch, np, kernels):
     driven from a thread), phase 18c (lint, from a thread), phase 16's
     checks (PerfChecks), each group of
     CHECK_GROUPS in a process of its own (phase 18b's device half among
-    them), and in this process phase 6's replays, then phase 11's first
-    two stages (cli_stages, from a thread). Returns
-    the groups' results, the replays' launches and states
-    (replay_and_corpus), the fleet's launches (fleet_jobs), the
-    PerfChecks, joined, the examples' records (examples_run) and phase
-    11's first two stages."""
+    them, and tail_replays: phase 10's checks, triage_checks, and the CPU's
+    replays of phases 7-9's hunts, hunt_replays_cpu), phase 11's first two
+    stages (cli_stages, from a thread; they launch nothing in this
+    process) and in this process phase 6's replays, then the tail's
+    states that depend on nothing it runs (prebuild_states) and, as each check group ends, the states the tail
+    takes from its results. Returns the groups' results, the replays'
+    launches and states (replay_and_corpus), the fleet's launches
+    (fleet_jobs), the PerfChecks, joined, the examples' records
+    (examples_run) and phase 11's first two stages."""
     fleet, examples, perf_checks = InThread(fleet_jobs), InThread(examples_run), PerfChecks()
-    host, lint = InThread(services_host), InThread(lint_phase)
+    host, lint, sweep_mesh = InThread(services_host), InThread(lint_phase), InThread(sweep_mesh_run)
     cli = InThread(lambda: cli_stages(torch, np))
     groups = [ChildChecks(g) for g in CHECK_GROUPS]
     lint.start()
     fleet.start()
     examples.start()
     host.start()
+    sweep_mesh.start()
     for g in groups:
         g.start()
     perf_checks.start()
-    replays = replay_and_corpus(torch, np, kernels)
     cli.start()
-    checks = {}
-    for g in groups:
-        checks.update(g.join())
+    replays = replay_and_corpus(torch, np, kernels)
+    prebuilt_s = prebuild_states(np)
+    # the groups joined as they end, each state the tail takes from a
+    # group's results built as soon as it is there, while the rest of the
+    # window runs
+    from_checks = {"models": lambda: model_states_of(np, checks["models"]),
+                   "palette": lambda: palette_states_of(np, checks["palette"]),
+                   "clog": lambda: clog_states_of(np, checks["clog"]),
+                   "triage": lambda: triage_states_of(np, checks["triage"])}
+    checks, pending, from_checks_s = {}, list(groups), 0.0
+    while pending:
+        ended = [g for g in pending if g.proc.poll() is not None]
+        if not ended:
+            time.sleep(0.5)
+        for g in ended:
+            pending.remove(g)
+            checks.update(g.join())
+            for key in [k for k in from_checks if k in checks]:
+                t0 = time.perf_counter()
+                STATES[key] = from_checks.pop(key)()
+                from_checks_s += time.perf_counter() - t0
+    emit({"phase": "window_states", "prebuilt_s": prebuilt_s, "from_checks_s": round(from_checks_s, 3),
+          "states": sorted(STATES)})
     fleet_res = fleet.join()
     perf_checks.join()
     host.join()
     lint.join()
+    sweep_mesh.join()
     return checks, replays, fleet_res, perf_checks, examples.join(), cli.join()
 
 
@@ -5074,12 +5605,12 @@ def main(argv=None):
     args.add_argument("--against", action="append", default=[],
                       help="another csrc tree to time the lane-group kernels against (repeatable)")
     args.add_argument("--only", choices=("cli", "prov", "guided", "perf", "fleet", "mesh", "examples", "services",
-                                         "bench", "window"),
+                                         "bench", "sweep", "window"),
                       default=None,
                       help="build, then run phase 11 alone (cli), phases 11-13 (prov), phases 14-15 (guided), "
                       "phase 16 (perf), phase 17 (fleet), phase 17b (mesh), phase 18 (examples), phase 18b "
-                      "(services), phase 18d (bench) or the work that times nothing, at once (window): a short "
-                      "check that prints no result line")
+                      "(services), phase 18d (bench), phase 18e over the sweep's whole grid (sweep) or the work "
+                      "that times nothing, at once (window): a short check that prints no result line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card", file=sys.stderr)
@@ -5152,16 +5683,27 @@ def main(argv=None):
         bench_kernels(np, kernels, torch.device("cuda"), bench_phase())
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
         return 0
+    if args.only == "sweep":
+        rpc_bench_phase()
+        _, points = sweep_phase(bench_script("tpu_sweep_torch").DEFAULT_GRID)
+        sweep_kernels(np, kernels, torch.device("cuda"), points)
+        sweep_mesh, group = InThread(sweep_mesh_run), ChildChecks("guided_compare")
+        sweep_mesh.start()
+        group.start()
+        group.join()
+        sweep_mesh.join()
+        emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
+        return 0
     if args.only == "window":
         checks, _, (_, w3_launches), perf_checks, examples, _ = window_phase(torch, np, kernels)
         examples_kernels(np, kernels, torch.device("cuda"), examples)
         services_kernels(np, kernels, torch.device("cuda"), services_launches(checks))
         mesh_kernels(np, kernels, torch.device("cuda"), checks["mesh"]["launches_mesh"])
         # the states the timed phases take from it
-        model_states_of(np, checks["models"])
-        palette_states_of(np, checks["palette"])
-        soak_state_of(np)
-        clog_kernels(kernels, torch.device("cuda"), clog_states_of(np, checks["clog"]))
+        built("models", lambda: model_states_of(np, checks["models"]))
+        built("palette", lambda: palette_states_of(np, checks["palette"]))
+        built("soak", lambda: soak_state_of(np))
+        clog_kernels(kernels, torch.device("cuda"), built("clog", lambda: clog_states_of(np, checks["clog"])))
         fleet_kernels(np, kernels, torch.device("cuda"), w3_launches)
         emit({"phase": "perf_checks", **perf_checks.read()})
         emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
@@ -5308,9 +5850,9 @@ def main(argv=None):
     # matrix; 16.'s commands that time nothing; 17. the hunt fleet
     checks, (replay_launches, replay_state, corpus_states), (fleet_launches, w3_launches), perf_checks, examples, \
         cli_first = window_phase(torch, np, kernels)
-    model_states = model_states_of(np, checks["models"])
-    palette_states = palette_states_of(np, checks["palette"])
-    storage = {**checks["storage"], "soak_state": soak_state_of(np)}
+    model_states = built("models", lambda: model_states_of(np, checks["models"]))
+    palette_states = built("palette", lambda: palette_states_of(np, checks["palette"]))
+    storage = {**checks["storage"], "soak_state": built("soak", lambda: soak_state_of(np))}
 
     os.unlink(ref_path)
     # 17b. the mesh path's kernel shapes (a rank's 4096 lanes)
@@ -5321,9 +5863,10 @@ def main(argv=None):
     delay_kernels(np, kernels, dev)
 
     # 7-9. the MVCC, palette and torn hunts at full width
-    _, hunt_state = stream_mvcc_phase(torch, np, kernels)
-    stream_palette_phase(torch, np, kernels, palette_states)
-    stream_torn_phase(torch, np, kernels, storage)
+    hunt_cpu = checks["hunt_replays"]
+    _, hunt_state = stream_mvcc_phase(torch, np, kernels, hunt_cpu["mvcc"])
+    stream_palette_phase(torch, np, kernels, palette_states, hunt_cpu)
+    stream_torn_phase(torch, np, kernels, storage, hunt_cpu["torn"])
     storage_kernels(kernels, dev, storage, palette_states)
     fleet_kernels(np, kernels, dev, w3_launches)
     # 18. the examples' kernel shapes; 18b. the service differentials'
@@ -5336,7 +5879,7 @@ def main(argv=None):
 
     # 10. the triage path: the double-grant hunt, its post-mortem, shrink,
     #     corpus entry and export
-    triage = triage_phase(torch, np, kernels, triage_eng)
+    triage = triage_phase(torch, np, kernels, triage_eng, checks["triage"], STATES.pop("triage"))
     triage_kernels(kernels, dev, triage, model_states)
     models_v2_state, models_v2_launches = model_states["v2"]
     pops = check_pop_kernels(kernels, g, dev, v2_state, replay_state, hunt_state, corpus_states, palette_states,
@@ -5391,7 +5934,7 @@ def main(argv=None):
 
     # 12. the provenance gate's cost; 13. the clog matrix's kernel shapes
     provenance_phase(np, cli, checks["prov_legs"])
-    clog_kernels(kernels, dev, clog_states_of(np, checks["clog"]))
+    clog_kernels(kernels, dev, built("clog", lambda: clog_states_of(np, checks["clog"])))
 
     # 14. guided search at full width; 15. the Raft differential's device
     # side (the whole differential ran in the window)
@@ -5414,6 +5957,12 @@ def main(argv=None):
     bench_pop = bench_kernels(np, kernels, dev, bench)[f"pop_gather_L{LANES}_Q96"]
     launches_bench = bench["all"]
 
+    # 18e. the bench scripts' port copies: rpc_bench on the host, the
+    # sweep's widest point alone, then its kernels at that width
+    rpc_bench_phase()
+    launches_sweep, sweep_points = sweep_phase([SWEEP_POINT])
+    sweep_kernels(np, kernels, dev, sweep_points)
+
     emit({"phase": "total", "seconds": round(time.perf_counter() - started, 3)})
 
     # 19. the kernels line
@@ -5427,7 +5976,8 @@ def main(argv=None):
          "launches_differential": launches_differential.get("step_megakernel", 0),
          "launches_examples": launches_examples["step_megakernel"],
          "launches_services": launches_services["step_megakernel"],
-         "launches_bench": launches_bench.get("step_megakernel", 0)},
+         "launches_bench": launches_bench.get("step_megakernel", 0),
+         "launches_sweep": launches_sweep.get("step_megakernel", 0)},
         {"name": "cov_flush", "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/cov_flush.cu",
          "replaces": "madsim_tpu/ops/pallas_pop.py:408", "launches": launches["cov_flush"],
          "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound[0],
@@ -5437,7 +5987,8 @@ def main(argv=None):
          "launches_differential": launches_differential.get("cov_flush", 0),
          "launches_examples": launches_examples["cov_flush"],
          "launches_services": launches_services["cov_flush"],
-         "launches_bench": launches_bench.get("cov_flush", 0)},
+         "launches_bench": launches_bench.get("cov_flush", 0),
+         "launches_sweep": launches_sweep.get("cov_flush", 0)},
         # each at the shape where its launches run: pop_earliest's are the
         # single-lane replay's
         *({"name": name, "route": "cuda", "source": "madsim_tpu_torch/ops/csrc/pop_gather.cu",
@@ -5447,7 +5998,7 @@ def main(argv=None):
            "launches_fleet": fleet_launches[name], "launches_mesh": launches_mesh.get(name, 0),
            "launches_differential": launches_differential.get(name, 0),
            "launches_examples": launches_examples[name], "launches_services": launches_services[name],
-           "launches_bench": launches_bench.get(name, 0),
+           "launches_bench": launches_bench.get(name, 0), "launches_sweep": launches_sweep.get(name, 0),
            # the examples' shapes (phase 18), held and timed in examples_kernels
            "examples": {shape: {key: k_ex[key] for key in (
                "lanes", "q", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")}
